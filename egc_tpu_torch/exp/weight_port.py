@@ -1,0 +1,65 @@
+"""JAX variables -> the port's state dict (counterpart of
+``egc_tpu.exp.weight_port``).
+
+``arxiv_state_dict_from_jax`` applies the arxiv/EGC rules of the JAX
+package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
+given as nested dicts of numpy arrays, and returns the reference-named
+state dict that ``ArxivNet.load_state_dict(strict=True)`` takes:
+
+- Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
+- EGConv ``bases.kernel`` [in, B*L] -> ``bases_weight.{b}`` [in, L];
+  ``comb`` columns are in (h, b, a) order on both sides;
+- MaskedBatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
+  ``running_mean/running_var``, plus ``num_batches_tracked`` = 0.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+
+def _module_indices(params: Dict[str, Any], cls: str) -> List[int]:
+    out = []
+    for k in params:
+        if k == cls or k.startswith(cls + "_"):
+            out.append(int(k[len(cls) + 1:]) if k != cls else 0)
+    return sorted(out)
+
+
+def _t(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    for i in _module_indices(params, "EGConv"):
+        p, tp = params[f"EGConv_{i}"], f"convs.{i}."
+        for b, chunk in enumerate(np.split(np.asarray(p["bases"]["kernel"]),
+                                           bases, axis=1)):
+            sd[f"{tp}bases_weight.{b}"] = chunk
+        sd[tp + "comb_weights.weight"] = _t(p["comb"]["kernel"])
+        sd[tp + "comb_weights.bias"] = np.asarray(p["comb"]["bias"])
+        sd[tp + "bias"] = np.asarray(p["bias"])
+    for i in _module_indices(params, "MaskedBatchNorm"):
+        name, tp = f"MaskedBatchNorm_{i}", f"bns.{i}."
+        sd[tp + "weight"] = np.asarray(params[name]["scale"])
+        sd[tp + "bias"] = np.asarray(params[name]["bias"])
+        sd[tp + "running_mean"] = np.asarray(stats[name]["mean"])
+        sd[tp + "running_var"] = np.asarray(stats[name]["var"])
+    sd["embed.0.weight"] = _t(params["embed"]["kernel"])
+    sd["embed.0.bias"] = np.asarray(params["embed"]["bias"])
+    sd["out.weight"] = _t(params["out"]["kernel"])
+    sd["out.bias"] = np.asarray(params["out"]["bias"])
+    for k in list(sd):
+        if k.endswith("running_mean"):
+            sd[k[:-len("running_mean")] + "num_batches_tracked"] = \
+                np.asarray(0, np.int64)
+    return OrderedDict(
+        (k, torch.from_numpy(np.array(v))) for k, v in sd.items())

@@ -1,0 +1,115 @@
+"""Task networks (counterpart of ``egc_tpu.models.nets``).
+
+This slice ports ``ArxivNet`` with the EGC conv; ``ConvSpec`` names every
+kind the JAX package has, and the kinds not ported yet raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from egc_tpu_torch.nn import init as einit
+from egc_tpu_torch.nn.conv.egc import EGConv
+from egc_tpu_torch.nn.norm import MaskedBatchNorm
+
+MODEL_KINDS = ("gcn", "gat", "gatv2", "gin", "mpnn-sum", "mpnn-max", "pna",
+               "sage", "egc")
+# where each kind not ported yet stands in ROADMAP.md's queue A
+_NOT_PORTED = {
+    "gcn": "A9 (convs on conv_aggregate)",
+    "gin": "A9 (convs on conv_aggregate)",
+    "sage": "A9 (convs on conv_aggregate)",
+    "mpnn-sum": "A9 (convs on conv_aggregate)",
+    "mpnn-max": "A9 (convs on conv_aggregate)",
+    "pna": "A9 (convs on conv_aggregate)",
+    "gat": "A10 (attention convs) with kernel B4",
+    "gatv2": "A10 (attention convs) with kernel B5",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    """What builds one graph layer (``egc_tpu`` ``ConvSpec``)."""
+
+    kind: str
+    heads: int = 8
+    bases: int = 4
+    softmax: bool = False
+    sigmoid: bool = False
+    hardtanh: bool = False
+    aggrs: Optional[Tuple[str, ...]] = None
+    self_loop_mode: str = "paper"
+
+    def build(self, in_dim: int, out_dim: int, *,
+              generator: Optional[torch.Generator] = None,
+              device=None) -> nn.Module:
+        if self.kind == "egc":
+            if not self.aggrs:
+                raise ValueError("EGC requires aggrs")
+            weighting = ("softmax" if self.softmax else
+                         "sigmoid" if self.sigmoid else
+                         "hardtanh" if self.hardtanh else "none")
+            return EGConv(in_dim, out_dim, num_heads=self.heads,
+                          num_bases=self.bases, aggrs=self.aggrs,
+                          weighting=weighting,
+                          self_loop_mode=self.self_loop_mode,
+                          generator=generator, device=device)
+        if self.kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"conv kind {self.kind!r} is not ported to egc_tpu_torch "
+                f"yet: ROADMAP.md item {_NOT_PORTED[self.kind]}")
+        raise ValueError(f"unknown model kind {self.kind!r}; supported "
+                         f"{MODEL_KINDS}")
+
+
+def _linear(fan_in: int, fan_out: int, generator, device) -> nn.Linear:
+    lin = nn.Linear(fan_in, fan_out, device=device)
+    einit.torch_linear_(lin, generator)
+    return lin
+
+
+class ArxivNet(nn.Module):
+    """Linear(128) -> L x [conv, masked BN, ReLU, dropout, +residual] ->
+    Linear(40) -> log-softmax (or raw logits with ``log_probs=False``).
+
+    Submodules carry the reference's names: ``embed.0``, ``convs.{i}``,
+    ``bns.{i}``, ``out``. Dropout draws from the ``generator`` passed to
+    ``forward`` and is active in training mode only.
+    """
+
+    def __init__(self, conv: ConvSpec, hidden_dim: int, *,
+                 num_layers: int = 3, dropout: float = 0.5,
+                 num_features: int = 128, num_classes: int = 40,
+                 log_probs: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.log_probs = log_probs
+        self.embed = nn.Sequential(
+            _linear(num_features, hidden_dim, generator, device))
+        self.convs = nn.ModuleList()
+        self.bns = nn.ModuleList()
+        for _ in range(num_layers):
+            self.convs.append(conv.build(hidden_dim, hidden_dim,
+                                         generator=generator, device=device))
+            self.bns.append(MaskedBatchNorm(hidden_dim, device=device))
+        self.out = _linear(hidden_dim, num_classes, generator, device)
+
+    def forward(self, g, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.embed(g.nodes)
+        for conv, bn in zip(self.convs, self.bns):
+            identity = x
+            x = conv(g, x)
+            x = torch.relu(bn(x, g.node_mask))
+            if self.training and self.dropout > 0:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) >= self.dropout
+                x = x * keep / (1.0 - self.dropout)
+            x = x + identity
+        x = self.out(x)
+        return torch.log_softmax(x, dim=-1) if self.log_probs else x

@@ -1,0 +1,264 @@
+"""Kernel plan and fused multi-aggregate (counterpart of
+``egc_tpu.ops.dispatch``).
+
+``build_kernel_plan`` lays a static graph out for the gather-reduce
+kernels in a Hopper layout: a receiver-sorted CSR for the forward and a
+sender-sorted CSC of the transposed graph for the backward, each with its
+edge weights pre-permuted, plus the in-degree over valid edges. The TPU's
+window/cell layout and its 128-lane row padding are not carried over.
+Masked (padding) edges never enter the plan: the JAX package's note on
+pad-row self-loops (``dispatch.py:135-143``) shows what they would do to
+the max/min tie backward.
+
+``fused_multi_aggregate`` runs the edge-level primitives through one
+autograd function (kernel 1 forward, kernel 2 backward) and assembles the
+aggregators on node-level tensors in plain PyTorch, with the semantics of
+``ops.segment.multi_aggregate``. Edge weights are graph constants: they get
+no gradient.
+
+``conv_aggregate`` is what convs call. Dispatch follows the device: a CUDA
+tensor with a plan goes to the kernels, a CUDA tensor without one raises,
+and a CPU tensor goes to ``ops.segment.multi_aggregate``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from egc_tpu_torch.ops.cuda.gather_reduce import (
+    gather_reduce_bwd, gather_reduce_fwd,
+)
+from egc_tpu_torch.ops.segment import (
+    _var_from_moments, canonical_aggr, multi_aggregate,
+)
+
+
+@dataclasses.dataclass
+class KernelPlan:
+    """Static CSR/CSC edge layouts of one graph over ``num_nodes`` rows."""
+
+    num_nodes: int
+    rowptr: torch.Tensor        # [N+1] int32, forward CSR by receiver
+    fwd_senders: torch.Tensor   # [E'] int32, sender of each CSR edge
+    fwd_w: Optional[torch.Tensor]   # [E'] f32, edge weights in CSR order
+    fwd_perm: torch.Tensor      # [E'] int64, original edge index
+    colptr: torch.Tensor        # [N+1] int32, backward CSC by sender
+    bwd_receivers: torch.Tensor  # [E'] int32, receiver of each CSC edge
+    bwd_w: Optional[torch.Tensor]   # [E'] f32, edge weights in CSC order
+    bwd_perm: torch.Tensor      # [E'] int64, original edge index
+    deg: torch.Tensor           # [N] f32, in-degree over valid edges
+
+    @property
+    def num_edges(self) -> int:
+        return self.fwd_senders.shape[0]
+
+    def to(self, device) -> "KernelPlan":
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self)}
+        return dataclasses.replace(self, **{
+            k: v.to(device) for k, v in fields.items()
+            if isinstance(v, torch.Tensor)})
+
+
+def build_kernel_plan(senders, receivers, num_nodes: int, *,
+                      edge_mask=None, edge_weight=None,
+                      device=None) -> KernelPlan:
+    """Host-side plan build (once per static graph). ``edge_weight`` (in
+    original edge order) is pre-permuted into both layouts."""
+    s = np.asarray(senders, dtype=np.int64)
+    r = np.asarray(receivers, dtype=np.int64)
+    kept = np.arange(len(s)) if edge_mask is None \
+        else np.nonzero(np.asarray(edge_mask))[0]
+    s, r = s[kept], r[kept]
+    if len(s) and (min(s.min(), r.min()) < 0
+                   or max(s.max(), r.max()) >= num_nodes):
+        raise ValueError("edge endpoints out of range [0, num_nodes)")
+    w = None if edge_weight is None else \
+        np.asarray(edge_weight, dtype=np.float32)[kept]
+
+    def layout(major, minor):
+        order = np.lexsort((minor, major))     # by major, then minor
+        ptr = np.searchsorted(major[order], np.arange(num_nodes + 1))
+        return (torch.from_numpy(ptr.astype(np.int32)),
+                torch.from_numpy(minor[order].astype(np.int32)),
+                None if w is None else torch.from_numpy(w[order]),
+                torch.from_numpy(kept[order].astype(np.int64)))
+
+    rowptr, fwd_s, fwd_w, fwd_perm = layout(r, s)
+    colptr, bwd_r, bwd_w, bwd_perm = layout(s, r)
+    deg = torch.from_numpy(
+        np.bincount(r, minlength=num_nodes).astype(np.float32))
+    plan = KernelPlan(num_nodes=num_nodes, rowptr=rowptr, fwd_senders=fwd_s,
+                      fwd_w=fwd_w, fwd_perm=fwd_perm, colptr=colptr,
+                      bwd_receivers=bwd_r, bwd_w=bwd_w, bwd_perm=bwd_perm,
+                      deg=deg)
+    return plan if device is None else plan.to(device)
+
+
+def _plan_prims(aggrs: Tuple[str, ...]) -> Tuple[str, ...]:
+    """Edge-level primitives a canonical aggregator tuple needs."""
+    needs = set(aggrs)
+    prims = []
+    if needs & {"sum", "mean", "var", "std"}:
+        prims.append("sum")
+    if "symnorm" in needs:
+        prims.append("wsum")
+    if needs & {"var", "std"}:
+        prims.append("sumsq")
+    if "max" in needs:
+        prims.append("max")
+    if "min" in needs:
+        prims.append("min")
+    return tuple(prims)
+
+
+class _FusedPrimitives(torch.autograd.Function):
+    """Edge-level primitives: kernel 1 forward, kernel 2 backward over the
+    transposed layout with the packed coefficients
+    ``c_sum|c_wsum|c_sumsq2|mx|c_max|mn|c_min`` (present segments only)."""
+
+    @staticmethod
+    def forward(ctx, vals, plan, prims, ew_f, ew_b):
+        outs = gather_reduce_fwd(vals, plan.rowptr, plan.fwd_senders, ew_f,
+                                 prims)
+        p = dict(zip(prims, outs))
+        ctx.plan, ctx.prims = plan, prims
+        ctx.save_for_backward(vals, ew_b, p.get("max"), p.get("min"))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        vals, ew_b, mx, mn = ctx.saved_tensors
+        ct = dict(zip(ctx.prims, cts))
+        segs, cols = [], []
+        if "sum" in ct:
+            segs.append("c_sum")
+            cols.append(ct["sum"])
+        if "wsum" in ct:
+            segs.append("c_wsum")
+            cols.append(ct["wsum"])
+        if "sumsq" in ct:
+            segs.append("c_sumsq2")
+            cols.append(2.0 * ct["sumsq"])
+        if "max" in ct:
+            segs.extend(["mx", "c_max"])
+            cols.extend([mx, ct["max"]])
+        if "min" in ct:
+            segs.extend(["mn", "c_min"])
+            cols.extend([mn, ct["min"]])
+        coeff = torch.cat(cols, dim=1).contiguous()
+        d_vals = gather_reduce_bwd(
+            coeff, vals, ctx.plan.colptr, ctx.plan.bwd_receivers,
+            ew_b if "c_wsum" in segs else None, segs)
+        return d_vals, None, None, None, None
+
+
+def fused_multi_aggregate(
+    vals: torch.Tensor,                      # [N, F], N == plan.num_nodes
+    plan: KernelPlan,
+    aggrs: Sequence[str],
+    *,
+    include_self: bool = False,
+    symnorm_edge_w: Optional[torch.Tensor] = None,   # [E] original order
+    symnorm_self_w: Optional[torch.Tensor] = None,   # [N]
+    stacked: bool = True,
+):
+    """Plan-based multi-aggregate: ``[N, A, F]``, or a tuple of A ``[N, F]``
+    tensors with ``stacked=False`` (what the head-mix kernel takes).
+    Semantics of ``ops.segment.multi_aggregate``.
+
+    A plan built with ``edge_weight`` carries its own pre-permuted symnorm
+    weights, and they win over ``symnorm_edge_w`` (as in ``egc_tpu``);
+    ``conv_aggregate`` refuses a graph where the two could differ."""
+    aggrs = tuple(canonical_aggr(a) for a in aggrs)
+    if vals.shape[0] != plan.num_nodes:
+        raise ValueError(f"vals has {vals.shape[0]} rows, the plan "
+                         f"{plan.num_nodes}")
+    prims = _plan_prims(aggrs)
+    ew_f = ew_b = None
+    if "wsum" in prims:
+        if plan.fwd_w is not None:
+            ew_f, ew_b = plan.fwd_w, plan.bwd_w
+        elif symnorm_edge_w is None:
+            raise ValueError("symnorm requires symnorm_edge_w")
+        else:
+            w = symnorm_edge_w.detach().float()
+            ew_f = w[plan.fwd_perm].contiguous()
+            ew_b = w[plan.bwd_perm].contiguous()
+    p = dict(zip(prims, _FusedPrimitives.apply(vals.contiguous(), plan,
+                                               prims, ew_f, ew_b)))
+
+    deg = plan.deg[:, None]
+    outs = []
+    for a in aggrs:
+        if a == "sum":
+            out = p["sum"] + vals if include_self else p["sum"]
+        elif a == "mean":
+            if include_self:
+                out = (p["sum"] + vals) / torch.clamp(deg + 1.0, min=1.0)
+            else:
+                out = p["sum"] / torch.clamp(deg, min=1.0)
+        elif a == "symnorm":
+            out = p["wsum"]
+            if symnorm_self_w is not None:
+                out = out + symnorm_self_w[:, None] * vals
+        elif a in ("var", "std"):
+            if include_self:
+                d = torch.clamp(deg + 1.0, min=1.0)
+                m = (p["sum"] + vals) / d
+                msq = (p["sumsq"] + vals * vals) / d
+            else:
+                d = torch.clamp(deg, min=1.0)
+                m = p["sum"] / d
+                msq = p["sumsq"] / d
+            out = _var_from_moments(msq, m)
+            if a == "std":
+                out = torch.sqrt(torch.relu(out) + 1e-5)
+        elif a in ("max", "min"):
+            has = deg > 0
+            ext = p[a]
+            if include_self:
+                pick = torch.maximum if a == "max" else torch.minimum
+                out = pick(torch.where(has, ext, vals), vals)
+            else:
+                out = torch.where(has, ext, torch.zeros_like(ext))
+        else:  # pragma: no cover
+            raise ValueError(a)
+        outs.append(out)
+    return torch.stack(outs, dim=1) if stacked else tuple(outs)
+
+
+def conv_aggregate(g, x, aggrs, *, include_self: bool = False,
+                   symnorm_edge_w=None, symnorm_self_w=None,
+                   stacked: bool = True):
+    """Aggregation entry point of the convs: ``[N, A, F]`` in the order of
+    ``aggrs`` (a tuple of A ``[N, F]`` with ``stacked=False``).
+
+    When the graph's plan carries edge weights, ``symnorm_edge_w`` must be
+    the graph's own ``edge_weight`` (the weights the plan was built from),
+    so the kernels and the CPU path aggregate with the same weights."""
+    plan = g.kernel_plan
+    if (plan is not None and plan.fwd_w is not None
+            and symnorm_edge_w is not None
+            and symnorm_edge_w is not g.edge_weight):
+        raise ValueError(
+            "the graph's kernel plan carries its own edge weights; "
+            "symnorm_edge_w must be the graph's edge_weight")
+    if x.device.type == "cpu":
+        out = multi_aggregate(
+            x, g.senders, g.receivers, aggrs, edge_mask=g.edge_mask,
+            include_self=include_self, symnorm_edge_w=symnorm_edge_w,
+            symnorm_self_w=symnorm_self_w)
+        return out if stacked else tuple(out.unbind(dim=1))
+    if plan is None:
+        raise RuntimeError(
+            "conv_aggregate on a CUDA tensor needs a graph with a kernel "
+            "plan (ops.dispatch.build_kernel_plan)")
+    return fused_multi_aggregate(
+        x, plan, aggrs, include_self=include_self,
+        symnorm_edge_w=symnorm_edge_w, symnorm_self_w=symnorm_self_w,
+        stacked=stacked)

@@ -1,0 +1,190 @@
+"""Segment (neighbourhood) reductions in plain PyTorch (counterpart of
+``egc_tpu.ops.segment``). This is the path every CPU tensor takes.
+
+Semantics are ``egc_tpu``'s (and the reference's torch_scatter ones):
+
+- an empty segment gives 0 for every reduction, max and min included;
+- ``min(x) = -max(-x)``;
+- ``var = E[x^2] - E[x]^2``, ``std = sqrt(relu(var) + 1e-5)``;
+- ``symnorm`` is a weighted sum with GCN symmetric-norm weights;
+- self-loops are virtual (``include_self`` folds x_i in analytically);
+- the max/min backward gives the FULL cotangent to every edge that attains
+  the extremum. ``scatter_reduce("amax")``'s own backward splits it among
+  ties, so the max runs through ``_SegmentMax`` below.
+
+Masked edges are routed to an extra segment row that is sliced away, the
+counterpart of XLA dropping out-of-range segment ids.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+AGGREGATORS = ("sum", "mean", "max", "min", "var", "std", "symnorm")
+_ALIASES = {"add": "sum", "symadd": "symnorm"}
+
+
+def canonical_aggr(name: str) -> str:
+    name = _ALIASES.get(name, name)
+    if name not in AGGREGATORS:
+        raise ValueError(
+            f"unknown aggregator {name!r}; supported: {AGGREGATORS}")
+    return name
+
+
+def _var_from_moments(msq: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``E[x^2] - E[x]^2``. Eager PyTorch materialises it once, so every
+    consumer (sqrt, the relu gate and its backward) sees the same bits —
+    what the JAX version needs an optimisation barrier for."""
+    return msq - m * m
+
+
+def _masked_ids(segment_ids: torch.Tensor, num_segments: int,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    ids = segment_ids.long()
+    if mask is None:
+        return ids
+    return torch.where(mask, ids, torch.full_like(ids, num_segments))
+
+
+def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    return v.reshape(v.shape + (1,) * (ndim - 1))
+
+
+def _segment_sum_ids(data, ids, num_segments):
+    """Sum over ids in [0, num_segments]; id ``num_segments`` is dropped."""
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    return out.index_add(0, ids, data)[:num_segments]
+
+
+class _SegmentMax(torch.autograd.Function):
+    """Segment max with the tie-routing backward: every edge equal to its
+    segment's max gets the full cotangent. Empty segments give 0; the id
+    ``num_segments`` marks a dropped (masked) edge."""
+
+    @staticmethod
+    def forward(ctx, data, ids, num_segments):
+        flat = data.reshape(data.shape[0], -1)
+        out = flat.new_zeros((num_segments + 1, flat.shape[1]))
+        out = out.scatter_reduce(0, ids[:, None].expand_as(flat), flat,
+                                 "amax", include_self=False)[:num_segments]
+        ctx.save_for_backward(flat, ids, out)
+        ctx.data_shape = data.shape
+        return out.reshape((num_segments,) + tuple(data.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, ct):
+        flat, ids, out = ctx.saved_tensors
+        n = out.shape[0]
+        valid = ids < n
+        safe = torch.where(valid, ids, torch.zeros_like(ids))
+        ct = ct.reshape(n, -1)
+        achieved = (flat == out[safe]) & valid[:, None]
+        d = torch.where(achieved, ct[safe], torch.zeros_like(flat))
+        return d.reshape(ctx.data_shape), None, None
+
+
+def _segment_max_raw(data, ids, num_segments):
+    return _SegmentMax.apply(data, ids, num_segments)
+
+
+def segment_count(segment_ids, num_segments: int, *, mask=None,
+                  dtype=torch.float32):
+    ids = _masked_ids(segment_ids, num_segments, mask)
+    ones = torch.ones(ids.shape[0], dtype=dtype, device=ids.device)
+    return _segment_sum_ids(ones, ids, num_segments)
+
+
+def segment_sum(data, segment_ids, num_segments: int, *, mask=None):
+    return _segment_sum_ids(data, _masked_ids(segment_ids, num_segments,
+                                              mask), num_segments)
+
+
+def segment_wsum(data, segment_ids, weights, num_segments: int, *,
+                 mask=None):
+    w = _bcast(weights.to(data.dtype), data.ndim)
+    return segment_sum(data * w, segment_ids, num_segments, mask=mask)
+
+
+def segment_sumsq(data, segment_ids, num_segments: int, *, mask=None):
+    return segment_sum(data * data, segment_ids, num_segments, mask=mask)
+
+
+def segment_max(data, segment_ids, num_segments: int, *, mask=None):
+    return _segment_max_raw(data, _masked_ids(segment_ids, num_segments,
+                                              mask), num_segments)
+
+
+def segment_min(data, segment_ids, num_segments: int, *, mask=None):
+    return -segment_max(-data, segment_ids, num_segments, mask=mask)
+
+
+def multi_aggregate(
+    node_vals: torch.Tensor,              # [N, F]
+    senders: torch.Tensor,                # [E]
+    receivers: torch.Tensor,              # [E]
+    aggrs: Sequence[str],
+    *,
+    edge_mask: Optional[torch.Tensor] = None,
+    include_self: bool = False,
+    symnorm_edge_w: Optional[torch.Tensor] = None,   # [E]
+    symnorm_self_w: Optional[torch.Tensor] = None,   # [N]
+) -> torch.Tensor:
+    """Several aggregators over one gather: returns ``[N, A, F]`` in the
+    order of ``aggrs`` (``egc_tpu.ops.segment.multi_aggregate``)."""
+    aggrs = [canonical_aggr(a) for a in aggrs]
+    n = node_vals.shape[0]
+    gathered = node_vals[senders.long()]
+    ids = _masked_ids(receivers, n, edge_mask)
+    needs = set(aggrs)
+
+    seg_sum = None
+    if needs & {"sum", "mean", "var", "std"}:
+        seg_sum = _segment_sum_ids(gathered, ids, n)
+    counts = None
+    if needs & {"mean", "max", "min", "var", "std"}:
+        counts = segment_count(receivers, n, mask=edge_mask,
+                               dtype=node_vals.dtype)[:, None]
+
+    outs = []
+    for a in aggrs:
+        if a == "sum":
+            out = seg_sum + node_vals if include_self else seg_sum
+        elif a == "mean":
+            if include_self:
+                out = (seg_sum + node_vals) / torch.clamp(counts + 1.0,
+                                                          min=1.0)
+            else:
+                out = seg_sum / torch.clamp(counts, min=1.0)
+        elif a in ("max", "min"):
+            sign = 1.0 if a == "max" else -1.0
+            ext = sign * _segment_max_raw(sign * gathered, ids, n)
+            has = counts > 0
+            if include_self:
+                pick = torch.maximum if a == "max" else torch.minimum
+                out = pick(torch.where(has, ext, node_vals), node_vals)
+            else:
+                out = torch.where(has, ext, torch.zeros_like(node_vals))
+        elif a in ("var", "std"):
+            sq = _segment_sum_ids(gathered * gathered, ids, n)
+            s = seg_sum
+            if include_self:
+                s = s + node_vals
+                sq = sq + node_vals * node_vals
+                d = torch.clamp(counts + 1.0, min=1.0)
+            else:
+                d = torch.clamp(counts, min=1.0)
+            out = _var_from_moments(sq / d, s / d)
+            if a == "std":
+                out = torch.sqrt(torch.relu(out) + 1e-5)
+        else:  # symnorm
+            if symnorm_edge_w is None:
+                raise ValueError("symnorm aggregator requires symnorm_edge_w")
+            w = symnorm_edge_w.to(gathered.dtype)[:, None]
+            out = _segment_sum_ids(gathered * w, ids, n)
+            if symnorm_self_w is not None:
+                out = out + symnorm_self_w.to(out.dtype)[:, None] * node_vals
+        outs.append(out)
+    return torch.stack(outs, dim=1)
