@@ -10,23 +10,30 @@ Phases, each of which raises (exit code 1) on any failed check:
 2. build: every kernel source under ``egc_tpu_torch/csrc/`` with nvcc for
    sm_90a, timed.
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (169,343 nodes, F = 128, 2,368,458 edges, prims
-   sum/wsum/max, K = 4 coefficient segments, head mix H4 B4 A3 L32), values
-   and gradients through the autograd functions, then again at a small
-   size with empty receivers, ties, F = 40 and 37, and A = 1. Kernel,
-   plain and library times are medians of CUDA-event timed launches.
-4. main path: ``train_full_graph`` (arxiv EGC-M, h128 H4 B4
-   symnorm/max/mean, 3 layers) on the 169,343-node synthetic graph. One
-   dropout-0 step on the card is held against the same step of the port
-   on the CPU (loss and every gradient); then 2 warm-up and 10 timed
+   the shapes its path gives it (169,343 nodes, 2,368,458 edges): kernels
+   1-4 at F = 128, prims sum/wsum/max, K = 4 coefficient segments, head
+   mix H4 B4 A3 L32; kernels 5-7 at (H8, C19) and (H1, C152); values and
+   gradients through the autograd functions (and the whole GATConv), and
+   ``segment_gather_reduce`` (kernel 1 over COO edges). Then again at a
+   small size with empty receivers, senders without out-edges, ties,
+   F = 40 and 37, A = 1, and GAT C = 5 and 37. Kernel, plain and library
+   times are medians of CUDA-event timed launches.
+4. the two paths, each through ``train_full_graph`` on the 169,343-node
+   synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean) and
+   "gat" (arxiv GAT, h152 H8, the last layer single-head), 3 layers each.
+   One dropout-0 step on the card is held against the same step of the
+   port on the CPU (loss and every gradient); then 2 warm-up and 10 timed
    dropout-0.2 steps with the launch counters reset just before and read
-   just after, each kernel launching 3 times per step; then a
-   torch.profiler table of two more steps (device time by kernel).
+   just after: each kernel of the path launches 3 times per step and the
+   other path's kernels never; then a torch.profiler table of two more
+   steps (device time by kernel).
 
-Printed at the end: one JSON line per the kernels, the nvidia-smi line, and
-the result line ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or outside the repository, it exits nonzero and prints no result.
-``--out`` writes every measured number to a JSON file.
+Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
+the result line ``{"ok": true, "device": {...}}``. A kernel row's times
+and bound for kernels 5-7 are per launch on the GAT path: two launches at
+(H8, C19) and one at (H1, C152) per step. Without a CUDA device, or
+outside the repository, it exits nonzero and prints no result. ``--out``
+writes every measured number to a JSON file.
 """
 
 from __future__ import annotations
@@ -42,6 +49,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 STEPS_WARMUP, STEPS_TIMED = 2, 10
+NUM_NODES, NUM_EDGES = 169_343, 2_368_458
+GAT_NET = dict(kind="gat", hidden=152, heads=8)
+GAT_SHAPES = ((8, 19), (1, 152))   # layers 0-1 and layer 2 of h152 H8
+PATH_KERNELS = {
+    "main": ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
+             "headmix_bwd"),
+    "gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
+}
 # tolerances, with why:
 SUM_RTOL = SUM_ATOL = 1e-5     # f32 sums of <= ~40 terms in another order
 GRAD_REL_L2 = 1e-4             # autograd vs kernel backward; var/std
@@ -364,6 +379,244 @@ def kernels_small(dev) -> None:
         "A=1, y_width > B*L)")
 
 
+def check_segment_gather_reduce(data) -> dict:
+    """``segment_gather_reduce`` (kernel 1 behind a COO entry, with its row
+    pointer build and input checks) against its plain version at the main
+    path's shapes, timed."""
+    import torch
+    from egc_tpu_torch.ops.cuda import gather_reduce as gr
+    plan = data["graph"].kernel_plan
+    n = plan.num_nodes
+    vals = torch.randn(n, 128, generator=torch.Generator(
+        device=data["device"]).manual_seed(2), device=data["device"])
+    ops = ("sum", "wsum", "max")
+    args = (vals, plan.fwd_senders, gr._row_ids(plan.rowptr))
+    kw = dict(num_out_rows=n, ops=ops, edge_w=plan.fwd_w)
+    got = gr.segment_gather_reduce(*args, **kw)
+    ref = gr.gather_reduce_fwd_plain(vals, plan.rowptr, plan.fwd_senders,
+                                     plan.fwd_w, ops)
+    err = max(_close(f"segment_gather_reduce[{p}]", a, b)
+              for p, a, b in zip(ops, got, ref))
+    e = plan.num_edges
+    b_ms, b_by = bound_ms(4 * (n * 128 + 3 * e + len(ops) * n * 128),
+                          4.0 * e * 128)
+    res = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lambda: gr.segment_gather_reduce(*args, **kw)),
+               plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(
+                   vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, ops)))
+    log(f"[kernels] segment_gather_reduce: {res['ms']:.4f} ms (plain "
+        f"{res['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}), max abs err "
+        f"{err:.3e}")
+    return res
+
+
+def _gat_inputs(n, heads, c, gen, dev):
+    """wh, a_src, a_dst and the cotangents g_o, g_d; g_o is scaled so the
+    per-head dot q is O(1)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    return (randn(n, heads * c), randn(n, heads), randn(n, heads),
+            randn(n, heads * c) / math.sqrt(c), randn(n, heads))
+
+
+def _gat_kernel_args(plan, ins):
+    """Arguments of kernels 5, 6 and 7 (m from the plain forward)."""
+    from egc_tpu_torch.ops.cuda import attention as at
+    wh, a_src, a_dst, g_o, g_d = ins
+    fwd = (wh, a_src, a_dst, plan.rowptr, plan.fwd_senders)
+    m = at.gat_fwd_plain(*fwd)[2]
+    return {"gat_fwd": fwd,
+            "gat_bwd_t": (wh, a_src, a_dst, m, g_o, g_d, plan.colptr,
+                          plan.bwd_receivers),
+            "gat_bwd_f": (wh, a_src, a_dst, m, g_o, g_d, plan.rowptr,
+                          plan.fwd_senders)}
+
+
+def _gat_kernel_errs(kernel_args, label, empty=None, silent=None) -> dict:
+    """Each GAT kernel against its plain version on ``_gat_kernel_args``:
+    max abs err by kernel. ``empty`` / ``silent``: row masks whose outputs
+    must be exact zeros."""
+    import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+    errs = {}
+    for name, args in kernel_args.items():
+        got = getattr(at, name)(*args)
+        ref = getattr(at, name + "_plain")(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs[name] = max(_close(f"{name}[{label}] out {i}", a, b)
+                         for i, (a, b) in enumerate(zip(got, ref)))
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"{name}[{label}]: non-finite output")
+        rows = {"gat_fwd": empty, "gat_bwd_t": silent,
+                "gat_bwd_f": empty}[name]
+        if rows is not None:
+            outs = got[:2] if name == "gat_fwd" else got
+            check(all(bool((t[rows] == 0).all()) for t in outs),
+                  f"{name}[{label}]: empty rows are not exact zeros")
+            if name == "gat_fwd":
+                check(bool((got[2][rows] == at.EMPTY_MAX).all()),
+                      f"{name}[{label}]: m of empty rows")
+    return errs
+
+
+def _check_gat_autograd(g, ins, heads, c, gen, label) -> float:
+    """Gradients through ``gat_attention`` (with the self-term merge) and
+    through the whole GATConv against autograd of the plain segment path
+    on the same card; returns the worst relative L2."""
+    import torch
+    from egc_tpu_torch.nn.conv.attention import (
+        GATConv, fused_softmax_sum, segment_softmax_sum,
+    )
+    n, dev = g.num_nodes, g.nodes.device
+    plan = g.kernel_plan
+    wh, a_src, a_dst = ins[0].view(n, heads, c), ins[1], ins[2]
+    proj = torch.randn(n, heads, c, generator=gen, device=dev)
+
+    def plain(h, a, b):
+        return segment_softmax_sum(h, a, b, g.senders, g.receivers,
+                                   g.edge_mask)
+
+    def run(fn, tensors, extra=()):
+        ts = [t.detach().clone().requires_grad_(True) for t in tensors]
+        out = fn(*ts)
+        (out * proj.reshape(out.shape)).sum().backward()
+        return out.detach(), [t.grad for t in ts] + [
+            p.grad.clone() for p in extra]
+
+    worst = 0.0
+    got, g_got = run(lambda h, a, b: fused_softmax_sum(h, a, b, plan),
+                     (wh, a_src, a_dst))
+    ref, g_ref = run(plain, (wh, a_src, a_dst))
+    _close(f"gat_attention+merge[{label}]", got, ref)
+    for i, (a, b) in enumerate(zip(g_got, g_ref)):
+        worst = max(worst, rel_l2(a, b))
+        check(rel_l2(a, b) <= GRAD_REL_L2,
+              f"gat_attention[{label}] grad {i} rel L2 {rel_l2(a, b)}")
+
+    fin = 152
+    conv = GATConv(fin, c, heads=heads,
+                   generator=torch.Generator().manual_seed(3), device=dev)
+    with torch.no_grad():
+        conv.bias.normal_(generator=gen)
+    x = torch.randn(n, fin, generator=gen, device=dev)
+    params = list(conv.parameters())
+
+    def conv_plain(xx):
+        h, a, b = conv.project(xx)
+        return plain(h, a, b).reshape(n, -1) + conv.bias
+
+    got, g_got = run(lambda xx: conv(g, xx), (x,), params)
+    conv.zero_grad()
+    ref, g_ref = run(conv_plain, (x,), params)
+    _close(f"GATConv[{label}]", got, ref)
+    for i, (a, b) in enumerate(zip(g_got, g_ref)):
+        worst = max(worst, rel_l2(a, b))
+        check(rel_l2(a, b) <= GRAD_REL_L2,
+              f"GATConv[{label}] grad {i} rel L2 {rel_l2(a, b)}")
+    return worst
+
+
+def kernels_gat_main_shapes(data) -> list:
+    """Kernels 5-7 against their plain versions at the GAT path's shapes,
+    (H8, C19) and (H1, C152); the rows report per-launch figures of the
+    path (two launches at the first shape, one at the second)."""
+    import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+
+    g = data["graph"]
+    plan, dev = g.kernel_plan, data["device"]
+    n, e = plan.num_nodes, plan.num_edges
+    gen = torch.Generator(device=dev).manual_seed(4)
+    per_shape = {}
+    for heads, c in GAT_SHAPES:
+        f = heads * c
+        ins = _gat_inputs(n, heads, c, gen, dev)
+        kernel_args = _gat_kernel_args(plan, ins)
+        errs = _gat_kernel_errs(kernel_args, f"H{heads} C{c}")
+        worst = _check_gat_autograd(g, ins, heads, c, gen, f"H{heads} C{c}")
+        log(f"[kernels] H{heads} C{c}: gat_attention and GATConv grads vs "
+            f"the plain path: worst rel L2 {worst:.3e}")
+        nh = 4 * n * heads
+        ptr_idx = 4 * (n + 1 + e)
+        cost = {   # (compulsory bytes, operations)
+            "gat_fwd": (4 * 2 * n * f + 4 * nh + ptr_idx,
+                        e * (2.0 * f + 6 * heads)),
+            "gat_bwd_t": (4 * 3 * n * f + 5 * nh + ptr_idx,
+                          e * (4.0 * f + 10 * heads)),
+            "gat_bwd_f": (4 * 2 * n * f + 5 * nh + ptr_idx,
+                          e * (2.0 * f + 10 * heads)),
+        }
+        for name, args in kernel_args.items():
+            kern, plain = getattr(at, name), getattr(at, name + "_plain")
+            b_ms, b_by = bound_ms(*cost[name])
+            per_shape.setdefault(name, []).append(dict(
+                heads=heads, channels=c, max_abs_err=errs[name],
+                ms=time_ms(lambda: kern(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                bound_ms=b_ms, bound_by=b_by))
+        del ins, kernel_args
+        torch.cuda.empty_cache()
+    rows = []
+    replaces = {"gat_fwd": "egc_tpu/ops/pallas/attention.py:160",
+                "gat_bwd_t": "egc_tpu/ops/pallas/attention.py:392",
+                "gat_bwd_f": "egc_tpu/ops/pallas/attention.py:392"}
+    for name, shapes in per_shape.items():
+        for sh in shapes:
+            log(f"[kernels] {name} H{sh['heads']} C{sh['channels']}: "
+                f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}, bound "
+                f"{sh['bound_ms']:.4f} by {sh['bound_by']}), max abs err "
+                f"{sh['max_abs_err']:.3e}")
+
+        def per_launch(key):
+            return (2 * shapes[0][key] + shapes[1][key]) / 3
+
+        rows.append(dict(
+            name=name, route="cuda",
+            source="egc_tpu_torch/csrc/gat_attention.cu",
+            replaces=replaces[name],
+            max_abs_err=max(sh["max_abs_err"] for sh in shapes),
+            ms=per_launch("ms"), plain_ms=per_launch("plain_ms"),
+            bound_ms=per_launch("bound_ms"),
+            bound_by=shapes[0]["bound_by"], library_ms=None,
+            library_note="no single PyTorch call computes the GAT edge "
+                         "softmax or its gradient", per_shape=shapes))
+    return rows
+
+
+def kernels_gat_small(dev) -> None:
+    """Kernels 5-7 with empty receivers, senders without out-edges, and
+    C = 5 and 37 besides the path's shapes."""
+    import numpy as np
+    import torch
+    from egc_tpu_torch.graph.structure import Graph
+    from egc_tpu_torch.graph.transforms import coalesce_np
+    from egc_tpu_torch.ops.dispatch import build_kernel_plan
+
+    rng = np.random.default_rng(1)
+    n = 1000
+    s = rng.integers(0, n - 40, 6000)        # 40 senders without out-edges
+    r = rng.integers(0, n - 50, 6000)        # 50 receivers without in-edges
+    s, r, _ = coalesce_np(s, r, n)
+    g = Graph.from_coo(np.zeros((n, 1), np.float32), s, r)
+    g = g.replace(kernel_plan=build_kernel_plan(s, r, n)).to(dev)
+    empty = torch.as_tensor(np.bincount(r, minlength=n) == 0, device=dev)
+    silent = torch.as_tensor(np.bincount(s, minlength=n) == 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for heads, c in ((8, 5), (1, 37), (4, 37)) + GAT_SHAPES:
+        ins = _gat_inputs(n, heads, c, gen, dev)
+        label = f"small H{heads} C{c}"
+        _gat_kernel_errs(_gat_kernel_args(g.kernel_plan, ins), label, empty,
+                         silent)
+        _check_gat_autograd(g, ins, heads, c, gen, label)
+    torch.cuda.synchronize()
+    log("[kernels] GAT small-size checks passed (empty receivers, senders "
+        "without out-edges, C = 5, 37, 19, 152)")
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
@@ -386,34 +639,35 @@ def _grad_rels(model, ref_model) -> list:
     return sorted(rels, reverse=True)
 
 
-def phase_main(raw, data) -> dict:
+def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
+    """One path ("main": EGC-M, "gat": GAT h152 H8) through
+    ``train_full_graph`` with the net arguments ``net``."""
     import torch
-    from egc_tpu_torch.exp.fullgraph import (
-        full_graph_to_device_dict, train_full_graph,
-    )
+    from egc_tpu_torch.exp.fullgraph import train_full_graph
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     # one dropout-0 step on the card vs the same step of the port on the
     # CPU; beside it, how far the CPU step itself moves when its inputs
     # carry 1e-7 relative noise (the step's sensitivity to rounding)
     t0 = time.perf_counter()
-    d_cpu = full_graph_to_device_dict(raw, "cpu")
     cpu = train_full_graph(raw, steps=1, dropout=0.0, data=d_cpu,
-                           device="cpu")
+                           device="cpu", **net)
     cpu_s = time.perf_counter() - t0
     g = d_cpu["graph"]
     noise = torch.randn(g.nodes.shape,
                         generator=torch.Generator().manual_seed(1))
     pert = train_full_graph(
         raw, steps=1, dropout=0.0, device="cpu",
-        data={**d_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))})
-    gpu = train_full_graph(raw, steps=1, dropout=0.0, data=data)
+        data={**d_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))},
+        **net)
+    gpu = train_full_graph(raw, steps=1, dropout=0.0, data=data, **net)
     loss_rel = abs(gpu.losses[0] - cpu.losses[0]) / abs(cpu.losses[0])
     check(loss_rel <= STEP_LOSS_RTOL,
-          f"step loss {gpu.losses[0]} vs CPU {cpu.losses[0]}")
+          f"[{path}] step loss {gpu.losses[0]} vs CPU {cpu.losses[0]}")
     rels = _grad_rels(gpu.model, cpu.model)
     for r, name in rels:
-        check(r <= STEP_GRAD_REL_L2, f"{name}: grad rel L2 {r} vs CPU")
+        check(r <= STEP_GRAD_REL_L2,
+              f"[{path}] {name}: grad rel L2 {r} vs CPU")
     noise_rels = _grad_rels(pert.model, cpu.model)
     step_cmp = {"loss_card": gpu.losses[0], "loss_cpu": cpu.losses[0],
                 "grad_rel_l2_worst": rels[0], "grad_rel_l2_median":
@@ -422,7 +676,7 @@ def phase_main(raw, data) -> dict:
                 "noise_grad_rel_l2_median":
                 statistics.median(r for r, _ in noise_rels),
                 "cpu_step_seconds": cpu_s}
-    log(f"[main] card vs CPU step: loss {gpu.losses[0]:.7f} vs "
+    log(f"[{path}] card vs CPU step: loss {gpu.losses[0]:.7f} vs "
         f"{cpu.losses[0]:.7f} (rel {loss_rel:.2e}); grad rel L2 worst "
         f"{rels[0]}, median {step_cmp['grad_rel_l2_median']:.2e}; CPU "
         f"step with 1e-7 input noise vs CPU: worst {noise_rels[0]}, median "
@@ -430,39 +684,42 @@ def phase_main(raw, data) -> dict:
         f"{cpu_s:.1f} s")
     del cpu, gpu, pert
 
-    # the timed main path, counters reset just before and read just after
+    # the timed path, counters reset just before and read just after: each
+    # kernel of the path launches 3 times per step, every other kernel never
     steps = STEPS_WARMUP + STEPS_TIMED
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    run = train_full_graph(raw, steps=steps, dropout=0.2, data=data)
+    run = train_full_graph(raw, steps=steps, dropout=0.2, data=data, **net)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for name, c in counts.items():
-        check(c == 3 * steps, f"{name} launched {c} times in {steps} steps")
+        want = 3 * steps if name in PATH_KERNELS[path] else 0
+        check(c == want, f"[{path}] {name} launched {c} times in {steps} "
+                         f"steps, expected {want}")
     check(all(math.isfinite(x) for x in run.losses), "non-finite loss")
     # the step time is the whole timed window over its steps, so a stall
     # anywhere in the window counts; the median stands beside it
     timed = run.step_seconds[STEPS_WARMUP:]
     step_s = sum(timed) / len(timed)
-    res = {"step_seconds_mean": step_s,
+    res = {"net": net, "step_seconds_mean": step_s,
            "step_seconds_median": statistics.median(timed),
            "step_seconds": timed,
            "edges_per_s": data["num_edges"] / step_s,
            "num_edges": data["num_edges"], "num_nodes": raw["x"].shape[0],
            "peak_memory_bytes": peak, "launches": counts,
            "losses": run.losses, "step_vs_cpu": step_cmp}
-    log(f"[main] {steps} steps: losses {[round(x, 4) for x in run.losses]}")
+    log(f"[{path}] {steps} steps: losses {[round(x, 4) for x in run.losses]}")
     med = res["step_seconds_median"]
-    log(f"[main] step {step_s * 1e3:.3f} ms (mean over {len(timed)} timed "
+    log(f"[{path}] step {step_s * 1e3:.3f} ms (mean over {len(timed)} timed "
         f"steps; median {med * 1e3:.3f}, min {min(timed) * 1e3:.3f}, max "
         f"{max(timed) * 1e3:.3f}), "
         f"{res['edges_per_s'] / 1e6:.3f} M edges/s, peak memory "
         f"{peak / 2**30:.3f} GiB, launches {counts}")
-    res["profile"] = _profile(run, data)
+    res["profile"] = _profile(run, data, path)
     return res
 
 
-def _profile(run, data) -> str:
+def _profile(run, data, path) -> str:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from egc_tpu_torch.exp.fullgraph import train_step
@@ -474,7 +731,7 @@ def _profile(run, data) -> str:
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
-    log("[profile] two steps:\n" + table)
+    log(f"[profile] {path}, two steps:\n" + table)
     return table
 
 
@@ -501,20 +758,25 @@ def main(argv=None) -> int:
     info = phase_device()
     results = {"device": info, **phase_build()}
     t0 = time.perf_counter()
-    raw = synthetic_full_graph(num_nodes=169_343, avg_degree=14,
+    raw = synthetic_full_graph(num_nodes=NUM_NODES, avg_degree=14,
                                num_features=128, num_classes=40, seed=0)
     data = full_graph_to_device_dict(raw)
-    check(data["num_edges"] == 2_368_458,
+    check(data["num_edges"] == NUM_EDGES,
           f"synthetic graph has {data['num_edges']} edges")
     log(f"[data] {raw['x'].shape[0]} nodes, {data['num_edges']} edges, "
         f"set-up {time.perf_counter() - t0:.1f} s")
     rows = kernels_main_shapes(data)
+    results["segment_gather_reduce"] = check_segment_gather_reduce(data)
+    rows += kernels_gat_main_shapes(data)
     kernels_small(data["device"])
-    results["main"] = phase_main(raw, data)
-    main_counts = results["main"]["launches"]
-    for row in rows:
-        row["launches"] = main_counts[row["name"]]
-    check(set(main_counts) == {r["name"] for r in rows},
+    kernels_gat_small(data["device"])
+    d_cpu = full_graph_to_device_dict(raw, "cpu")
+    for path, net in (("main", {}), ("gat", GAT_NET)):
+        results[path] = phase_path(path, raw, data, d_cpu, net)
+        for row in rows:
+            if row["name"] in PATH_KERNELS[path]:
+                row["launches"] = results[path]["launches"][row["name"]]
+    check({r["name"] for r in rows} == set(launch_counts()),
           f"kernel rows {[r['name'] for r in rows]} vs counters "
           f"{sorted(launch_counts())}")
     results["kernels"] = rows

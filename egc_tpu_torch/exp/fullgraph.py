@@ -1,5 +1,8 @@
-"""Full-graph (transductive) training of the arxiv EGC-M net (counterpart
-of ``egc_tpu.exp.fullgraph``'s data build and ``ArxivConfig`` step).
+"""Full-graph (transductive) training of the arxiv nets (counterpart of
+``egc_tpu.exp.fullgraph``'s data build and ``ArxivConfig`` step): EGC-M
+(``kind="egc"``, the default: h128 H4 B4 symnorm/max/mean) and GAT
+(``kind="gat"``: h152 H8, the last layer single-head, is the reference's
+tuned arxiv width).
 
 One step is the ``ArxivConfig`` epoch: a full-graph forward in training
 mode, the NLL averaged over the train split, backward, and one
@@ -63,17 +66,17 @@ def full_graph_to_device_dict(raw: Dict[str, Any],
             "num_edges": int(len(raw["senders"])), "device": dev}
 
 
-def build_model(*, hidden: int = 128, heads: int = 4, bases: int = 4,
+def build_model(*, kind: str = "egc", hidden: int = 128, heads: int = 4,
+                bases: int = 4,
                 aggrs: Sequence[str] = ("symnorm", "max", "mean"),
                 num_layers: int = 3, dropout: float = 0.2,
                 num_features: int = 128, num_classes: int = 40,
                 seed: int = 0, device: DeviceLike = None) -> ArxivNet:
-    """The ``ArxivConfig`` EGC-M net, initialised from ``seed`` on the CPU
-    and moved to ``device`` (so every device starts from the same
-    weights)."""
+    """The ``ArxivConfig`` net with ``kind`` convs (``bases`` and
+    ``aggrs`` are EGC's), initialised from ``seed`` on the CPU and moved
+    to ``device`` (so every device starts from the same weights)."""
     dev = resolve_device(device)
-    spec = ConvSpec(kind="egc", heads=heads, bases=bases,
-                    aggrs=tuple(aggrs))
+    spec = ConvSpec(kind=kind, heads=heads, bases=bases, aggrs=tuple(aggrs))
     model = ArxivNet(spec, hidden, num_layers=num_layers, dropout=dropout,
                      num_features=num_features,
                      num_classes=num_classes,
@@ -112,14 +115,15 @@ class TrainRun:
     data: Dict[str, Any]
 
 
-def train_full_graph(raw: Dict[str, Any], *, steps: int, hidden: int = 128,
-                     heads: int = 4, bases: int = 4,
+def train_full_graph(raw: Dict[str, Any], *, steps: int, kind: str = "egc",
+                     hidden: int = 128, heads: int = 4, bases: int = 4,
                      aggrs: Sequence[str] = ("symnorm", "max", "mean"),
                      lr: float = 0.01, wd: float = 5e-4,
                      dropout: float = 0.2, seed: int = 0,
                      device: DeviceLike = None,
                      data: Optional[Dict[str, Any]] = None) -> TrainRun:
-    """Train the arxiv EGC-M net for ``steps`` full-graph steps.
+    """Train the arxiv net with ``kind`` convs for ``steps`` full-graph
+    steps.
 
     ``data``: a ``full_graph_to_device_dict`` result to reuse (``raw`` is
     then not read again). Each step's time is taken on the host clock
@@ -129,7 +133,7 @@ def train_full_graph(raw: Dict[str, Any], *, steps: int, hidden: int = 128,
         data = full_graph_to_device_dict(raw, dev)
     elif data["device"] != dev:
         raise ValueError(f"data lives on {data['device']}, not {dev}")
-    model = build_model(hidden=hidden, heads=heads, bases=bases,
+    model = build_model(kind=kind, hidden=hidden, heads=heads, bases=bases,
                         aggrs=aggrs, dropout=dropout,
                         num_features=data["graph"].nodes.shape[1],
                         num_classes=data["num_classes"], seed=seed,

@@ -1,14 +1,17 @@
 """JAX variables -> the port's state dict (counterpart of
 ``egc_tpu.exp.weight_port``).
 
-``arxiv_state_dict_from_jax`` applies the arxiv/EGC rules of the JAX
-package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
+``arxiv_state_dict_from_jax`` applies the arxiv EGC and GAT rules of the
+JAX package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
 given as nested dicts of numpy arrays, and returns the reference-named
 state dict that ``ArxivNet.load_state_dict(strict=True)`` takes:
 
 - Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
 - EGConv ``bases.kernel`` [in, B*L] -> ``bases_weight.{b}`` [in, L];
   ``comb`` columns are in (h, b, a) order on both sides;
+- GATConv ``lin.kernel`` [in, H*C] -> ``lin_src.weight`` [H*C, in] (the
+  columns are in (h, c) order on both sides); ``att_src`` / ``att_dst``
+  [H, C] -> [1, H, C]; ``bias`` as it is (``weight_port.py:186-203``);
 - MaskedBatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
   ``running_mean/running_var``, plus ``num_batches_tracked`` = 0.
 """
@@ -34,8 +37,9 @@ def _t(w) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(w).T)
 
 
-def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int
+def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int = 4
                               ) -> "OrderedDict[str, torch.Tensor]":
+    """``bases``: the EGC convs' basis count (GAT reads none)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
@@ -46,6 +50,12 @@ def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int
             sd[f"{tp}bases_weight.{b}"] = chunk
         sd[tp + "comb_weights.weight"] = _t(p["comb"]["kernel"])
         sd[tp + "comb_weights.bias"] = np.asarray(p["comb"]["bias"])
+        sd[tp + "bias"] = np.asarray(p["bias"])
+    for i in _module_indices(params, "GATConv"):
+        p, tp = params[f"GATConv_{i}"], f"convs.{i}."
+        sd[tp + "lin_src.weight"] = _t(p["lin"]["kernel"])
+        sd[tp + "att_src"] = np.asarray(p["att_src"])[None]
+        sd[tp + "att_dst"] = np.asarray(p["att_dst"])[None]
         sd[tp + "bias"] = np.asarray(p["bias"])
     for i in _module_indices(params, "MaskedBatchNorm"):
         name, tp = f"MaskedBatchNorm_{i}", f"bns.{i}."

@@ -1,7 +1,7 @@
 """Task networks (counterpart of ``egc_tpu.models.nets``).
 
-This slice ports ``ArxivNet`` with the EGC conv; ``ConvSpec`` names every
-kind the JAX package has, and the kinds not ported yet raise.
+``ArxivNet`` is ported with the EGC and GAT convs; ``ConvSpec`` names
+every kind the JAX package has, and the kinds not ported yet raise.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from egc_tpu_torch.nn import init as einit
+from egc_tpu_torch.nn.conv.attention import GATConv
 from egc_tpu_torch.nn.conv.egc import EGConv
 from egc_tpu_torch.nn.norm import MaskedBatchNorm
 
@@ -26,7 +27,6 @@ _NOT_PORTED = {
     "mpnn-sum": "A9 (convs on conv_aggregate)",
     "mpnn-max": "A9 (convs on conv_aggregate)",
     "pna": "A9 (convs on conv_aggregate)",
-    "gat": "A10 (attention convs) with kernel B4",
     "gatv2": "A10 (attention convs) with kernel B5",
 }
 
@@ -44,8 +44,8 @@ class ConvSpec:
     aggrs: Optional[Tuple[str, ...]] = None
     self_loop_mode: str = "paper"
 
-    def build(self, in_dim: int, out_dim: int, *,
-              generator: Optional[torch.Generator] = None,
+    def build(self, in_dim: int, out_dim: int, *, layer_idx: int,
+              num_layers: int, generator: Optional[torch.Generator] = None,
               device=None) -> nn.Module:
         if self.kind == "egc":
             if not self.aggrs:
@@ -58,6 +58,15 @@ class ConvSpec:
                           weighting=weighting,
                           self_loop_mode=self.self_loop_mode,
                           generator=generator, device=device)
+        if self.kind == "gat":
+            # the last layer is single-head (reference
+            # arxiv/norm_models.py:79-82, egc_tpu/models/nets.py:69-75)
+            h = self.heads if layer_idx != num_layers - 1 else 1
+            if out_dim % h:
+                raise ValueError(f"GAT width {out_dim} is not a multiple of "
+                                 f"{h} heads")
+            return GATConv(in_dim, out_dim // h, heads=h,
+                           generator=generator, device=device)
         if self.kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"conv kind {self.kind!r} is not ported to egc_tpu_torch "
@@ -93,8 +102,9 @@ class ArxivNet(nn.Module):
             _linear(num_features, hidden_dim, generator, device))
         self.convs = nn.ModuleList()
         self.bns = nn.ModuleList()
-        for _ in range(num_layers):
-            self.convs.append(conv.build(hidden_dim, hidden_dim,
+        for i in range(num_layers):
+            self.convs.append(conv.build(hidden_dim, hidden_dim, layer_idx=i,
+                                         num_layers=num_layers,
                                          generator=generator, device=device))
             self.bns.append(MaskedBatchNorm(hidden_dim, device=device))
         self.out = _linear(hidden_dim, num_classes, generator, device)

@@ -6,6 +6,8 @@
   with a=sqrt(5) reduces to this bound).
 - PyG ``glorot`` per basis (reference ``experiments/layers.py:82-87``):
   U(+-sqrt(6/(fan_in + L))) for each [fan_in, L] basis matrix.
+- PyG ``glorot`` (``glorot_uniform_``): U(+-sqrt(6/(a + b))) over the last
+  two axes (a, b) of the tensor (the GAT projection and attention vectors).
 """
 
 from __future__ import annotations
@@ -35,3 +37,11 @@ def glorot_per_base_(weights, fan_in: int, generator: torch.Generator):
     """Glorot on each [fan_in, L] basis matrix of ``weights``."""
     for w in weights:
         uniform_(w, math.sqrt(6.0 / (fan_in + w.shape[1])), generator)
+
+
+def glorot_uniform_(t: torch.Tensor, generator: torch.Generator):
+    """Glorot over the last two axes of ``t`` (``egc_tpu`` ``glorot_uniform``;
+    the bound is symmetric in the two, so a transposed weight gets the
+    same one)."""
+    return uniform_(t, math.sqrt(6.0 / (t.shape[-2] + t.shape[-1])),
+                    generator)

@@ -8,12 +8,14 @@ from typing import Dict
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches counted by every wrapper since the last reset."""
-    from egc_tpu_torch.ops.cuda import gather_reduce, headmix
-    return {**gather_reduce.launches, **headmix.launches}
+    from egc_tpu_torch.ops.cuda import attention, gather_reduce, headmix
+    return {**gather_reduce.launches, **headmix.launches,
+            **attention.launches}
 
 
 def reset_launch_counts() -> None:
-    from egc_tpu_torch.ops.cuda import gather_reduce, headmix
-    for counts in (gather_reduce.launches, headmix.launches):
+    from egc_tpu_torch.ops.cuda import attention, gather_reduce, headmix
+    for counts in (gather_reduce.launches, headmix.launches,
+                   attention.launches):
         for k in counts:
             counts[k] = 0

@@ -1,0 +1,247 @@
+"""GAT edge-softmax kernels 5-7 (counterpart of the GAT half of
+``egc_tpu.ops.pallas.attention``), their plain PyTorch versions and the
+autograd function ``gat_attention``.
+
+Per head, with z_sr = a_src[s] + a_dst[r] and e_sr = leaky_relu(z_sr)
+(slope 0.2) over the in-edges s -> r of each receiver r:
+
+- ``gat_fwd`` replaces ``gat_fwd`` and the max pass that precedes it
+  (``windowed_gather_reduce(max)`` in ``_gat_attention_cached``): per
+  receiver, m_r = max_s e_sr, o_r = sum_s exp(e_sr - m_r) wh_s and
+  d_r = sum_s exp(e_sr - m_r). An empty receiver gets o = 0, d = 0 and
+  m = -1e30.
+- ``gat_bwd_t`` replaces ``_edge_pass(_bwd_t_kernel)``: per sender s, over
+  its out-edges, d_wh[s] = sum_r a g_o[r] and d_asrc[s] = sum_r dz.
+- ``gat_bwd_f`` replaces ``_edge_pass(_bwd_f_kernel)``: per receiver r,
+  d_adst[r] = sum_s dz.
+
+Here a = exp(e_sr - m_r), q = sum_c g_o[r,h,c] wh[s,h,c],
+de = a (q + g_d[r]) and dz = de lrelu'(z). m is not differentiable (the
+flash convention of ``egc_tpu/ops/pallas/attention.py:245-269``): every
+consumer of (o, d, m) is invariant to m, so the backward has no max-tie
+term.
+
+The boundary keeps the JAX package's layout, heads x channels: wh is
+``[N, H, C]`` (the kernels see it as ``[N, H*C]``), per-head scalars are
+``[N, H]``. A CPU tensor runs the plain version; a CUDA tensor launches
+the kernel in ``csrc/gat_attention.cu`` or raises. The kernels take
+H <= 32 and H*C <= 256. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from egc_tpu_torch.ops.cuda import _build
+from egc_tpu_torch.ops.cuda.gather_reduce import _row_ids
+
+SLOPE = 0.2
+EMPTY_MAX = -1e30      # m of a receiver without in-edges
+MAX_HEADS = 32         # kMaxHeads in csrc/gat_attention.cu
+MAX_WIDTH = 256        # H*C: 32 lanes x 8 columns (csrc per_lane)
+
+launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0}
+
+
+def _leaky(z: torch.Tensor) -> torch.Tensor:
+    return torch.where(z >= 0, z, SLOPE * z)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def gat_fwd_plain(wh, a_src, a_dst, rowptr, senders
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 5 (any device): ``(o [N, H*C],
+    d [N, H], m [N, H])`` over the CSR ``(rowptr, senders)``."""
+    n, hc = wh.shape
+    heads = a_src.shape[1]
+    rows = _row_ids(rowptr)
+    s = senders.long()
+    e = _leaky(a_src[s] + a_dst[rows])                           # [E, H]
+    m = a_src.new_full((n, heads), EMPTY_MAX).scatter_reduce_(
+        0, rows[:, None].expand(-1, heads), e, "amax")
+    p = torch.exp(e - m[rows])
+    o = wh.new_zeros(n, heads, hc // heads).index_add_(
+        0, rows, p[:, :, None] * wh.view(n, heads, -1)[s])
+    d = a_src.new_zeros(n, heads).index_add_(0, rows, p)
+    return o.view(n, hc), d, m
+
+
+def _edge_grads(wh, a_src, a_dst, m, g_o, g_d, s, r):
+    """Per edge (s -> r) and head: alpha-hat ``a``, the gathered ``g_o[r]``
+    rows and ``dz``."""
+    n = wh.shape[0]
+    heads = a_src.shape[1]
+    z = a_src[s] + a_dst[r]
+    a = torch.exp(_leaky(z) - m[r])
+    g_r = g_o.view(n, heads, -1)[r]
+    q = (g_r * wh.view(n, heads, -1)[s]).sum(-1)
+    dz = a * (q + g_d[r]) * torch.where(z >= 0, 1.0, SLOPE)
+    return a, g_r, dz
+
+
+def gat_bwd_t_plain(wh, a_src, a_dst, m, g_o, g_d, colptr, receivers
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel 6 (any device): ``(d_wh [N, H*C],
+    d_asrc [N, H])`` over the transposed CSC ``(colptr, receivers)``."""
+    n, hc = wh.shape
+    s, r = _row_ids(colptr), receivers.long()
+    a, g_r, dz = _edge_grads(wh, a_src, a_dst, m, g_o, g_d, s, r)
+    d_wh = wh.new_zeros((n,) + g_r.shape[1:]).index_add_(
+        0, s, a[:, :, None] * g_r)
+    return d_wh.view(n, hc), a_src.new_zeros(a_src.shape).index_add_(0, s, dz)
+
+
+def gat_bwd_f_plain(wh, a_src, a_dst, m, g_o, g_d, rowptr, senders
+                    ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 7 (any device): ``d_adst [N, H]``
+    over the CSR ``(rowptr, senders)``."""
+    r, s = _row_ids(rowptr), senders.long()
+    _, _, dz = _edge_grads(wh, a_src, a_dst, m, g_o, g_d, s, r)
+    return a_dst.new_zeros(a_dst.shape).index_add_(0, r, dz)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _check(wh, heads_arrays, ptr, idx):
+    """Shapes, types and devices every GAT kernel assumes; returns
+    ``(n, H, C)``."""
+    dev = wh.device
+    n, hc = wh.shape
+    heads = heads_arrays[0][1].shape[1]
+    if not 1 <= heads <= MAX_HEADS or hc % heads or hc > MAX_WIDTH:
+        raise ValueError(f"the GAT kernels take 1 <= H <= {MAX_HEADS} heads "
+                         f"and H*C <= {MAX_WIDTH}; got H={heads}, "
+                         f"H*C={hc}")
+    _build.check_tensor("wh", wh, torch.float32, dev)
+    for name, t in heads_arrays:
+        _build.check_tensor(name, t, torch.float32, dev, (n, heads))
+    _build.check_tensor("ptr", ptr, torch.int32, dev, (n + 1,))
+    _build.check_tensor("idx", idx, torch.int32, dev)
+    return n, heads, hc // heads
+
+
+def _needs_cuda(name, t):
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name} kernel needs a CUDA tensor, got one on "
+                           f"{t.device}")
+
+
+def _call(name, args, types):
+    lib = _build.library("gat_attention")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = types + [ctypes.c_void_p]
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], stream)
+    _build.check_launch(err, name, lib)
+    launches[name] += 1
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _launch_fwd(wh, a_src, a_dst, rowptr, senders):
+    _needs_cuda("gat_fwd", wh)
+    n, heads, c = _check(wh, [("a_src", a_src), ("a_dst", a_dst)], rowptr,
+                         senders)
+    o = torch.empty_like(wh)
+    d = torch.empty_like(a_src)
+    m = torch.empty_like(a_src)
+    _call("gat_fwd", [wh, a_src, a_dst, rowptr, senders, n, heads, c, SLOPE,
+                      o, d, m],
+          [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3)
+    return o, d, m
+
+
+def _launch_bwd(name, wh, a_src, a_dst, m, g_o, g_d, ptr, idx):
+    _needs_cuda(name, wh)
+    n, heads, c = _check(wh, [("a_src", a_src), ("a_dst", a_dst), ("m", m),
+                              ("g_d", g_d)], ptr, idx)
+    _build.check_tensor("g_o", g_o, torch.float32, wh.device, wh.shape)
+    d_head = torch.empty_like(a_src)
+    outs = [d_head] if name == "gat_bwd_f" else [torch.empty_like(wh), d_head]
+    _call(name, [wh, a_src, a_dst, m, g_o, g_d, ptr, idx, n, heads, c, SLOPE,
+                 *outs],
+          [_P] * 8 + [_I] * 3 + [_F] + [_P] * len(outs))
+    return outs[0] if name == "gat_bwd_f" else tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# device dispatch
+# ---------------------------------------------------------------------------
+
+def gat_fwd(wh, a_src, a_dst, rowptr, senders):
+    """``(o [N, H*C], d [N, H], m [N, H])`` per receiver row of the CSR."""
+    if wh.device.type == "cpu":
+        return gat_fwd_plain(wh, a_src, a_dst, rowptr, senders)
+    return _launch_fwd(wh, a_src, a_dst, rowptr, senders)
+
+
+def gat_bwd_t(wh, a_src, a_dst, m, g_o, g_d, colptr, receivers):
+    """``(d_wh [N, H*C], d_asrc [N, H])`` per sender row of the CSC."""
+    if wh.device.type == "cpu":
+        return gat_bwd_t_plain(wh, a_src, a_dst, m, g_o, g_d, colptr,
+                               receivers)
+    return _launch_bwd("gat_bwd_t", wh, a_src, a_dst, m, g_o, g_d, colptr,
+                       receivers)
+
+
+def gat_bwd_f(wh, a_src, a_dst, m, g_o, g_d, rowptr, senders):
+    """``d_adst [N, H]`` per receiver row of the CSR."""
+    if wh.device.type == "cpu":
+        return gat_bwd_f_plain(wh, a_src, a_dst, m, g_o, g_d, rowptr,
+                               senders)
+    return _launch_bwd("gat_bwd_f", wh, a_src, a_dst, m, g_o, g_d, rowptr,
+                       senders)
+
+
+class _GATAttention(torch.autograd.Function):
+    """Kernel 5 forward; kernels 6 and 7 backward. m is marked
+    non-differentiable, so its cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, wh, a_src, a_dst, plan):
+        n, heads, c = wh.shape
+        wh2 = wh.reshape(n, heads * c).contiguous()
+        a_src, a_dst = a_src.contiguous(), a_dst.contiguous()
+        o, d, m = gat_fwd(wh2, a_src, a_dst, plan.rowptr, plan.fwd_senders)
+        ctx.plan = plan
+        ctx.save_for_backward(wh2, a_src, a_dst, m)
+        ctx.mark_non_differentiable(m)
+        return o.view(n, heads, c), d, m
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, _g_m):
+        wh2, a_src, a_dst, m = ctx.saved_tensors
+        plan = ctx.plan
+        g_o = g_o.reshape(wh2.shape).contiguous()
+        g_d = g_d.contiguous()
+        d_wh, d_asrc = gat_bwd_t(wh2, a_src, a_dst, m, g_o, g_d,
+                                 plan.colptr, plan.bwd_receivers)
+        d_adst = gat_bwd_f(wh2, a_src, a_dst, m, g_o, g_d, plan.rowptr,
+                           plan.fwd_senders)
+        return d_wh.view(wh2.shape[0], a_src.shape[1], -1), d_asrc, d_adst, \
+            None
+
+
+def gat_attention(wh: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                  plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable GAT edge softmax over a ``KernelPlan``:
+    ``wh [N, H, C], a_src [N, H], a_dst [N, H] -> (o [N, H, C], d [N, H],
+    m [N, H])`` with o and d unnormalised at the stationary max m (m
+    carries no gradient)."""
+    if wh.shape[0] != plan.num_nodes:
+        raise ValueError(f"wh has {wh.shape[0]} rows, the plan "
+                         f"{plan.num_nodes}")
+    return _GATAttention.apply(wh, a_src, a_dst, plan)

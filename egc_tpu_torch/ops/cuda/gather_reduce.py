@@ -7,6 +7,9 @@
 - ``gather_reduce_bwd`` replaces ``windowed_gather_reduce_bwd``: per
   sender, over its out-edges in the transposed (CSC) layout, the gradient
   from the packed coefficients ``c_sum|c_wsum|c_sumsq2|mx|c_max|mn|c_min``.
+- ``segment_gather_reduce`` replaces the JAX function of that name: the
+  contract of kernel 1 over receiver-sorted COO edges, whose CSR row
+  pointer it builds before it launches kernel 1.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel in
 ``csrc/gather_reduce.cu`` or raises. ``launches`` counts kernel launches.
@@ -43,8 +46,9 @@ def gather_reduce_fwd_plain(vals: torch.Tensor, rowptr: torch.Tensor,
                             senders: torch.Tensor,
                             edge_w: Optional[torch.Tensor],
                             prims: Sequence[str]) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of kernel 1 (any device)."""
-    n, f = vals.shape
+    """Plain PyTorch version of kernel 1 (any device). The output has one
+    row per CSR row, ``rowptr.shape[0] - 1``."""
+    n, f = rowptr.shape[0] - 1, vals.shape[1]
     rows = _row_ids(rowptr)
     g = vals[senders.long()]
     idx = rows[:, None].expand(-1, f)
@@ -123,7 +127,7 @@ def _launch_fwd(vals, rowptr, senders, edge_w, prims):
     if dev.type != "cuda":
         raise RuntimeError(f"gather_reduce_fwd kernel needs a CUDA tensor, "
                            f"got one on {dev}")
-    n, f = vals.shape
+    n, f = rowptr.shape[0] - 1, vals.shape[1]
     _build.check_tensor("vals", vals, torch.float32, dev)
     _check_plan("rowptr", rowptr, "senders", senders, edge_w, n, dev)
     if "wsum" in prims and edge_w is None:
@@ -187,7 +191,8 @@ def _launch_bwd(coeff, vals, colptr, receivers, edge_w, segs):
 
 def gather_reduce_fwd(vals, rowptr, senders, edge_w, prims):
     """Primitives per receiver row of the CSR ``(rowptr, senders)``;
-    returns one ``[n, F]`` tensor per entry of ``prims``."""
+    returns one ``[rows, F]`` tensor per entry of ``prims``, with
+    ``rows = rowptr.shape[0] - 1``."""
     prims = tuple(prims)
     if vals.device.type == "cpu":
         return gather_reduce_fwd_plain(vals, rowptr, senders, edge_w, prims)
@@ -202,3 +207,25 @@ def gather_reduce_bwd(coeff, vals, colptr, receivers, edge_w, segs):
         return gather_reduce_bwd_plain(coeff, vals, colptr, receivers,
                                        edge_w, segs)
     return _launch_bwd(coeff, vals, colptr, receivers, edge_w, segs)
+
+
+def segment_gather_reduce(vals: torch.Tensor, senders: torch.Tensor,
+                          receivers: torch.Tensor, *, num_out_rows: int,
+                          ops: Sequence[str] = ("sum",),
+                          edge_w: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, ...]:
+    """``egc_tpu.ops.pallas.gather_reduce.segment_gather_reduce`` without
+    its TPU grid arguments: ``ops`` (of ``PRIMS``) over edges sorted by
+    receiver, one ``[num_out_rows, F]`` tensor each; an empty row gives 0.
+    Runs kernel 1 (or its plain version on the CPU) over the CSR row
+    pointer built here from ``receivers``."""
+    r = receivers.to(torch.int32)
+    if r.numel() and (bool((r[1:] < r[:-1]).any()) or int(r[0]) < 0
+                      or int(r[-1]) >= num_out_rows):
+        raise ValueError("receivers must be sorted and in "
+                         "[0, num_out_rows)")
+    rowptr = torch.searchsorted(
+        r, torch.arange(num_out_rows + 1, dtype=torch.int32,
+                        device=r.device)).to(torch.int32)
+    return gather_reduce_fwd(vals, rowptr, senders.to(torch.int32), edge_w,
+                             ops)

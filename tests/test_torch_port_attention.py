@@ -1,0 +1,307 @@
+"""Port parity for the GAT edge softmax: ``gat_attention`` (kernels 5-7
+through their plain versions on the CPU) against the JAX ``gat_attention``
+with its Pallas kernels in interpret mode, ``GATConv`` against the JAX
+``GATConv`` (its XLA path on the CPU), and ``segment_gather_reduce``
+against the JAX function of that name in interpret mode."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import jax.experimental.pallas as pl
+import egc_tpu.ops.pallas.attention as jattn
+import egc_tpu.ops.pallas.gather_reduce as jgr
+from egc_tpu.graph.structure import Graph as JGraph, pad_graph as jpad
+from egc_tpu.graph.transforms import coalesce_np
+from egc_tpu.nn.conv.attention import GATConv as JGATConv
+from egc_tpu.ops.dispatch import GraphKernelPlan, WindowPlanDev
+
+from egc_tpu_torch.exp.weight_port import arxiv_state_dict_from_jax
+from egc_tpu_torch.graph.structure import Graph as TGraph, pad_graph as tpad
+from egc_tpu_torch.nn.conv.attention import (
+    GATConv, fused_softmax_sum, segment_softmax_sum,
+)
+from egc_tpu_torch.ops.cuda import attention as tat
+from egc_tpu_torch.ops.cuda import gather_reduce as tgr
+from egc_tpu_torch.ops.dispatch import build_kernel_plan
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def interpret_pallas(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jattn.pl, "pallas_call", patched)
+    # the JAX gat_attention's max pass rides the gather-reduce kernels
+    monkeypatch.setattr(jgr.pl, "pallas_call", patched)
+
+
+def rel_l2(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+
+
+def small_graph(seed, n, e, isolated=0, silent=0):
+    """Coalesced random graph: the last ``isolated`` nodes receive no edge,
+    the last ``silent`` send none."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n - silent, e).astype(np.int32)
+    r = rng.integers(0, n - isolated, e).astype(np.int32)
+    s, r, _ = coalesce_np(s, r, n)
+    return s, r
+
+
+def jax_mini_plan(s, r, n):
+    """The JAX GraphKernelPlan with small window layouts, built as
+    ``tests/test_attention_kernel.py::_mini_plan`` builds it."""
+    npad = ((n + 256) // 256) * 256
+
+    def dev(p):
+        return WindowPlanDev(
+            senders=jnp.asarray(p["senders"]),
+            receivers=jnp.asarray(p["receivers"]),
+            cell_ptr=jnp.asarray(p["cell_ptr"]),
+            edge_perm=jnp.asarray(p["perm"].astype(np.int32)),
+            r_blocks=p["R"], s_blocks=p["S"],
+            block_rows=p["block_rows"], window_rows=p["window_rows"])
+
+    f = jgr.make_window_plan_np(s, r, npad, block_rows=128, window_rows=256)
+    b = jgr.make_window_plan_np(r, s, npad, block_rows=256, window_rows=128)
+    deg = np.zeros(npad, np.float32)
+    np.add.at(deg, r, 1.0)
+    return GraphKernelPlan(fwd=dev(f), bwd=dev(b), fwd_attn=dev(f),
+                           bwd_attn=dev(b), fwd_v2=None, bwd_v2=None,
+                           deg=jnp.asarray(deg), n_pad=npad)
+
+
+def jax_gat_attention(plan, heads, c):
+    """(wh [N, H, C], a_src [N, H], a_dst [N, H]) -> (o [N, H, C], d [N, H])
+    through the JAX ``gat_attention``, packing its TPU layout as
+    ``_fused_gat_softmax_sum`` does."""
+    cp = 1
+    while cp < c or (heads * cp) % 128:
+        cp *= 2
+    hcp, npad = heads * cp, plan.n_pad
+
+    def f(wh, a_src, a_dst):
+        xt = wh.transpose(0, 2, 1)
+        if cp > c:                       # ones-channel denominator
+            xt = jnp.concatenate([xt, jnp.ones((npad, 1, heads)),
+                                  jnp.zeros((npad, cp - c - 1, heads))], 1)
+        src_pack = jnp.concatenate(
+            [xt.reshape(npad, hcp), jnp.tile(a_src, (1, cp))], axis=1)
+        adst = jnp.pad(a_dst, ((0, 0), (0, 128 - heads)))
+        o, md = jattn.gat_attention(src_pack, adst, plan, heads=heads,
+                                    cp=cp, dchan=c if cp > c else None)
+        o = o.reshape(npad, cp, heads).transpose(0, 2, 1)[:, :, :c]
+        return o, md[:, 64:64 + heads]
+
+    return f, cp
+
+
+@pytest.mark.parametrize("heads,c", [(4, 16), (4, 32), (1, 12)])
+def test_gat_attention_matches_jax(heads, c):
+    """Normalised outputs and the gradients of a fixed projection of them,
+    in both JAX denominator modes (C < cp: ones channel; C == cp: separate
+    accumulator) and single-head, with isolated receivers and silent
+    senders."""
+    n = 150
+    s, r = small_graph(3, n, 700, isolated=12, silent=9)
+    jplan = jax_mini_plan(s, r, n)
+    f, cp = jax_gat_attention(jplan, heads, c)
+    assert (cp > c) == (c != 32)
+    npad = jplan.n_pad
+    has = np.bincount(r, minlength=n) > 0
+    rng = np.random.default_rng(4)
+    wh = rng.normal(size=(n, heads, c)).astype(np.float32)
+    a_src = rng.normal(size=(n, heads)).astype(np.float32)
+    a_dst = rng.normal(size=(n, heads)).astype(np.float32)
+    proj = rng.normal(size=(n, heads, c)).astype(np.float32) \
+        * has[:, None, None]
+
+    def pad(x):
+        return jnp.zeros((npad,) + x.shape[1:]).at[:n].set(x)
+
+    def jloss(wh, a_src, a_dst):
+        o, d = f(wh, a_src, a_dst)
+        out = o[:n] / jnp.maximum(d[:n], 1e-16)[:, :, None]
+        return jnp.sum(out * proj), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                       has_aux=True)(
+        pad(wh), pad(a_src), pad(a_dst))
+
+    tplan = build_kernel_plan(s, r, n)
+    tw = [torch.tensor(x, requires_grad=True) for x in (wh, a_src, a_dst)]
+    o, d, m = tat.gat_attention(*tw, tplan)
+    assert not m.requires_grad
+    assert torch.all(o[~torch.as_tensor(has)] == 0)
+    assert torch.all(m[~torch.as_tensor(has)] == tat.EMPTY_MAX)
+    out = o / torch.clamp(d, min=1e-16)[:, :, None]
+    (out * torch.as_tensor(proj)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy()[has],
+                               np.asarray(jout)[has], rtol=1e-4, atol=1e-4)
+    for t, g, name in zip(tw, jg, ("wh", "a_src", "a_dst")):
+        assert rel_l2(t.grad.numpy(), np.asarray(g)[:n]) <= 1e-4, name
+
+
+def test_plain_kernels_empty_rows_are_exact_zeros():
+    """Kernels 5-7 (plain versions) on a graph with isolated receivers and
+    silent senders: empty rows are exact zeros (m = -1e30), not NaN."""
+    n, heads, c = 60, 3, 7
+    s, r = small_graph(5, n, 250, isolated=6, silent=5)
+    plan = build_kernel_plan(s, r, n)
+    rng = np.random.default_rng(6)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+    wh, a_src, a_dst = rand(n, heads * c), rand(n, heads), rand(n, heads)
+    o, d, m = tat.gat_fwd(wh, a_src, a_dst, plan.rowptr, plan.fwd_senders)
+    g_o, g_d = rand(n, heads * c), rand(n, heads)
+    d_wh, d_asrc = tat.gat_bwd_t(wh, a_src, a_dst, m, g_o, g_d, plan.colptr,
+                                 plan.bwd_receivers)
+    d_adst = tat.gat_bwd_f(wh, a_src, a_dst, m, g_o, g_d, plan.rowptr,
+                           plan.fwd_senders)
+    for t in (o, d, m, d_wh, d_asrc, d_adst):
+        assert torch.isfinite(t).all()
+    empty = torch.as_tensor(np.bincount(r, minlength=n) == 0)
+    silent = torch.as_tensor(np.bincount(s, minlength=n) == 0)
+    assert empty[-6:].all() and silent[-5:].all()
+    assert torch.all(o[empty] == 0) and torch.all(d[empty] == 0)
+    assert torch.all(m[empty] == tat.EMPTY_MAX)
+    assert torch.all(d_adst[empty] == 0)
+    assert torch.all(d_wh[silent] == 0) and torch.all(d_asrc[silent] == 0)
+    assert torch.all(d[~empty] > 0)
+
+
+@pytest.mark.parametrize("heads,c", [(8, 5), (1, 37)])
+def test_fused_path_matches_segment_path(heads, c):
+    """The kernel path's node-level merge of the self term (``gat_attention``
+    + ``fused_softmax_sum``) against the plain segment softmax, values and
+    gradients, with isolated receivers."""
+    n = 120
+    s, r = small_graph(7, n, 600, isolated=10, silent=4)
+    plan = build_kernel_plan(s, r, n)
+    rng = np.random.default_rng(8)
+    inputs = [rng.normal(size=shape).astype(np.float32) * 3
+              for shape in ((n, heads, c), (n, heads), (n, heads))]
+    proj = torch.as_tensor(rng.normal(size=(n, heads, c)).astype(np.float32))
+
+    def run(fn):
+        ts = [torch.tensor(x, requires_grad=True) for x in inputs]
+        out = fn(*ts)
+        (out * proj).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    got, g_got = run(lambda h, a, b: fused_softmax_sum(h, a, b, plan))
+    ref, g_ref = run(lambda h, a, b: segment_softmax_sum(
+        h, a, b, torch.as_tensor(s), torch.as_tensor(r)))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(g_got, g_ref):
+        assert rel_l2(a.numpy(), b.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("heads,c", [(4, 6), (1, 24)])
+def test_gatconv_matches_jax(heads, c):
+    """GATConv values and the gradients of a fixed projection w.r.t. its
+    input and every parameter, on a padded graph with isolated receivers;
+    weights carried by ``arxiv_state_dict_from_jax``."""
+    n, fin = 90, 20
+    s, r = small_graph(9, n, 420, isolated=8)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(n + 3, fin)).astype(np.float32)
+    proj = rng.normal(size=(n + 3, heads * c)).astype(np.float32)
+    gj = jax.tree.map(jnp.asarray, jpad(JGraph.from_coo(x[:n], s, r),
+                                        num_nodes=n + 3,
+                                        num_edges=len(s) + 5))
+    gt = tpad(TGraph.from_coo(x[:n], s, r), num_nodes=n + 3,
+              num_edges=len(s) + 5)
+
+    conv = JGATConv(out_channels=c, heads=heads)
+    params = conv.init(jax.random.PRNGKey(2), gj, jnp.asarray(x))["params"]
+    # a nonzero bias, so its gradient path is exercised too
+    params = {**params, "bias": jnp.asarray(
+        rng.normal(size=(heads * c,)).astype(np.float32))}
+
+    def fj(p, xx):
+        out = conv.apply({"params": p}, gj, xx)
+        return jnp.sum(out * proj), out
+
+    (_, jout), (gp, gx) = jax.value_and_grad(fj, argnums=(0, 1),
+                                             has_aux=True)(
+        params, jnp.asarray(x))
+
+    def port(tree):
+        sd = arxiv_state_dict_from_jax({"params": {
+            "GATConv_0": jax.tree.map(np.asarray, tree),
+            "embed": _dense(1, 1), "out": _dense(1, 1)}})
+        return {k[len("convs.0."):]: v for k, v in sd.items()
+                if k.startswith("convs.0.")}
+
+    tconv = GATConv(fin, c, heads=heads)
+    tconv.load_state_dict(port(params), strict=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = tconv(gt, xt)
+    (out * torch.as_tensor(proj)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy()[:n],
+                               np.asarray(jout)[:n], rtol=1e-4, atol=1e-4)
+    assert rel_l2(xt.grad.numpy()[:n], np.asarray(gx)[:n]) <= 1e-4
+    gsd = port(gp)
+    for name, p in tconv.named_parameters():
+        assert rel_l2(p.grad.numpy(), gsd[name].numpy()) <= 1e-4, name
+
+
+def _dense(i, o):
+    return {"kernel": np.zeros((i, o), np.float32),
+            "bias": np.zeros((o,), np.float32)}
+
+
+@pytest.mark.parametrize("ops", [("sum", "wsum", "max"),
+                                 ("sumsq", "min")])
+def test_segment_gather_reduce_matches_jax(ops):
+    n, f = 200, 128
+    s, r = small_graph(11, n, 900, isolated=15)       # receiver-sorted
+    rng = np.random.default_rng(12)
+    vals = rng.normal(size=(n, f)).astype(np.float32)
+    w = rng.random(len(s)).astype(np.float32)
+    rows = 512
+    rowptr = jgr.csr_rowptr_np(r, rows)
+    ref = jgr.segment_gather_reduce(
+        jnp.asarray(vals), jnp.asarray(s), jnp.asarray(r),
+        jnp.asarray(jgr.block_ptr_np(rowptr, rows, 512)),
+        num_out_rows=rows, ops=ops, edge_w=jnp.asarray(w))
+    got = tgr.segment_gather_reduce(
+        torch.as_tensor(vals), torch.as_tensor(s), torch.as_tensor(r),
+        num_out_rows=rows, ops=ops, edge_w=torch.as_tensor(w))
+    for op, a, b in zip(ops, got, ref):
+        assert a.shape == (rows, f)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4, err_msg=op)
+
+
+def test_segment_gather_reduce_refuses_unsorted_receivers():
+    vals = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="sorted"):
+        tgr.segment_gather_reduce(vals, torch.tensor([0, 1, 2]),
+                                  torch.tensor([2, 1, 3]), num_out_rows=4)
+
+
+def test_gat_launchers_refuse_cpu_tensors():
+    z = torch.zeros(4, 2)
+    ptr = torch.zeros(5, dtype=torch.int32)
+    idx = torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        tat._launch_fwd(torch.zeros(4, 6), z, z, ptr, idx)
+    for name in ("gat_bwd_t", "gat_bwd_f"):
+        with pytest.raises(RuntimeError, match="CUDA tensor"):
+            tat._launch_bwd(name, torch.zeros(4, 6), z, z, z,
+                            torch.zeros(4, 6), z, ptr, idx)

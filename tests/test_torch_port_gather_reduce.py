@@ -183,6 +183,25 @@ def test_conv_aggregate_refuses_weights_other_than_the_plans():
                                atol=1e-5)
 
 
+def test_conv_aggregate_takes_any_weights_when_the_plan_has_none():
+    """The refusal above is about a plan that carries weights: a plan built
+    without them aggregates with whatever ``symnorm_edge_w`` says, on the
+    CPU path and the plan path alike."""
+    from egc_tpu_torch.graph.structure import Graph
+    s, r, n = small_graph(15)
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    w = torch.as_tensor(rng.random(len(s)).astype(np.float32))
+    g = Graph.from_coo(x, s, r, edge_weight=w)
+    g = g.replace(kernel_plan=tdsp.build_kernel_plan(s, r, n))
+    other = w * 2.0
+    got = tdsp.conv_aggregate(g, g.nodes, ("symnorm",), symnorm_edge_w=other)
+    ref = tdsp.fused_multi_aggregate(g.nodes, g.kernel_plan, ("symnorm",),
+                                     symnorm_edge_w=other)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_plain_fwd_matches_jax_windowed_fwd():
     s, r, n = small_graph(seed=9, isolated=10)
     f = 128

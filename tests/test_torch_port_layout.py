@@ -82,8 +82,12 @@ def test_cpu_run_launches_no_kernel():
     reset_launch_counts()
     run = train_full_graph(_tiny_raw(), steps=2, hidden=16, device="cpu")
     assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
+    run = train_full_graph(_tiny_raw(), steps=2, kind="gat", hidden=16,
+                           heads=4, device="cpu")
+    assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
     assert set(launch_counts()) == {"gather_reduce_fwd", "gather_reduce_bwd",
-                                    "headmix_fwd", "headmix_bwd"}
+                                    "headmix_fwd", "headmix_bwd", "gat_fwd",
+                                    "gat_bwd_t", "gat_bwd_f"}
     assert all(v == 0 for v in launch_counts().values())
 
 
@@ -107,9 +111,22 @@ def test_kernel_launchers_refuse_cpu_tensors():
                        1, 2, 1, 1, 3)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "gat", "gatv2", "gin", "sage",
+@pytest.mark.parametrize("kind", ["gcn", "gatv2", "gin", "sage",
                                   "mpnn-sum", "mpnn-max", "pna"])
 def test_unported_conv_kinds_raise(kind):
     from egc_tpu_torch.models.nets import ConvSpec
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConvSpec(kind=kind).build(8, 8)
+        ConvSpec(kind=kind).build(8, 8, layer_idx=0, num_layers=3)
+
+
+def test_gat_kind_builds_single_head_last_layer():
+    from egc_tpu_torch.models.nets import ConvSpec
+    from egc_tpu_torch.nn.conv.attention import GATConv
+    spec = ConvSpec(kind="gat", heads=8)
+    convs = [spec.build(152, 152, layer_idx=i, num_layers=3)
+             for i in range(3)]
+    assert all(isinstance(c, GATConv) for c in convs)
+    assert [(c.heads, c.out_channels) for c in convs] == [
+        (8, 19), (8, 19), (1, 152)]
+    with pytest.raises(ValueError, match="multiple"):
+        spec.build(150, 150, layer_idx=0, num_layers=3)

@@ -1,6 +1,6 @@
-"""Port parity for the slice as a whole: the weight port, EGConv, the
-arxiv EGC-M net and one full Adam training step against the JAX package
-(CPU, from the same weights)."""
+"""Port parity for the slices as a whole: the weight port, EGConv, the
+arxiv EGC-M and GAT nets and one full Adam training step of each against
+the JAX package (CPU, from the same weights)."""
 
 import re
 
@@ -182,12 +182,56 @@ def test_arxiv_net_forward(raw, hidden, train):
                     rtol=1e-4, atol=1e-5, err_msg=k)
 
 
+def gat_nets(hidden, heads):
+    jm = JArxivNet(conv=JSpec(kind="gat", heads=heads), hidden_dim=hidden,
+                   num_layers=3, dropout=0.0)
+    tm = TArxivNet(ConvSpec(kind="gat", heads=heads), hidden, num_layers=3,
+                   dropout=0.0)
+    return jm, tm
+
+
+def test_gat_weight_port_equals_export_model_state(raw):
+    """The GAT rules give ``export_model_state``'s dict, key for key, and
+    it loads strictly into the port's net (H 4, the last layer 1)."""
+    jd, _ = both_data(raw)
+    jm, tm = gat_nets(16, 4)
+    variables = jm.init(jax.random.PRNGKey(5), jd["graph"], train=False)
+    ref = export_model_state("arxiv", "gat", to_np(variables))
+    got = arxiv_state_dict_from_jax(to_np(variables))
+    assert list(got) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+    tm.load_state_dict(got, strict=True)
+    assert set(tm.state_dict()) == set(ref)
+    assert tuple(tm.convs[0].att_src.shape) == (1, 4, 4)
+    assert tuple(tm.convs[2].att_src.shape) == (1, 1, 16)
+
+
 def test_one_training_step(raw):
     """Loss, every parameter gradient, the post-Adam parameters and the BN
     running stats of one step (dropout 0, lr 0.01, wd 5e-4)."""
     jd, td = both_data(raw)
     jm = jax_net(128)
-    variables = jm.init(jax.random.PRNGKey(4), jd["graph"], train=False)
+    check_one_step(jd, td, jm, torch_net(128, jm.init(
+        jax.random.PRNGKey(4), jd["graph"], train=False)), seed=4,
+        params_per_layer=9)
+
+
+def test_gat_one_training_step(raw):
+    """The same step of the GAT net: hidden 16, H 4, the last layer
+    single-head."""
+    jd, td = both_data(raw)
+    jm, tm = gat_nets(16, 4)
+    tm.load_state_dict(arxiv_state_dict_from_jax(to_np(jm.init(
+        jax.random.PRNGKey(6), jd["graph"], train=False))), strict=True)
+    check_one_step(jd, td, jm, tm, seed=6, params_per_layer=6)
+
+
+def check_one_step(jd, td, jm, tm, *, seed, params_per_layer):
+    """One dropout-0 step of the JAX net ``jm`` and the port's ``tm``
+    (holding the same weights as ``jm.init(PRNGKey(seed))``)."""
+    variables = jm.init(jax.random.PRNGKey(seed), jd["graph"], train=False)
     params, bstats = variables["params"], variables["batch_stats"]
     y, mask = jd["y"], jd["masks"]["train"]
 
@@ -205,7 +249,6 @@ def test_one_training_step(raw):
     updates, _ = tx.update(grads, tx.init(params), params)
     new_params = optax.apply_updates(params, updates)
 
-    tm = torch_net(128, variables)
     opt = torch.optim.Adam(tm.parameters(), lr=0.01, weight_decay=5e-4)
     loss_t = tfg.train_step(tm, opt, td)
     assert loss_t.item() == pytest.approx(float(loss_j), rel=1e-5)
@@ -215,7 +258,7 @@ def test_one_training_step(raw):
     p_sd = arxiv_state_dict_from_jax(
         {"params": to_np(new_params), "batch_stats": to_np(new_bs)}, bases=4)
     names = dict(tm.named_parameters())
-    assert len(names) == 3 * 9 + 4       # per layer: conv 7, BN 2
+    assert len(names) == 3 * params_per_layer + 4     # BN 2 per layer
     scale = max(float(np.abs(g_sd[k].numpy()).max()) for k in names)
     for name, p in names.items():
         if re.fullmatch(r"convs\.\d+\.bias", name):
