@@ -12,28 +12,30 @@ Phases, each of which raises (exit code 1) on any failed check:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (169,343 nodes, 2,368,458 edges): kernels
    1-4 at F = 128, prims sum/wsum/max, K = 4 coefficient segments, head
-   mix H4 B4 A3 L32; kernels 5-7 at (H8, C19) and (H1, C152); values and
-   gradients through the autograd functions (and the whole GATConv), and
-   ``segment_gather_reduce`` (kernel 1 over COO edges). Then again at a
-   small size with empty receivers, senders without out-edges, ties,
-   F = 40 and 37, A = 1, and GAT C = 5 and 37. Kernel, plain and library
-   times are medians of CUDA-event timed launches.
-4. the two paths, each through ``train_full_graph`` on the 169,343-node
-   synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean) and
-   "gat" (arxiv GAT, h152 H8, the last layer single-head), 3 layers each.
-   One dropout-0 step on the card is held against the same step of the
-   port on the CPU (loss and every gradient); then 2 warm-up and 10 timed
-   dropout-0.2 steps with the launch counters reset just before and read
-   just after: each kernel of the path launches 3 times per step and the
-   other path's kernels never; then a torch.profiler table of two more
-   steps (device time by kernel).
+   mix H4 B4 A3 L32; the GAT kernels at (H8, C19) and (H1, C152); the
+   GATv2 kernels at (H8, C14) and (H1, C112); values and gradients
+   through the autograd functions (and the whole GATConv and GATv2Conv),
+   and ``segment_gather_reduce`` (kernel 1 over COO edges). Then again at
+   a small size with empty receivers, senders without out-edges, ties,
+   F = 40 and 37, A = 1, and GAT and GATv2 C = 5 and 37. Kernel, plain and
+   library times are medians of CUDA-event timed launches.
+4. the three paths, each through ``train_full_graph`` on the 169,343-node
+   synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
+   "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
+   0.0087876, wd 0.001), the attention nets' last layer single-head, 3
+   layers each. One dropout-0 step on the card is held against the same
+   step of the port on the CPU (loss and every gradient); then 2 warm-up
+   and 10 timed dropout-0.2 steps with the launch counters reset just
+   before and read just after: each kernel of the path launches 3 times
+   per step and every other kernel never; then a torch.profiler table of
+   two more steps (device time by kernel).
 
 Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
 the result line ``{"ok": true, "device": {...}}``. A kernel row's times
-and bound for kernels 5-7 are per launch on the GAT path: two launches at
-(H8, C19) and one at (H1, C152) per step. Without a CUDA device, or
-outside the repository, it exits nonzero and prints no result. ``--out``
-writes every measured number to a JSON file.
+and bound for the GAT and GATv2 kernels are per launch on their path: two
+launches at the first shape and one at the second per step. Without a
+CUDA device, or outside the repository, it exits nonzero and prints no
+result. ``--out`` writes every measured number to a JSON file.
 """
 
 from __future__ import annotations
@@ -52,10 +54,15 @@ STEPS_WARMUP, STEPS_TIMED = 2, 10
 NUM_NODES, NUM_EDGES = 169_343, 2_368_458
 GAT_NET = dict(kind="gat", hidden=152, heads=8)
 GAT_SHAPES = ((8, 19), (1, 152))   # layers 0-1 and layer 2 of h152 H8
+# the reference's tuned arxiv GATv2 (scripts/train_main_table.sh:37)
+GATV2_NET = dict(kind="gatv2", hidden=112, heads=8, lr=0.0087876393444041,
+                 wd=0.001)
+GATV2_SHAPES = ((8, 14), (1, 112))  # layers 0-1 and layer 2 of h112 H8
 PATH_KERNELS = {
     "main": ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
              "headmix_bwd"),
     "gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
+    "gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
 }
 # tolerances, with why:
 SUM_RTOL = SUM_ATOL = 1e-5     # f32 sums of <= ~40 terms in another order
@@ -436,9 +443,12 @@ def _gat_kernel_args(plan, ins):
 
 
 def _gat_kernel_errs(kernel_args, label, empty=None, silent=None) -> dict:
-    """Each GAT kernel against its plain version on ``_gat_kernel_args``:
-    max abs err by kernel. ``empty`` / ``silent``: row masks whose outputs
-    must be exact zeros."""
+    """Each GAT or GATv2 kernel against its plain version on
+    ``_gat_kernel_args`` / ``_gatv2_kernel_args``: max abs err by kernel.
+    ``empty`` / ``silent``: row masks whose outputs must be exact zeros.
+    GATv2's d_att sums de leaky(z) over every edge, with terms of both
+    signs that cancel: it is a gradient and is held at the gradient
+    tolerance, relative L2."""
     import torch
     from egc_tpu_torch.ops.cuda import attention as at
     errs = {}
@@ -447,17 +457,22 @@ def _gat_kernel_errs(kernel_args, label, empty=None, silent=None) -> dict:
         ref = getattr(at, name + "_plain")(*args)
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        errs[name] = max(_close(f"{name}[{label}] out {i}", a, b)
-                         for i, (a, b) in enumerate(zip(got, ref)))
         check(all(bool(torch.isfinite(t).all()) for t in got),
               f"{name}[{label}]: non-finite output")
-        rows = {"gat_fwd": empty, "gat_bwd_t": silent,
-                "gat_bwd_f": empty}[name]
+        if name == "gatv2_bwd_f":
+            r = rel_l2(got[1], ref[1])
+            check(r <= GRAD_REL_L2, f"{name}[{label}] d_att rel L2 {r}")
+            errs["gatv2_bwd_f d_att rel L2"] = r
+            got, ref = got[:1], ref[:1]
+        errs[name] = max(_close(f"{name}[{label}] out {i}", a, b)
+                         for i, (a, b) in enumerate(zip(got, ref)))
+        fwd = name.endswith("_fwd")
+        rows = silent if name.endswith("_bwd_t") else empty
         if rows is not None:
-            outs = got[:2] if name == "gat_fwd" else got
+            outs = got[:2] if fwd else got
             check(all(bool((t[rows] == 0).all()) for t in outs),
                   f"{name}[{label}]: empty rows are not exact zeros")
-            if name == "gat_fwd":
+            if fwd:
                 check(bool((got[2][rows] == at.EMPTY_MAX).all()),
                       f"{name}[{label}]: m of empty rows")
     return errs
@@ -560,36 +575,18 @@ def kernels_gat_main_shapes(data) -> list:
                 bound_ms=b_ms, bound_by=b_by))
         del ins, kernel_args
         torch.cuda.empty_cache()
-    rows = []
     replaces = {"gat_fwd": "egc_tpu/ops/pallas/attention.py:160",
                 "gat_bwd_t": "egc_tpu/ops/pallas/attention.py:392",
                 "gat_bwd_f": "egc_tpu/ops/pallas/attention.py:392"}
-    for name, shapes in per_shape.items():
-        for sh in shapes:
-            log(f"[kernels] {name} H{sh['heads']} C{sh['channels']}: "
-                f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}, bound "
-                f"{sh['bound_ms']:.4f} by {sh['bound_by']}), max abs err "
-                f"{sh['max_abs_err']:.3e}")
-
-        def per_launch(key):
-            return (2 * shapes[0][key] + shapes[1][key]) / 3
-
-        rows.append(dict(
-            name=name, route="cuda",
-            source="egc_tpu_torch/csrc/gat_attention.cu",
-            replaces=replaces[name],
-            max_abs_err=max(sh["max_abs_err"] for sh in shapes),
-            ms=per_launch("ms"), plain_ms=per_launch("plain_ms"),
-            bound_ms=per_launch("bound_ms"),
-            bound_by=shapes[0]["bound_by"], library_ms=None,
-            library_note="no single PyTorch call computes the GAT edge "
-                         "softmax or its gradient", per_shape=shapes))
-    return rows
+    return _per_launch_rows(per_shape, replaces,
+                            "egc_tpu_torch/csrc/gat_attention.cu",
+                            "no single PyTorch call computes the GAT edge "
+                            "softmax or its gradient")
 
 
-def kernels_gat_small(dev) -> None:
-    """Kernels 5-7 with empty receivers, senders without out-edges, and
-    C = 5 and 37 besides the path's shapes."""
+def _small_attention_graph(dev):
+    """A 1,000-node graph with 50 receivers without in-edges and 40
+    senders without out-edges, and masks of those rows."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.structure import Graph
@@ -605,9 +602,17 @@ def kernels_gat_small(dev) -> None:
     g = g.replace(kernel_plan=build_kernel_plan(s, r, n)).to(dev)
     empty = torch.as_tensor(np.bincount(r, minlength=n) == 0, device=dev)
     silent = torch.as_tensor(np.bincount(s, minlength=n) == 0, device=dev)
+    return g, empty, silent
+
+
+def kernels_gat_small(dev) -> None:
+    """Kernels 5-7 with empty receivers, senders without out-edges, and
+    C = 5 and 37 besides the path's shapes."""
+    import torch
+    g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     for heads, c in ((8, 5), (1, 37), (4, 37)) + GAT_SHAPES:
-        ins = _gat_inputs(n, heads, c, gen, dev)
+        ins = _gat_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gat_kernel_args(g.kernel_plan, ins), label, empty,
                          silent)
@@ -615,6 +620,184 @@ def kernels_gat_small(dev) -> None:
     torch.cuda.synchronize()
     log("[kernels] GAT small-size checks passed (empty receivers, senders "
         "without out-edges, C = 5, 37, 19, 152)")
+
+
+def _gatv2_inputs(n, heads, c, gen, dev):
+    """hl, hr, att and the cotangents g_o, g_d; att and g_o are scaled so
+    the logits and the per-head dot q are O(1), as glorot weights keep
+    them."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    return (randn(n, heads * c), randn(n, heads * c),
+            randn(heads, c) / math.sqrt(c),
+            randn(n, heads * c) / math.sqrt(c), randn(n, heads))
+
+
+def _gatv2_kernel_args(plan, ins):
+    """Arguments of the three GATv2 kernels (m from the plain forward)."""
+    from egc_tpu_torch.ops.cuda import attention as at
+    hl, hr, att, g_o, g_d = ins
+    fwd = (hl, hr, att, plan.rowptr, plan.fwd_senders)
+    m = at.gatv2_fwd_plain(*fwd)[2]
+    return {"gatv2_fwd": fwd,
+            "gatv2_bwd_t": (hl, hr, att, m, g_o, g_d, plan.colptr,
+                            plan.bwd_receivers),
+            "gatv2_bwd_f": (hl, hr, att, m, g_o, g_d, plan.rowptr,
+                            plan.fwd_senders)}
+
+
+def _check_gatv2_autograd(g, ins, heads, c, gen, label) -> float:
+    """Gradients through ``gatv2_attention`` (with the self-term merge) and
+    through the whole GATv2Conv against autograd of the plain segment path
+    on the same card, d_att included; returns the worst relative L2."""
+    import torch
+    from egc_tpu_torch.nn.conv.attention import (
+        GATv2Conv, fused_softmax_sum_v2, segment_softmax_sum_v2,
+    )
+    n, dev = g.num_nodes, g.nodes.device
+    plan = g.kernel_plan
+    hl, hr, att = ins[0].view(n, heads, c), ins[1].view(n, heads, c), ins[2]
+    proj = torch.randn(n, heads, c, generator=gen, device=dev)
+
+    def plain(a, b, w):
+        return segment_softmax_sum_v2(a, b, w, g.senders, g.receivers,
+                                      g.edge_mask)
+
+    def run(fn, tensors, extra=()):
+        ts = [t.detach().clone().requires_grad_(True) for t in tensors]
+        out = fn(*ts)
+        (out * proj.reshape(out.shape)).sum().backward()
+        return out.detach(), [t.grad for t in ts] + [
+            p.grad.clone() for p in extra]
+
+    def held(what, got, g_got, ref, g_ref):
+        _close(f"{what}[{label}]", got, ref)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(g_got, g_ref)):
+            worst = max(worst, rel_l2(a, b))
+            check(rel_l2(a, b) <= GRAD_REL_L2,
+                  f"{what}[{label}] grad {i} rel L2 {rel_l2(a, b)}")
+        return worst
+
+    got, g_got = run(lambda a, b, w: fused_softmax_sum_v2(a, b, w, plan),
+                     (hl, hr, att))
+    ref, g_ref = run(plain, (hl, hr, att))
+    worst = held("gatv2_attention+merge", got, g_got, ref, g_ref)
+
+    fin = 112
+    conv = GATv2Conv(fin, c, heads=heads,
+                     generator=torch.Generator().manual_seed(3), device=dev)
+    with torch.no_grad():   # nonzero biases, so their gradients are held too
+        for p in (conv.bias, conv.lin_l.bias, conv.lin_r.bias):
+            p.normal_(generator=gen)
+    x = torch.randn(n, fin, generator=gen, device=dev)
+    params = list(conv.parameters())
+
+    def conv_plain(xx):
+        a, b = conv.project(xx)
+        return plain(a, b, conv.att[0]).reshape(n, -1) + conv.bias
+
+    got, g_got = run(lambda xx: conv(g, xx), (x,), params)
+    conv.zero_grad()
+    ref, g_ref = run(conv_plain, (x,), params)
+    return max(worst, held("GATv2Conv", got, g_got, ref, g_ref))
+
+
+def kernels_gatv2_main_shapes(data) -> list:
+    """The GATv2 kernels against their plain versions at the GATv2 path's
+    shapes, (H8, C14) and (H1, C112); the rows report per-launch figures
+    of the path (two launches at the first shape, one at the second)."""
+    import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+
+    g = data["graph"]
+    plan, dev = g.kernel_plan, data["device"]
+    n, e = plan.num_nodes, plan.num_edges
+    gen = torch.Generator(device=dev).manual_seed(6)
+    per_shape = {}
+    for heads, c in GATV2_SHAPES:
+        f = heads * c
+        ins = _gatv2_inputs(n, heads, c, gen, dev)
+        kernel_args = _gatv2_kernel_args(plan, ins)
+        label = f"H{heads} C{c}"
+        errs = _gat_kernel_errs(kernel_args, label)
+        worst = _check_gatv2_autograd(g, ins, heads, c, gen, label)
+        log(f"[kernels] {label}: gatv2_bwd_f d_att rel L2 "
+            f"{errs['gatv2_bwd_f d_att rel L2']:.3e}; gatv2_attention and "
+            f"GATv2Conv grads vs the plain path: worst rel L2 {worst:.3e}")
+        nh = 4 * n * heads
+        ptr_idx = 4 * (n + 1 + e)
+        cost = {   # (compulsory bytes, operations)
+            "gatv2_fwd": (4 * 3 * n * f + 2 * nh + ptr_idx + 4 * f,
+                          e * (7.0 * f + 6 * heads)),
+            "gatv2_bwd_t": (4 * 4 * n * f + 2 * nh + ptr_idx + 4 * f,
+                            e * (10.0 * f + 4 * heads)),
+            "gatv2_bwd_f": (4 * 4 * n * f + 2 * nh + ptr_idx + 8 * f,
+                            e * (10.0 * f + 4 * heads)),
+        }
+        for name, args in kernel_args.items():
+            kern, plain = getattr(at, name), getattr(at, name + "_plain")
+            b_ms, b_by = bound_ms(*cost[name])
+            per_shape.setdefault(name, []).append(dict(
+                heads=heads, channels=c, max_abs_err=errs[name],
+                ms=time_ms(lambda: kern(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                bound_ms=b_ms, bound_by=b_by))
+        per_shape["gatv2_bwd_f"][-1]["d_att_rel_l2"] = \
+            errs["gatv2_bwd_f d_att rel L2"]
+        del ins, kernel_args
+        torch.cuda.empty_cache()
+    replaces = {"gatv2_fwd": "egc_tpu/ops/pallas/attention.py:1267",
+                "gatv2_bwd_t": "egc_tpu/ops/pallas/attention.py:752",
+                "gatv2_bwd_f": "egc_tpu/ops/pallas/attention.py:1191"}
+    return _per_launch_rows(per_shape, replaces,
+                            "egc_tpu_torch/csrc/gatv2_attention.cu",
+                            "no single PyTorch call computes the GATv2 edge "
+                            "softmax or its gradient")
+
+
+def _per_launch_rows(per_shape, replaces, source, library_note) -> list:
+    """Kernel rows of an attention path: per-launch figures of two launches
+    at the first shape and one at the second per step."""
+    rows = []
+    for name, shapes in per_shape.items():
+        for sh in shapes:
+            log(f"[kernels] {name} H{sh['heads']} C{sh['channels']}: "
+                f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}, bound "
+                f"{sh['bound_ms']:.4f} by {sh['bound_by']}), max abs err "
+                f"{sh['max_abs_err']:.3e}")
+
+        def per_launch(key):
+            return (2 * shapes[0][key] + shapes[1][key]) / 3
+
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces[name],
+            max_abs_err=max(sh["max_abs_err"] for sh in shapes),
+            ms=per_launch("ms"), plain_ms=per_launch("plain_ms"),
+            bound_ms=per_launch("bound_ms"),
+            bound_by=shapes[0]["bound_by"], library_ms=None,
+            library_note=library_note, per_shape=shapes))
+    return rows
+
+
+def kernels_gatv2_small(dev) -> None:
+    """The GATv2 kernels with empty receivers, senders without out-edges,
+    and C = 5 and 37 besides the path's shapes."""
+    import torch
+    g, empty, silent = _small_attention_graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for heads, c in ((8, 5), (1, 37), (4, 37)) + GATV2_SHAPES:
+        ins = _gatv2_inputs(g.num_nodes, heads, c, gen, dev)
+        label = f"small H{heads} C{c}"
+        _gat_kernel_errs(_gatv2_kernel_args(g.kernel_plan, ins), label,
+                         empty, silent)
+        _check_gatv2_autograd(g, ins, heads, c, gen, label)
+    torch.cuda.synchronize()
+    log("[kernels] GATv2 small-size checks passed (empty receivers, senders "
+        "without out-edges, C = 5, 37, 14, 112)")
 
 
 # ---------------------------------------------------------------------------
@@ -640,8 +823,8 @@ def _grad_rels(model, ref_model) -> list:
 
 
 def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
-    """One path ("main": EGC-M, "gat": GAT h152 H8) through
-    ``train_full_graph`` with the net arguments ``net``."""
+    """One path ("main": EGC-M, "gat": GAT h152 H8, "gatv2": GATv2 h112
+    H8) through ``train_full_graph`` with the net arguments ``net``."""
     import torch
     from egc_tpu_torch.exp.fullgraph import train_full_graph
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -768,10 +951,12 @@ def main(argv=None) -> int:
     rows = kernels_main_shapes(data)
     results["segment_gather_reduce"] = check_segment_gather_reduce(data)
     rows += kernels_gat_main_shapes(data)
+    rows += kernels_gatv2_main_shapes(data)
     kernels_small(data["device"])
     kernels_gat_small(data["device"])
+    kernels_gatv2_small(data["device"])
     d_cpu = full_graph_to_device_dict(raw, "cpu")
-    for path, net in (("main", {}), ("gat", GAT_NET)):
+    for path, net in (("main", {}), ("gat", GAT_NET), ("gatv2", GATV2_NET)):
         results[path] = phase_path(path, raw, data, d_cpu, net)
         for row in rows:
             if row["name"] in PATH_KERNELS[path]:

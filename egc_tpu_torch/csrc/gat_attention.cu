@@ -57,16 +57,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_rows.cuh"
+
 namespace {
-
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxHeads = 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kEmptyMax = -1e30f;
-
-__device__ __forceinline__ float leaky(float z, float slope) {
-  return z >= 0.f ? z : slope * z;
-}
 
 // Dynamic shared memory: per warp, [32][H] softmax weights and the row's
 // a_dst[H] and m[H].
@@ -270,17 +263,8 @@ gat_bwd_kernel(const float* __restrict__ wh, const float* __restrict__ a_src,
   if (lane < H) d_head[(size_t)row * H + lane] = hsum;
 }
 
-inline unsigned blocks_for(int n_rows) {
-  return (unsigned)((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
 // Columns per lane for a row of f floats: 2, 5 or 8 (f <= 256).
 inline int per_lane(int f) { return f <= 64 ? 2 : f <= 160 ? 5 : 8; }
-
-inline bool shape_ok(int heads, int channels) {
-  return heads >= 1 && heads <= kMaxHeads && channels >= 1 &&
-         heads * channels <= 32 * 8;
-}
 
 template <int NPL>
 void launch_fwd(const float* wh, const float* a_src, const float* a_dst,

@@ -1,8 +1,10 @@
 """Full-graph (transductive) training of the arxiv nets (counterpart of
 ``egc_tpu.exp.fullgraph``'s data build and ``ArxivConfig`` step): EGC-M
-(``kind="egc"``, the default: h128 H4 B4 symnorm/max/mean) and GAT
+(``kind="egc"``, the default: h128 H4 B4 symnorm/max/mean), GAT
 (``kind="gat"``: h152 H8, the last layer single-head, is the reference's
-tuned arxiv width).
+tuned arxiv width) and GATv2 (``kind="gatv2"``, ``gat_version=2``: h112
+H8, the last layer single-head, at lr 0.0087876 and wd 0.001 is the
+reference's tuned arxiv configuration).
 
 One step is the ``ArxivConfig`` epoch: a full-graph forward in training
 mode, the NLL averaged over the train split, backward, and one

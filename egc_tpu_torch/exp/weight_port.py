@@ -1,8 +1,8 @@
 """JAX variables -> the port's state dict (counterpart of
 ``egc_tpu.exp.weight_port``).
 
-``arxiv_state_dict_from_jax`` applies the arxiv EGC and GAT rules of the
-JAX package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
+``arxiv_state_dict_from_jax`` applies the arxiv EGC, GAT and GATv2 rules of
+the JAX package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
 given as nested dicts of numpy arrays, and returns the reference-named
 state dict that ``ArxivNet.load_state_dict(strict=True)`` takes:
 
@@ -12,6 +12,11 @@ state dict that ``ArxivNet.load_state_dict(strict=True)`` takes:
 - GATConv ``lin.kernel`` [in, H*C] -> ``lin_src.weight`` [H*C, in] (the
   columns are in (h, c) order on both sides); ``att_src`` / ``att_dst``
   [H, C] -> [1, H, C]; ``bias`` as it is (``weight_port.py:186-203``);
+- GATv2Conv ``lin_l.kernel`` [in, H*C] -> ``lin_l.weight`` [H*C, in] and
+  ``lin_l.bias``, ``lin_r`` the same way, ``att`` [H, C] -> [1, H, C],
+  ``bias`` as it is (``weight_port.py:204-211``). A conv built with
+  ``share_weights`` has no ``lin_r`` in flax; its ``lin_l`` fills both
+  keys, as the state dict of a module whose ``lin_r`` is ``lin_l`` holds;
 - MaskedBatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
   ``running_mean/running_var``, plus ``num_batches_tracked`` = 0.
 """
@@ -39,7 +44,7 @@ def _t(w) -> np.ndarray:
 
 def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int = 4
                               ) -> "OrderedDict[str, torch.Tensor]":
-    """``bases``: the EGC convs' basis count (GAT reads none)."""
+    """``bases``: the EGC convs' basis count (GAT and GATv2 read none)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
@@ -56,6 +61,14 @@ def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int = 4
         sd[tp + "lin_src.weight"] = _t(p["lin"]["kernel"])
         sd[tp + "att_src"] = np.asarray(p["att_src"])[None]
         sd[tp + "att_dst"] = np.asarray(p["att_dst"])[None]
+        sd[tp + "bias"] = np.asarray(p["bias"])
+    for i in _module_indices(params, "GATv2Conv"):
+        p, tp = params[f"GATv2Conv_{i}"], f"convs.{i}."
+        for side in ("lin_l", "lin_r"):
+            lin = p.get(side, p["lin_l"])
+            sd[f"{tp}{side}.weight"] = _t(lin["kernel"])
+            sd[f"{tp}{side}.bias"] = np.asarray(lin["bias"])
+        sd[tp + "att"] = np.asarray(p["att"])[None]
         sd[tp + "bias"] = np.asarray(p["bias"])
     for i in _module_indices(params, "MaskedBatchNorm"):
         name, tp = f"MaskedBatchNorm_{i}", f"bns.{i}."

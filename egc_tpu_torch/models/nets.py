@@ -1,7 +1,7 @@
 """Task networks (counterpart of ``egc_tpu.models.nets``).
 
-``ArxivNet`` is ported with the EGC and GAT convs; ``ConvSpec`` names
-every kind the JAX package has, and the kinds not ported yet raise.
+``ArxivNet`` is ported with the EGC, GAT and GATv2 convs; ``ConvSpec``
+names every kind the JAX package has, and the kinds not ported yet raise.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from egc_tpu_torch.nn import init as einit
-from egc_tpu_torch.nn.conv.attention import GATConv
+from egc_tpu_torch.nn.conv.attention import GATConv, GATv2Conv
 from egc_tpu_torch.nn.conv.egc import EGConv
 from egc_tpu_torch.nn.norm import MaskedBatchNorm
 
@@ -27,7 +27,6 @@ _NOT_PORTED = {
     "mpnn-sum": "A9 (convs on conv_aggregate)",
     "mpnn-max": "A9 (convs on conv_aggregate)",
     "pna": "A9 (convs on conv_aggregate)",
-    "gatv2": "A10 (attention convs) with kernel B5",
 }
 
 
@@ -58,15 +57,16 @@ class ConvSpec:
                           weighting=weighting,
                           self_loop_mode=self.self_loop_mode,
                           generator=generator, device=device)
-        if self.kind == "gat":
+        if self.kind in ("gat", "gatv2"):
             # the last layer is single-head (reference
             # arxiv/norm_models.py:79-82, egc_tpu/models/nets.py:69-75)
             h = self.heads if layer_idx != num_layers - 1 else 1
             if out_dim % h:
                 raise ValueError(f"GAT width {out_dim} is not a multiple of "
                                  f"{h} heads")
-            return GATConv(in_dim, out_dim // h, heads=h,
-                           generator=generator, device=device)
+            ctor = GATConv if self.kind == "gat" else GATv2Conv
+            return ctor(in_dim, out_dim // h, heads=h, generator=generator,
+                        device=device)
         if self.kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"conv kind {self.kind!r} is not ported to egc_tpu_torch "

@@ -1,23 +1,29 @@
-"""GAT attention convolution (counterpart of ``GATConv`` in
-``egc_tpu.nn.conv.attention``).
+"""GAT and GATv2 attention convolutions (counterpart of ``GATConv`` and
+``GATv2Conv`` in ``egc_tpu.nn.conv.attention``).
 
-PyG semantics: per head, logits e_ij = leaky_relu(a_src . Wx_j +
-a_dst . Wx_i) (slope 0.2) over the in-edges of i plus a virtual self-loop
-(PyG ``add_self_loops=True``), softmax at the receiver, heads concatenated,
-then a bias. The self term enters the softmax analytically; no self-loop
-edge is materialised.
+PyG semantics: per head, a logit per in-edge j -> i plus a virtual
+self-loop (PyG ``add_self_loops=True``), softmax at the receiver, heads
+concatenated, then a bias. The self term enters the softmax analytically;
+no self-loop edge is materialised. Logits (slope 0.2):
+
+- GAT: e_ij = leaky_relu(a_src . Wx_j + a_dst . Wx_i), values Wx_j;
+- GATv2: e_ij = att . leaky_relu(W_l x_j + W_r x_i), values W_l x_j.
 
 Dispatch follows the device, as in ``ops.dispatch.conv_aggregate``:
 
-- a CPU tensor takes the plain segment path (``segment_softmax_sum``);
-- a CUDA tensor with a kernel plan takes ``gat_attention`` (kernels 5-7)
-  and the exact node-level merge of the self term below;
+- a CPU tensor takes the plain segment path (``softmax_sum``, shared by
+  both convs);
+- a CUDA tensor with a kernel plan takes ``gat_attention`` or
+  ``gatv2_attention`` and the exact node-level merge of the self term
+  (``merge_self``);
 - a CUDA tensor without a plan raises.
 
 Attention dropout is not ported: no configuration of the full-graph path
-sets it. Parameters carry the reference's names: ``lin_src`` (Linear
+sets it. Parameters carry the reference's names: GAT ``lin_src`` (Linear
 without bias, H*C outputs), ``att_src`` and ``att_dst`` of shape
-[1, H, C], and ``bias``.
+[1, H, C], and ``bias``; GATv2 ``lin_l`` and ``lin_r`` (Linear with bias,
+H*C outputs; one module when ``share_weights``), ``att`` [1, H, C] and
+``bias``.
 """
 
 from __future__ import annotations
@@ -29,25 +35,24 @@ from torch import nn
 
 from egc_tpu_torch.nn import init as einit
 from egc_tpu_torch.ops.cuda.attention import (
-    EMPTY_MAX, _leaky, gat_attention,
+    EMPTY_MAX, _leaky, gat_attention, gatv2_attention,
 )
 from egc_tpu_torch.ops.segment import (
     _segment_max_raw, segment_count, segment_sum,
 )
 
 
-def segment_softmax_sum(h: torch.Tensor, a_src: torch.Tensor,
-                        a_dst: torch.Tensor, senders: torch.Tensor,
-                        receivers: torch.Tensor,
-                        edge_mask: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """Plain path: ``[N, H, C]`` softmax-weighted sums over in-edges and
-    the self-loop (``_attention_alphas`` + ``_aggregate`` of the JAX
-    package, at attention dropout 0)."""
+def softmax_sum(h: torch.Tensor, edge_logits: torch.Tensor,
+                self_logits: torch.Tensor, senders: torch.Tensor,
+                receivers: torch.Tensor,
+                edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain path: ``[N, H, C]`` sums of ``h[sender]`` over in-edges and of
+    ``h`` itself over the self-loop, weighted by the per-head softmax of
+    ``edge_logits [E, H]`` and ``self_logits [N, H]`` at each receiver
+    (``_attention_alphas`` + ``_aggregate`` of the JAX package, at
+    attention dropout 0)."""
     n = h.shape[0]
     s, r = senders.long(), receivers.long()
-    self_logits = _leaky(a_src + a_dst)
-    edge_logits = _leaky(a_src[s] + a_dst[r])
     neg = torch.tensor(EMPTY_MAX, dtype=h.dtype, device=h.device)
     if edge_mask is not None:
         edge_logits = torch.where(edge_mask[:, None], edge_logits, neg)
@@ -65,19 +70,62 @@ def segment_softmax_sum(h: torch.Tensor, a_src: torch.Tensor,
             + alpha_self[:, :, None] * h)
 
 
-def fused_softmax_sum(h: torch.Tensor, a_src: torch.Tensor,
-                      a_dst: torch.Tensor, plan) -> torch.Tensor:
-    """Kernel path: the edge softmax of ``gat_attention`` merged with the
-    self term at the receiver (``_fused_gat_softmax_sum`` of the JAX
+def merge_self(o: torch.Tensor, d: torch.Tensor, m: torch.Tensor,
+               self_logits: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Kernel path: the edge softmax ``(o, d, m)`` of an attention kernel
+    merged with the self term ``(self_logits, h)`` at the receiver
+    (``_fused_gat_softmax_sum`` and ``_fused_gatv2_softmax_sum`` of the JAX
     package). The merge is invariant to m and m_full, so both are
     constants to autograd."""
-    o, d, m = gat_attention(h, a_src, a_dst, plan)
-    self_logits = _leaky(a_src + a_dst)
     m_full = torch.maximum(m, self_logits).detach()
     corr = torch.exp(m - m_full)
     p_self = torch.exp(self_logits - m_full)
     denom = torch.clamp(d * corr + p_self, min=1e-16)
     return (o * corr[:, :, None] + p_self[:, :, None] * h) / denom[:, :, None]
+
+
+def segment_softmax_sum(h: torch.Tensor, a_src: torch.Tensor,
+                        a_dst: torch.Tensor, senders: torch.Tensor,
+                        receivers: torch.Tensor,
+                        edge_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """GAT's plain path: ``[N, H, C]``."""
+    s, r = senders.long(), receivers.long()
+    return softmax_sum(h, _leaky(a_src[s] + a_dst[r]), _leaky(a_src + a_dst),
+                       senders, receivers, edge_mask)
+
+
+def fused_softmax_sum(h: torch.Tensor, a_src: torch.Tensor,
+                      a_dst: torch.Tensor, plan) -> torch.Tensor:
+    """GAT's kernel path: ``gat_attention`` and the self-term merge."""
+    o, d, m = gat_attention(h, a_src, a_dst, plan)
+    return merge_self(o, d, m, _leaky(a_src + a_dst), h)
+
+
+def _logits_v2(x_src: torch.Tensor, x_dst: torch.Tensor,
+               att: torch.Tensor) -> torch.Tensor:
+    """GATv2 logits ``[..., H]`` of ``[..., H, C]`` features; att
+    ``[H, C]``."""
+    return (_leaky(x_src + x_dst) * att).sum(-1)
+
+
+def segment_softmax_sum_v2(hl: torch.Tensor, hr: torch.Tensor,
+                           att: torch.Tensor, senders: torch.Tensor,
+                           receivers: torch.Tensor,
+                           edge_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """GATv2's plain path: ``[N, H, C]``."""
+    s, r = senders.long(), receivers.long()
+    return softmax_sum(hl, _logits_v2(hl[s], hr[r], att),
+                       _logits_v2(hl, hr, att), senders, receivers, edge_mask)
+
+
+def fused_softmax_sum_v2(hl: torch.Tensor, hr: torch.Tensor,
+                         att: torch.Tensor, plan) -> torch.Tensor:
+    """GATv2's kernel path: ``gatv2_attention`` and the self-term merge,
+    with hl as the self value."""
+    o, d, m = gatv2_attention(hl, hr, att, plan)
+    return merge_self(o, d, m, _logits_v2(hl, hr, att), hl)
 
 
 class GATConv(nn.Module):
@@ -110,10 +158,55 @@ class GATConv(nn.Module):
         if x.device.type == "cpu":
             out = segment_softmax_sum(h, a_src, a_dst, g.senders,
                                       g.receivers, g.edge_mask)
-        elif g.kernel_plan is None:
-            raise RuntimeError(
-                "GATConv on a CUDA tensor needs a graph with a kernel plan "
-                "(ops.dispatch.build_kernel_plan)")
         else:
-            out = fused_softmax_sum(h, a_src, a_dst, g.kernel_plan)
+            out = fused_softmax_sum(h, a_src, a_dst, _plan(g, "GATConv"))
+        return out.reshape(x.shape[0], -1) + self.bias
+
+
+def _plan(g, conv: str):
+    if g.kernel_plan is None:
+        raise RuntimeError(
+            f"{conv} on a CUDA tensor needs a graph with a kernel plan "
+            "(ops.dispatch.build_kernel_plan)")
+    return g.kernel_plan
+
+
+class GATv2Conv(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 heads: int = 1, share_weights: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        """``out_channels`` per head; the output has ``heads *
+        out_channels`` columns. ``share_weights``: ``lin_r`` is ``lin_l``.
+        """
+        super().__init__()
+        self.heads, self.out_channels = heads, out_channels
+        self.lin_l = nn.Linear(in_channels, heads * out_channels,
+                               device=device)
+        self.lin_r = self.lin_l if share_weights else nn.Linear(
+            in_channels, heads * out_channels, device=device)
+        self.att = nn.Parameter(
+            torch.empty(1, heads, out_channels, device=device))
+        self.bias = nn.Parameter(
+            torch.zeros(heads * out_channels, device=device))
+        lins = (self.lin_l,) if share_weights else (self.lin_l, self.lin_r)
+        for lin in lins:
+            einit.glorot_uniform_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+        einit.glorot_uniform_(self.att, generator)
+
+    def project(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(hl [N, H, C], hr [N, H, C])``."""
+        shape = (x.shape[0], self.heads, self.out_channels)
+        hl = self.lin_l(x).view(shape)
+        hr = hl if self.lin_r is self.lin_l else self.lin_r(x).view(shape)
+        return hl, hr
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        hl, hr = self.project(x)
+        if x.device.type == "cpu":
+            out = segment_softmax_sum_v2(hl, hr, self.att[0], g.senders,
+                                         g.receivers, g.edge_mask)
+        else:
+            out = fused_softmax_sum_v2(hl, hr, self.att[0],
+                                       _plan(g, "GATv2Conv"))
         return out.reshape(x.shape[0], -1) + self.bias

@@ -3,11 +3,13 @@ wrappers.
 
 Every ``*.cu`` file under ``egc_tpu_torch/csrc/`` becomes one shared
 library with a plain C interface, compiled by ``nvcc`` for ``sm_90a`` and
-loaded with ``ctypes``. The sources include no PyTorch header, so a build
-takes seconds. All sources build at once, one ``nvcc`` process each, into
-``egc_tpu_torch/_build/`` (listed in ``.gitignore``); a library's file
-name carries the hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.
+loaded with ``ctypes``; the ``*.cuh`` headers beside them hold device
+helpers that several sources include. The sources include no PyTorch
+header, so a build takes seconds. All sources build at once, one ``nvcc``
+process each, into ``egc_tpu_torch/_build/`` (listed in ``.gitignore``); a
+library's file name carries the hash of its source, the headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.
 
 Nothing is built when a module is imported: ``library(name)`` builds on
 first use, which is the first launch of a kernel on a CUDA tensor.
@@ -49,6 +51,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 

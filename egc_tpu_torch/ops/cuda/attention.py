@@ -1,8 +1,8 @@
-"""GAT edge-softmax kernels 5-7 (counterpart of the GAT half of
+"""GAT and GATv2 edge-softmax kernels (counterpart of
 ``egc_tpu.ops.pallas.attention``), their plain PyTorch versions and the
-autograd function ``gat_attention``.
+autograd functions ``gat_attention`` and ``gatv2_attention``.
 
-Per head, with z_sr = a_src[s] + a_dst[r] and e_sr = leaky_relu(z_sr)
+GAT. Per head, with z_sr = a_src[s] + a_dst[r] and e_sr = leaky_relu(z_sr)
 (slope 0.2) over the in-edges s -> r of each receiver r:
 
 - ``gat_fwd`` replaces ``gat_fwd`` and the max pass that precedes it
@@ -21,11 +21,29 @@ flash convention of ``egc_tpu/ops/pallas/attention.py:245-269``): every
 consumer of (o, d, m) is invariant to m, so the backward has no max-tie
 term.
 
-The boundary keeps the JAX package's layout, heads x channels: wh is
-``[N, H, C]`` (the kernels see it as ``[N, H*C]``), per-head scalars are
-``[N, H]``. A CPU tensor runs the plain version; a CUDA tensor launches
-the kernel in ``csrc/gat_attention.cu`` or raises. The kernels take
-H <= 32 and H*C <= 256. ``launches`` counts kernel launches.
+GATv2. Per edge s -> r and head h, with z = hl[s] + hr[r] ([H, C]) and
+the logit e_h = sum_c att[h,c] leaky_relu(z_hc):
+
+- ``gatv2_fwd`` replaces ``_gatv2_attention_cached.impl`` (bodies
+  ``_v2_fwd_kernel`` and ``_v2_fwd_kernel_tp``): per receiver, m, o and d
+  as for GAT with hl[s] as the value (online max in the kernel).
+- ``gatv2_bwd_t`` replaces ``_v2_edge_pass(_v2_bwd_t_kernel)`` and
+  ``_v2_edge_pass_tp``: per sender s, over its out-edges,
+  d_hl[s] = sum_r (a g_o[r] + dz).
+- ``gatv2_bwd_f`` replaces ``_v2_edge_pass(_v2_bwd_f_kernel)`` and
+  ``_v2_edge_pass_tp_f``: per receiver r, d_hr[r] = sum_s dz, and
+  d_att = sum over all edges of de leaky_relu(z) ([H, C]).
+
+Here a = exp(e - m_r), q_h = sum_c g_o[r,h,c] hl[s,h,c], de = a (q + g_d[r])
+and dz = de att leaky_relu'(z) (``_v2_edge_grad``; the JAX kernels carry
+g_d in a ones channel of hl). m is not differentiable, as for GAT.
+
+The boundary keeps the JAX package's layout, heads x channels: wh, hl and
+hr are ``[N, H, C]`` (the kernels see them as ``[N, H*C]``), att is
+``[H, C]``, per-head scalars are ``[N, H]``. A CPU tensor runs the plain
+version; a CUDA tensor launches the kernel in ``csrc/gat_attention.cu`` or
+``csrc/gatv2_attention.cu`` or raises. The kernels take H <= 32 and
+H*C <= 256. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -40,10 +58,12 @@ from egc_tpu_torch.ops.cuda.gather_reduce import _row_ids
 
 SLOPE = 0.2
 EMPTY_MAX = -1e30      # m of a receiver without in-edges
-MAX_HEADS = 32         # kMaxHeads in csrc/gat_attention.cu
+MAX_HEADS = 32         # kMaxHeads in csrc/warp_rows.cuh
 MAX_WIDTH = 256        # H*C: 32 lanes x 8 columns (csrc per_lane)
 
-launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0}
+launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0,
+                            "gatv2_fwd": 0, "gatv2_bwd_t": 0,
+                            "gatv2_bwd_f": 0}
 
 
 def _leaky(z: torch.Tensor) -> torch.Tensor:
@@ -110,12 +130,13 @@ def gat_bwd_f_plain(wh, a_src, a_dst, m, g_o, g_d, rowptr, senders
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check(wh, heads_arrays, ptr, idx):
-    """Shapes, types and devices every GAT kernel assumes; returns
-    ``(n, H, C)``."""
+def _check(wh, heads_arrays, ptr, idx, heads=None):
+    """Shapes, types and devices every GAT and GATv2 kernel assumes (H from
+    ``heads`` or the first per-head array); returns ``(n, H, C)``."""
     dev = wh.device
     n, hc = wh.shape
-    heads = heads_arrays[0][1].shape[1]
+    if heads is None:
+        heads = heads_arrays[0][1].shape[1]
     if not 1 <= heads <= MAX_HEADS or hc % heads or hc > MAX_WIDTH:
         raise ValueError(f"the GAT kernels take 1 <= H <= {MAX_HEADS} heads "
                          f"and H*C <= {MAX_WIDTH}; got H={heads}, "
@@ -135,7 +156,8 @@ def _needs_cuda(name, t):
 
 
 def _call(name, args, types):
-    lib = _build.library("gat_attention")
+    lib = _build.library("gatv2_attention" if name.startswith("gatv2")
+                         else "gat_attention")
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = types + [ctypes.c_void_p]
@@ -245,3 +267,187 @@ def gat_attention(wh: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
         raise ValueError(f"wh has {wh.shape[0]} rows, the plan "
                          f"{plan.num_nodes}")
     return _GATAttention.apply(wh, a_src, a_dst, plan)
+
+
+# ---------------------------------------------------------------------------
+# GATv2: plain versions
+# ---------------------------------------------------------------------------
+
+def _v2_logits(hl, hr, att, s, r):
+    """Per edge (s -> r): ``z [E, H, C]``, ``leaky(z)`` and the logits
+    ``e [E, H]``."""
+    n = hl.shape[0]
+    heads, c = att.shape
+    z = hl.view(n, heads, c)[s] + hr.view(n, heads, c)[r]
+    lz = _leaky(z)
+    return z, lz, (lz * att).sum(-1)
+
+
+def gatv2_fwd_plain(hl, hr, att, rowptr, senders
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``gatv2_fwd`` (any device): ``(o [N, H*C],
+    d [N, H], m [N, H])`` over the CSR ``(rowptr, senders)``."""
+    n, hc = hl.shape
+    heads, c = att.shape
+    rows = _row_ids(rowptr)
+    s = senders.long()
+    _, _, e = _v2_logits(hl, hr, att, s, rows)
+    m = hl.new_full((n, heads), EMPTY_MAX).scatter_reduce_(
+        0, rows[:, None].expand(-1, heads), e, "amax")
+    p = torch.exp(e - m[rows])
+    o = hl.new_zeros(n, heads, c).index_add_(
+        0, rows, p[:, :, None] * hl.view(n, heads, c)[s])
+    d = hl.new_zeros(n, heads).index_add_(0, rows, p)
+    return o.view(n, hc), d, m
+
+
+def _v2_edge_grads(hl, hr, att, m, g_o, g_d, s, r):
+    """Per edge (s -> r): alpha-hat ``a [E, H]``, the gathered ``g_o[r]``
+    rows, ``de [E, H]``, ``dz [E, H, C]`` and ``leaky(z)``."""
+    n = hl.shape[0]
+    heads, c = att.shape
+    z, lz, e = _v2_logits(hl, hr, att, s, r)
+    a = torch.exp(e - m[r])
+    g_r = g_o.view(n, heads, c)[r]
+    q = (g_r * hl.view(n, heads, c)[s]).sum(-1)
+    de = a * (q + g_d[r])
+    dz = de[:, :, None] * att * torch.where(z >= 0, 1.0, SLOPE)
+    return a, g_r, de, dz, lz
+
+
+def gatv2_bwd_t_plain(hl, hr, att, m, g_o, g_d, colptr, receivers
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of ``gatv2_bwd_t`` (any device): ``d_hl
+    [N, H*C]`` over the transposed CSC ``(colptr, receivers)``."""
+    n, hc = hl.shape
+    s, r = _row_ids(colptr), receivers.long()
+    a, g_r, _, dz, _ = _v2_edge_grads(hl, hr, att, m, g_o, g_d, s, r)
+    return hl.new_zeros((n,) + g_r.shape[1:]).index_add_(
+        0, s, a[:, :, None] * g_r + dz).view(n, hc)
+
+
+def gatv2_bwd_f_plain(hl, hr, att, m, g_o, g_d, rowptr, senders
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``gatv2_bwd_f`` (any device): ``(d_hr
+    [N, H*C], d_att [H, C])`` over the CSR ``(rowptr, senders)``."""
+    n, hc = hl.shape
+    r, s = _row_ids(rowptr), senders.long()
+    _, _, de, dz, lz = _v2_edge_grads(hl, hr, att, m, g_o, g_d, s, r)
+    d_hr = hl.new_zeros((n,) + dz.shape[1:]).index_add_(0, r, dz)
+    return d_hr.view(n, hc), (de[:, :, None] * lz).sum(0)
+
+
+# ---------------------------------------------------------------------------
+# GATv2: kernel launches
+# ---------------------------------------------------------------------------
+
+def _check_v2(hl, hr, att, heads_arrays, ptr, idx):
+    """The GAT checks plus hr like hl and att ``[H, C]``; ``(n, H, C)``."""
+    heads = att.shape[0] if att.dim() == 2 else 0
+    n, heads, c = _check(hl, heads_arrays, ptr, idx, heads=heads)
+    _build.check_tensor("hr", hr, torch.float32, hl.device, hl.shape)
+    _build.check_tensor("att", att, torch.float32, hl.device, (heads, c))
+    return n, heads, c
+
+
+def _launch_v2_fwd(hl, hr, att, rowptr, senders):
+    _needs_cuda("gatv2_fwd", hl)
+    n, heads, c = _check_v2(hl, hr, att, [], rowptr, senders)
+    o = torch.empty_like(hl)
+    d = hl.new_empty(n, heads)
+    m = hl.new_empty(n, heads)
+    _call("gatv2_fwd", [hl, hr, att, rowptr, senders, n, heads, c, SLOPE,
+                        o, d, m],
+          [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3)
+    return o, d, m
+
+
+def _launch_v2_bwd(name, hl, hr, att, m, g_o, g_d, ptr, idx):
+    _needs_cuda(name, hl)
+    n, heads, c = _check_v2(hl, hr, att, [("m", m), ("g_d", g_d)], ptr, idx)
+    _build.check_tensor("g_o", g_o, torch.float32, hl.device, hl.shape)
+    outs = [torch.empty_like(hl)]
+    if name == "gatv2_bwd_f":
+        # one row of d_att partial sums per block, summed below
+        blocks = _build.library("gatv2_attention").gatv2_att_blocks
+        blocks.restype, blocks.argtypes = ctypes.c_int, [ctypes.c_int]
+        outs.append(hl.new_empty(blocks(n), heads * c))
+    _call(name, [hl, hr, att, m, g_o, g_d, ptr, idx, n, heads, c, SLOPE,
+                 *outs],
+          [_P] * 8 + [_I] * 3 + [_F] + [_P] * len(outs))
+    if name == "gatv2_bwd_t":
+        return outs[0]
+    return outs[0], outs[1].sum(0).view(heads, c)
+
+
+# ---------------------------------------------------------------------------
+# GATv2: device dispatch
+# ---------------------------------------------------------------------------
+
+def gatv2_fwd(hl, hr, att, rowptr, senders):
+    """``(o [N, H*C], d [N, H], m [N, H])`` per receiver row of the CSR."""
+    if hl.device.type == "cpu":
+        return gatv2_fwd_plain(hl, hr, att, rowptr, senders)
+    return _launch_v2_fwd(hl, hr, att, rowptr, senders)
+
+
+def gatv2_bwd_t(hl, hr, att, m, g_o, g_d, colptr, receivers):
+    """``d_hl [N, H*C]`` per sender row of the CSC."""
+    if hl.device.type == "cpu":
+        return gatv2_bwd_t_plain(hl, hr, att, m, g_o, g_d, colptr,
+                                 receivers)
+    return _launch_v2_bwd("gatv2_bwd_t", hl, hr, att, m, g_o, g_d, colptr,
+                          receivers)
+
+
+def gatv2_bwd_f(hl, hr, att, m, g_o, g_d, rowptr, senders):
+    """``(d_hr [N, H*C], d_att [H, C])`` per receiver row of the CSR."""
+    if hl.device.type == "cpu":
+        return gatv2_bwd_f_plain(hl, hr, att, m, g_o, g_d, rowptr, senders)
+    return _launch_v2_bwd("gatv2_bwd_f", hl, hr, att, m, g_o, g_d, rowptr,
+                          senders)
+
+
+class _GATv2Attention(torch.autograd.Function):
+    """``gatv2_fwd`` forward; ``gatv2_bwd_t`` and ``gatv2_bwd_f`` backward.
+    m is marked non-differentiable, so its cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, hl, hr, att, plan):
+        n, heads, c = hl.shape
+        hl2 = hl.reshape(n, heads * c).contiguous()
+        hr2 = hr.reshape(n, heads * c).contiguous()
+        att = att.contiguous()
+        o, d, m = gatv2_fwd(hl2, hr2, att, plan.rowptr, plan.fwd_senders)
+        ctx.plan = plan
+        ctx.save_for_backward(hl2, hr2, att, m)
+        ctx.mark_non_differentiable(m)
+        return o.view(n, heads, c), d, m
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, _g_m):
+        hl2, hr2, att, m = ctx.saved_tensors
+        plan = ctx.plan
+        g_o = g_o.reshape(hl2.shape).contiguous()
+        g_d = g_d.contiguous()
+        d_hl = gatv2_bwd_t(hl2, hr2, att, m, g_o, g_d, plan.colptr,
+                           plan.bwd_receivers)
+        d_hr, d_att = gatv2_bwd_f(hl2, hr2, att, m, g_o, g_d, plan.rowptr,
+                                  plan.fwd_senders)
+        shape = (hl2.shape[0],) + tuple(att.shape)
+        return d_hl.view(shape), d_hr.view(shape), d_att, None
+
+
+def gatv2_attention(hl: torch.Tensor, hr: torch.Tensor, att: torch.Tensor,
+                    plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable GATv2 edge softmax over a ``KernelPlan``:
+    ``hl [N, H, C], hr [N, H, C], att [H, C] -> (o [N, H, C], d [N, H],
+    m [N, H])`` with o and d unnormalised at the per-receiver max m of the
+    edge logits (m carries no gradient); gradients reach hl, hr and att."""
+    if hl.shape[0] != plan.num_nodes:
+        raise ValueError(f"hl has {hl.shape[0]} rows, the plan "
+                         f"{plan.num_nodes}")
+    if hr.shape != hl.shape or tuple(att.shape) != tuple(hl.shape[1:]):
+        raise ValueError(f"hl {tuple(hl.shape)}, hr {tuple(hr.shape)} and "
+                         f"att {tuple(att.shape)} do not match")
+    return _GATv2Attention.apply(hl, hr, att, plan)

@@ -1,0 +1,297 @@
+"""Port parity for the GATv2 edge softmax: ``gatv2_attention`` (its three
+kernels through their plain versions on the CPU) against the JAX
+``gatv2_attention`` with its Pallas kernels in interpret mode, on the
+one-phase and the two-phase layouts; the kernel path against the segment
+path; and ``GATv2Conv`` against the JAX ``GATv2Conv`` (its XLA path on the
+CPU)."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import jax.experimental.pallas as pl
+import egc_tpu.ops.pallas.attention as jattn
+import egc_tpu.ops.pallas.gather_reduce as jgr
+from egc_tpu.graph.structure import Graph as JGraph, pad_graph as jpad
+from egc_tpu.graph.transforms import coalesce_np
+from egc_tpu.nn.conv.attention import GATv2Conv as JGATv2Conv
+from egc_tpu.ops.dispatch import GraphKernelPlan, WindowPlanDev
+
+from egc_tpu_torch.exp.weight_port import arxiv_state_dict_from_jax
+from egc_tpu_torch.graph.structure import Graph as TGraph, pad_graph as tpad
+from egc_tpu_torch.nn.conv.attention import (
+    GATv2Conv, fused_softmax_sum_v2, segment_softmax_sum_v2,
+)
+from egc_tpu_torch.ops.cuda import attention as tat
+from egc_tpu_torch.ops.dispatch import build_kernel_plan
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def interpret_pallas(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jattn.pl, "pallas_call", patched)
+    monkeypatch.setattr(jgr.pl, "pallas_call", patched)
+
+
+def rel_l2(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+
+
+def small_graph(seed, n, e, isolated=0, silent=0):
+    """Coalesced random graph: the last ``isolated`` nodes receive no edge,
+    the last ``silent`` send none."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n - silent, e).astype(np.int32)
+    r = rng.integers(0, n - isolated, e).astype(np.int32)
+    s, r, _ = coalesce_np(s, r, n)
+    return s, r
+
+
+def jax_plan(s, r, n, two_phase):
+    """The JAX GraphKernelPlan with small window layouts, built as
+    ``tests/test_attention_kernel.py::_mini_plan`` builds it; with
+    ``two_phase`` it carries the two-phase layouts as well."""
+    npad = ((n + 256) // 256) * 256
+
+    def dev(p):
+        return WindowPlanDev(
+            senders=jnp.asarray(p["senders"]),
+            receivers=jnp.asarray(p["receivers"]),
+            cell_ptr=jnp.asarray(p["cell_ptr"]),
+            edge_perm=jnp.asarray(p["perm"].astype(np.int32)),
+            r_blocks=p["R"], s_blocks=p["S"],
+            block_rows=p["block_rows"], window_rows=p["window_rows"])
+
+    f = dev(jgr.make_window_plan_np(s, r, npad, block_rows=128,
+                                    window_rows=256))
+    b = dev(jgr.make_window_plan_np(r, s, npad, block_rows=256,
+                                    window_rows=128))
+    deg = np.zeros(npad, np.float32)
+    np.add.at(deg, r, 1.0)
+    return GraphKernelPlan(fwd=f, bwd=b, fwd_attn=f, bwd_attn=b,
+                           fwd_v2=f if two_phase else None,
+                           bwd_v2=b if two_phase else None,
+                           deg=jnp.asarray(deg), n_pad=npad)
+
+
+def jax_gatv2_attention(plan, heads, c):
+    """(hl [N, H, C], hr [N, H, C], att [H, C]) -> (o [N, H, C], d [N, H])
+    through the JAX ``gatv2_attention``, packing its TPU layout as
+    ``_fused_gatv2_softmax_sum`` does (head interleave, ones channel)."""
+    cp = 1
+    while cp < c or (heads * cp) % 128:
+        cp *= 2
+    hcp, npad = heads * cp, plan.n_pad
+
+    def interleave(x, ones_chan=False):
+        xt = x.transpose(0, 2, 1)
+        if ones_chan:
+            xt = jnp.concatenate([xt, jnp.ones((npad, 1, heads)),
+                                  jnp.zeros((npad, cp - c - 1, heads))], 1)
+        else:
+            xt = jnp.pad(xt, ((0, 0), (0, cp - c), (0, 0)))
+        return xt.reshape(npad, hcp)
+
+    def f(hl, hr, att):
+        att_i = jnp.pad(att.T, ((0, cp - c), (0, 0))).reshape(1, hcp)
+        o, md = jattn.gatv2_attention(
+            interleave(hl, ones_chan=True), interleave(hr),
+            jnp.broadcast_to(att_i, (8, hcp)), plan, heads=heads, cp=cp,
+            dchan=c)
+        o = o.reshape(npad, cp, heads).transpose(0, 2, 1)[:, :, :c]
+        return o, md[:, 64:64 + heads]
+
+    return f, cp
+
+
+@pytest.mark.parametrize("two_phase", [False, True])
+@pytest.mark.parametrize("heads,c", [(4, 12), (1, 24)])
+def test_gatv2_attention_matches_jax(heads, c, two_phase):
+    """Normalised outputs, d, and the gradients of a fixed projection of
+    the outputs with respect to hl, hr and att, against the JAX kernels on
+    the one-phase and two-phase layouts, with isolated receivers and
+    silent senders."""
+    n = 150
+    s, r = small_graph(3, n, 700, isolated=12, silent=9)
+    jplan = jax_plan(s, r, n, two_phase)
+    f, cp = jax_gatv2_attention(jplan, heads, c)
+    assert cp > c
+    npad = jplan.n_pad
+    has = np.bincount(r, minlength=n) > 0
+    rng = np.random.default_rng(4)
+    hl = rng.normal(size=(n, heads, c)).astype(np.float32)
+    hr = rng.normal(size=(n, heads, c)).astype(np.float32)
+    att = (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32)
+    proj = rng.normal(size=(n, heads, c)).astype(np.float32) \
+        * has[:, None, None]
+
+    def pad(x):
+        return jnp.zeros((npad,) + x.shape[1:]).at[:n].set(x)
+
+    def jloss(hl, hr, att):
+        o, d = f(pad(hl), pad(hr), att)
+        out = o[:n] / jnp.maximum(d[:n], 1e-16)[:, :, None]
+        return jnp.sum(out * proj), (out, d[:n])
+
+    (_, (jout, jd)), jg = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(hl, hr, att)
+
+    tplan = build_kernel_plan(s, r, n)
+    tw = [torch.tensor(x, requires_grad=True) for x in (hl, hr, att)]
+    o, d, m = tat.gatv2_attention(*tw, tplan)
+    assert not m.requires_grad
+    empty = torch.as_tensor(~has)
+    assert torch.all(o[empty] == 0) and torch.all(d[empty] == 0)
+    assert torch.all(m[empty] == tat.EMPTY_MAX)
+    out = o / torch.clamp(d, min=1e-16)[:, :, None]
+    (out * torch.as_tensor(proj)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy()[has],
+                               np.asarray(jout)[has], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(d.detach().numpy()[has], np.asarray(jd)[has],
+                               rtol=1e-4, atol=1e-4)
+    for t, g, name in zip(tw, jg, ("hl", "hr", "att")):
+        assert rel_l2(t.grad.numpy(), np.asarray(g)) <= 1e-4, name
+
+
+def test_gatv2_plain_kernels_empty_rows_are_exact_zeros():
+    """The three GATv2 kernels (plain versions) on a graph with isolated
+    receivers and silent senders: empty rows are exact zeros (m = -1e30),
+    not NaN."""
+    n, heads, c = 60, 3, 7
+    s, r = small_graph(5, n, 250, isolated=6, silent=5)
+    plan = build_kernel_plan(s, r, n)
+    rng = np.random.default_rng(6)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+    hl, hr, att = rand(n, heads * c), rand(n, heads * c), rand(heads, c)
+    o, d, m = tat.gatv2_fwd(hl, hr, att, plan.rowptr, plan.fwd_senders)
+    g_o, g_d = rand(n, heads * c), rand(n, heads)
+    d_hl = tat.gatv2_bwd_t(hl, hr, att, m, g_o, g_d, plan.colptr,
+                           plan.bwd_receivers)
+    d_hr, d_att = tat.gatv2_bwd_f(hl, hr, att, m, g_o, g_d, plan.rowptr,
+                                  plan.fwd_senders)
+    for t in (o, d, m, d_hl, d_hr, d_att):
+        assert torch.isfinite(t).all()
+    assert d_att.shape == (heads, c)
+    empty = torch.as_tensor(np.bincount(r, minlength=n) == 0)
+    silent = torch.as_tensor(np.bincount(s, minlength=n) == 0)
+    assert empty[-6:].all() and silent[-5:].all()
+    assert torch.all(o[empty] == 0) and torch.all(d[empty] == 0)
+    assert torch.all(m[empty] == tat.EMPTY_MAX)
+    assert torch.all(d_hr[empty] == 0) and torch.all(d_hl[silent] == 0)
+    assert torch.all(d[~empty] > 0)
+
+
+@pytest.mark.parametrize("heads,c", [(8, 5), (1, 37), (4, 32)])
+def test_fused_path_matches_segment_path_v2(heads, c):
+    """The kernel path's self-term merge (``gatv2_attention`` +
+    ``fused_softmax_sum_v2``) against the plain segment softmax, values and
+    gradients, with isolated receivers and silent senders; C = 32 has no
+    free channel, which the JAX kernel would need."""
+    n = 120
+    s, r = small_graph(7, n, 600, isolated=10, silent=4)
+    plan = build_kernel_plan(s, r, n)
+    rng = np.random.default_rng(8)
+    inputs = [rng.normal(size=(n, heads, c)).astype(np.float32) * 2,
+              rng.normal(size=(n, heads, c)).astype(np.float32) * 2,
+              (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32)]
+    proj = torch.as_tensor(rng.normal(size=(n, heads, c)).astype(np.float32))
+
+    def run(fn):
+        ts = [torch.tensor(x, requires_grad=True) for x in inputs]
+        out = fn(*ts)
+        (out * proj).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    got, g_got = run(lambda hl, hr, att: fused_softmax_sum_v2(hl, hr, att,
+                                                              plan))
+    ref, g_ref = run(lambda hl, hr, att: segment_softmax_sum_v2(
+        hl, hr, att, torch.as_tensor(s), torch.as_tensor(r)))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for a, b, name in zip(g_got, g_ref, ("hl", "hr", "att")):
+        assert rel_l2(a.numpy(), b.numpy()) <= 1e-5, name
+
+
+def _dense(i, o):
+    return {"kernel": np.zeros((i, o), np.float32),
+            "bias": np.zeros((o,), np.float32)}
+
+
+@pytest.mark.parametrize("heads,c,share", [(4, 6, False), (4, 6, True),
+                                           (1, 24, False)])
+def test_gatv2conv_matches_jax(heads, c, share):
+    """GATv2Conv values and the gradients of a fixed projection w.r.t. its
+    input and every parameter, on a padded graph with isolated receivers,
+    with and without ``share_weights``; weights carried by
+    ``arxiv_state_dict_from_jax``."""
+    n, fin = 90, 20
+    s, r = small_graph(9, n, 420, isolated=8)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(n + 3, fin)).astype(np.float32)
+    proj = rng.normal(size=(n + 3, heads * c)).astype(np.float32)
+    gj = jax.tree.map(jnp.asarray, jpad(JGraph.from_coo(x[:n], s, r),
+                                        num_nodes=n + 3,
+                                        num_edges=len(s) + 5))
+    gt = tpad(TGraph.from_coo(x[:n], s, r), num_nodes=n + 3,
+              num_edges=len(s) + 5)
+
+    conv = JGATv2Conv(out_channels=c, heads=heads, share_weights=share)
+    params = conv.init(jax.random.PRNGKey(2), gj, jnp.asarray(x))["params"]
+    assert ("lin_r" in params) != share
+    # nonzero biases, so their gradient paths are exercised too
+    params = jax.tree.map(
+        lambda v: jnp.asarray(rng.normal(size=v.shape).astype(np.float32))
+        if v.ndim == 1 else v, params)
+
+    def fj(p, xx):
+        out = conv.apply({"params": p}, gj, xx)
+        return jnp.sum(out * proj), out
+
+    (_, jout), (gp, gx) = jax.value_and_grad(fj, argnums=(0, 1),
+                                             has_aux=True)(
+        params, jnp.asarray(x))
+
+    def port(tree):
+        sd = arxiv_state_dict_from_jax({"params": {
+            "GATv2Conv_0": jax.tree.map(np.asarray, tree),
+            "embed": _dense(1, 1), "out": _dense(1, 1)}})
+        return {k[len("convs.0."):]: v for k, v in sd.items()
+                if k.startswith("convs.0.")}
+
+    tconv = GATv2Conv(fin, c, heads=heads, share_weights=share)
+    assert (tconv.lin_r is tconv.lin_l) == share
+    tconv.load_state_dict(port(params), strict=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = tconv(gt, xt)
+    (out * torch.as_tensor(proj)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy()[:n],
+                               np.asarray(jout)[:n], rtol=1e-4, atol=1e-4)
+    assert rel_l2(xt.grad.numpy()[:n], np.asarray(gx)[:n]) <= 1e-4
+    gsd = port(gp)
+    names = [name for name, _ in tconv.named_parameters()]
+    assert ("lin_r.weight" in names) != share
+    for name, p in tconv.named_parameters():
+        assert rel_l2(p.grad.numpy(), gsd[name].numpy()) <= 1e-4, name
+
+
+def test_gatv2_attention_refuses_mismatched_shapes():
+    plan = build_kernel_plan(np.array([0], np.int32), np.array([1], np.int32),
+                             4)
+    hl = torch.zeros(4, 2, 3)
+    with pytest.raises(ValueError, match="do not match"):
+        tat.gatv2_attention(hl, hl, torch.zeros(2, 4), plan)
+    with pytest.raises(ValueError, match="rows"):
+        tat.gatv2_attention(hl[:3], hl[:3], torch.zeros(2, 3), plan)

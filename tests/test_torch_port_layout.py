@@ -82,12 +82,14 @@ def test_cpu_run_launches_no_kernel():
     reset_launch_counts()
     run = train_full_graph(_tiny_raw(), steps=2, hidden=16, device="cpu")
     assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
-    run = train_full_graph(_tiny_raw(), steps=2, kind="gat", hidden=16,
-                           heads=4, device="cpu")
-    assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
+    for kind in ("gat", "gatv2"):
+        run = train_full_graph(_tiny_raw(), steps=2, kind=kind, hidden=16,
+                               heads=4, device="cpu")
+        assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
     assert set(launch_counts()) == {"gather_reduce_fwd", "gather_reduce_bwd",
                                     "headmix_fwd", "headmix_bwd", "gat_fwd",
-                                    "gat_bwd_t", "gat_bwd_f"}
+                                    "gat_bwd_t", "gat_bwd_f", "gatv2_fwd",
+                                    "gatv2_bwd_t", "gatv2_bwd_f"}
     assert all(v == 0 for v in launch_counts().values())
 
 
@@ -111,8 +113,22 @@ def test_kernel_launchers_refuse_cpu_tensors():
                        1, 2, 1, 1, 3)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "gatv2", "gin", "sage",
-                                  "mpnn-sum", "mpnn-max", "pna"])
+def test_gatv2_launchers_refuse_cpu_tensors():
+    from egc_tpu_torch.ops.cuda import attention as at
+    hl = torch.zeros(4, 6)
+    att = torch.zeros(2, 3)
+    z = torch.zeros(4, 2)
+    ptr = torch.zeros(5, dtype=torch.int32)
+    idx = torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        at._launch_v2_fwd(hl, hl, att, ptr, idx)
+    for name in ("gatv2_bwd_t", "gatv2_bwd_f"):
+        with pytest.raises(RuntimeError, match="CUDA tensor"):
+            at._launch_v2_bwd(name, hl, hl, att, z, hl, z, ptr, idx)
+
+
+@pytest.mark.parametrize("kind", ["gcn", "gin", "sage", "mpnn-sum",
+                                  "mpnn-max", "pna"])
 def test_unported_conv_kinds_raise(kind):
     from egc_tpu_torch.models.nets import ConvSpec
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -130,3 +146,38 @@ def test_gat_kind_builds_single_head_last_layer():
         (8, 19), (8, 19), (1, 152)]
     with pytest.raises(ValueError, match="multiple"):
         spec.build(150, 150, layer_idx=0, num_layers=3)
+
+
+def test_gatv2_kind_builds_single_head_last_layer():
+    from egc_tpu_torch.models.nets import ConvSpec
+    from egc_tpu_torch.nn.conv.attention import GATv2Conv
+    spec = ConvSpec(kind="gatv2", heads=8)
+    convs = [spec.build(112, 112, layer_idx=i, num_layers=3)
+             for i in range(3)]
+    assert all(isinstance(c, GATv2Conv) for c in convs)
+    assert [(c.heads, c.out_channels) for c in convs] == [
+        (8, 14), (8, 14), (1, 112)]
+    assert all(c.lin_r is not c.lin_l for c in convs)
+    with pytest.raises(ValueError, match="multiple"):
+        spec.build(110, 110, layer_idx=0, num_layers=3)
+
+
+def test_gatv2conv_on_cuda_tensor_needs_a_plan(monkeypatch):
+    """A CUDA tensor without a kernel plan raises instead of falling back
+    to the plain path (the device check is all that is faked here)."""
+    from egc_tpu_torch.graph.structure import Graph
+    from egc_tpu_torch.nn.conv.attention import GATv2Conv
+    conv = GATv2Conv(8, 4, heads=2)
+    g = Graph.from_coo(np.zeros((5, 8), np.float32), [0, 1], [1, 2])
+    x = torch.zeros(5, 8)
+
+    class FakeDevice:
+        type = "cuda"
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return FakeDevice()
+
+    with pytest.raises(RuntimeError, match="kernel plan"):
+        conv(g, x.as_subclass(FakeCuda))

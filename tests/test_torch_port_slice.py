@@ -1,6 +1,6 @@
 """Port parity for the slices as a whole: the weight port, EGConv, the
-arxiv EGC-M and GAT nets and one full Adam training step of each against
-the JAX package (CPU, from the same weights)."""
+arxiv EGC-M, GAT and GATv2 nets and one full Adam training step of each
+against the JAX package (CPU, from the same weights)."""
 
 import re
 
@@ -182,10 +182,10 @@ def test_arxiv_net_forward(raw, hidden, train):
                     rtol=1e-4, atol=1e-5, err_msg=k)
 
 
-def gat_nets(hidden, heads):
-    jm = JArxivNet(conv=JSpec(kind="gat", heads=heads), hidden_dim=hidden,
+def gat_nets(hidden, heads, kind="gat"):
+    jm = JArxivNet(conv=JSpec(kind=kind, heads=heads), hidden_dim=hidden,
                    num_layers=3, dropout=0.0)
-    tm = TArxivNet(ConvSpec(kind="gat", heads=heads), hidden, num_layers=3,
+    tm = TArxivNet(ConvSpec(kind=kind, heads=heads), hidden, num_layers=3,
                    dropout=0.0)
     return jm, tm
 
@@ -208,6 +208,25 @@ def test_gat_weight_port_equals_export_model_state(raw):
     assert tuple(tm.convs[2].att_src.shape) == (1, 1, 16)
 
 
+def test_gatv2_weight_port_equals_export_model_state(raw):
+    """The GATv2 rules give ``export_model_state``'s dict, key for key, and
+    it loads strictly into the port's net (H 4, the last layer 1)."""
+    jd, _ = both_data(raw)
+    jm, tm = gat_nets(16, 4, kind="gatv2")
+    variables = jm.init(jax.random.PRNGKey(7), jd["graph"], train=False)
+    ref = export_model_state("arxiv", "gatv2", to_np(variables))
+    got = arxiv_state_dict_from_jax(to_np(variables))
+    assert list(got) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+    tm.load_state_dict(got, strict=True)
+    assert set(tm.state_dict()) == set(ref)
+    assert tuple(tm.convs[0].att.shape) == (1, 4, 4)
+    assert tuple(tm.convs[2].att.shape) == (1, 1, 16)
+    assert tuple(tm.convs[1].lin_r.weight.shape) == (16, 16)
+
+
 def test_one_training_step(raw):
     """Loss, every parameter gradient, the post-Adam parameters and the BN
     running stats of one step (dropout 0, lr 0.01, wd 5e-4)."""
@@ -226,6 +245,16 @@ def test_gat_one_training_step(raw):
     tm.load_state_dict(arxiv_state_dict_from_jax(to_np(jm.init(
         jax.random.PRNGKey(6), jd["graph"], train=False))), strict=True)
     check_one_step(jd, td, jm, tm, seed=6, params_per_layer=6)
+
+
+def test_gatv2_one_training_step(raw):
+    """The same step of the GATv2 net: hidden 16, H 4, the last layer
+    single-head; lin_l, lin_r, att and the conv bias in each layer."""
+    jd, td = both_data(raw)
+    jm, tm = gat_nets(16, 4, kind="gatv2")
+    tm.load_state_dict(arxiv_state_dict_from_jax(to_np(jm.init(
+        jax.random.PRNGKey(8), jd["graph"], train=False))), strict=True)
+    check_one_step(jd, td, jm, tm, seed=8, params_per_layer=8)
 
 
 def check_one_step(jd, td, jm, tm, *, seed, params_per_layer):
