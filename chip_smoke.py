@@ -8,17 +8,23 @@ Phases, each of which raises (exit code 1) on any failed check:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and cuDNN.
 2. build: every kernel source under ``egc_tpu_torch/csrc/`` with nvcc for
-   sm_90a, timed.
+   sm_90a, timed, with each kernel's registers and spills.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (169,343 nodes, 2,368,458 edges): kernels
    1-4 at F = 128, prims sum/wsum/max, K = 4 coefficient segments, head
    mix H4 B4 A3 L32; the GAT kernels at (H8, C19) and (H1, C152); the
    GATv2 kernels at (H8, C14) and (H1, C112); values and gradients
    through the autograd functions (and the whole GATConv and GATv2Conv),
-   and ``segment_gather_reduce`` (kernel 1 over COO edges). Then again at
-   a small size with empty receivers, senders without out-edges, ties,
-   F = 40 and 37, A = 1, and GAT and GATv2 C = 5 and 37. Kernel, plain and
-   library times are medians of CUDA-event timed launches.
+   and ``segment_gather_reduce`` (kernel 1 over COO edges); two
+   full-size launches of ``gatv2_bwd_t`` must agree bitwise. Then again at
+   a small size with empty receivers, senders without out-edges, hub
+   senders and senders with 1-3 out-edges, ties, F = 40 and 37, A = 1, the
+   head mix's float4 and scalar variants (the kernel's pick held against
+   ``headmix.fwd_variant``), GAT C = 5 and 37, GATv2 (H, C) = (8, 5),
+   (1, 37), (4, 37), (3, 37) and (32, 8), and ``gatv2_bwd_t``'s lane
+   geometry against ``attention.bwd_t_geometry`` at every shape it takes.
+   Kernel, plain and library times are medians of CUDA-event timed
+   launches.
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
@@ -148,9 +154,8 @@ def phase_build() -> dict:
         log(f"[build] {name}: {path.name}")
         report = path.with_suffix(".log")
         if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build]   {line.strip()}")
+            for line in _build.ptxas_summary(report.read_text()):
+                log(f"[build]   {line}")
     log(f"[build] {_build.build_seconds:.3f} s")
     return {"build_seconds": _build.build_seconds}
 
@@ -251,6 +256,8 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
     bias = torch.randn(O, generator=gen, device=dev)
     dz = torch.randn(n, O, generator=gen, device=dev)
     kw = dict(H=H, B=B, A=A, L=L)
+    check(hm.kernel_fwd_variant(ys, bias, L, B * L) == "vector",
+          "headmix_fwd: the path's shape does not take the float4 variant")
     err = _close("headmix_fwd",
                  hm.headmix_fwd(w2d, ys, bias, y_width=B * L, **kw),
                  hm.headmix_fwd_plain(w2d, ys, bias, **kw))
@@ -315,8 +322,16 @@ def _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, yw):
         check(r <= GRAD_REL_L2, f"head_mix_fused grad {i} rel L2 {r}")
 
 
+# (H, B, A, L, y_width, ys offset in floats, kernel 3 variant)
+HEADMIX_SMALL_SHAPES = ((4, 4, 1, 10, 40, 0, "scalar"),
+                        (2, 3, 2, 5, 24, 0, "scalar"),
+                        (2, 3, 2, 8, 32, 0, "vector"),
+                        (4, 4, 3, 32, 128, 1, "scalar"))
+
+
 def kernels_small(dev) -> None:
-    """Empty receivers, ties (integer values), F = 40 and 37, A = 1."""
+    """Empty receivers, ties (integer values), F = 40 and 37, A = 1; the
+    head mix's vector and scalar variants."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.transforms import coalesce_np, symnorm_weight
@@ -371,19 +386,31 @@ def kernels_small(dev) -> None:
             (y2 * ct).sum().backward()
             rr = rel_l2(x1.grad, x2.grad)
             check(rr <= GRAD_REL_L2, f"small fused grad rel L2 {rr}")
-    # head mix: A = 1, and an odd shape with y_width > B*L
-    for H, B, A, L, yw in ((4, 4, 1, 10, 40), (2, 3, 2, 5, 24)):
+    # head mix: A = 1, odd shapes with y_width > B*L, both kernel 3
+    # variants; ys at a 4-byte offset force the scalar one
+    for H, B, A, L, yw, offset, variant in HEADMIX_SMALL_SHAPES:
         w2d = torch.randn(n, H * B * A, device=dev)
-        ys = [torch.randn(n, yw, device=dev) for _ in range(A)]
+        bufs = [torch.randn(n * yw + 4, device=dev) for _ in range(A)]
+        ys = [b[offset:offset + n * yw].view(n, yw) for b in bufs]
         bias = torch.randn(H * L, device=dev)
         dz = torch.randn(n, H * L, device=dev)
+        ptrs = [y.data_ptr() for y in ys] + [bias.data_ptr()]
+        got = (hm.fwd_variant(L, yw, ptrs),
+               hm.kernel_fwd_variant(ys, bias, L, yw))
+        check(got == (variant, variant),
+              f"head mix {(H, B, A, L, yw, offset)}: variant (rule, kernel) "
+              f"{got}, expected {variant}")
+        kw = dict(H=H, B=B, A=A, L=L)
+        _close(f"headmix_fwd {(H, B, A, L, yw, offset)}",
+               hm.headmix_fwd(w2d, ys, bias, y_width=yw, **kw),
+               hm.headmix_fwd_plain(w2d, ys, bias, **kw))
         _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, yw)
         _, dys = hm.headmix_bwd(w2d, ys, dz, H=H, B=B, A=A, L=L, y_width=yw)
         check(all(bool((d[:, B * L:] == 0).all()) for d in dys),
               "head-mix dy tail not zero")
     torch.cuda.synchronize()
     log("[kernels] small-size checks passed (empty rows, ties, F=40/37, "
-        "A=1, y_width > B*L)")
+        "A=1, y_width > B*L, head-mix vector and scalar variants)")
 
 
 def check_segment_gather_reduce(data) -> dict:
@@ -585,8 +612,10 @@ def kernels_gat_main_shapes(data) -> list:
 
 
 def _small_attention_graph(dev):
-    """A 1,000-node graph with 50 receivers without in-edges and 40
-    senders without out-edges, and masks of those rows."""
+    """A 1,000-node graph with 50 receivers without in-edges, 40 senders
+    without out-edges, three hub senders with 70, 100 and 150 more
+    out-edges, and ten senders with exactly 1, 2 or 3 out-edges; and masks
+    of the empty and the silent rows."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.structure import Graph
@@ -595,13 +624,22 @@ def _small_attention_graph(dev):
 
     rng = np.random.default_rng(1)
     n = 1000
-    s = rng.integers(0, n - 40, 6000)        # 40 senders without out-edges
-    r = rng.integers(0, n - 50, 6000)        # 50 receivers without in-edges
-    s, r, _ = coalesce_np(s, r, n)
+    s = [rng.integers(0, n - 50, 6000)]      # senders n-50 .. n-1 added below
+    r = [rng.integers(0, n - 50, 6000)]      # 50 receivers without in-edges
+    few = [(hub, k) for hub, k in ((0, 70), (1, 100), (2, 150))]
+    few += [(node, 1 + i % 3) for i, node in enumerate(range(n - 50, n - 40))]
+    for node, k in few:                      # n-40 .. n-1 send nothing
+        s.append(np.full(k, node))
+        r.append(rng.choice(n - 50, k, replace=False))
+    s, r, _ = coalesce_np(np.concatenate(s), np.concatenate(r), n)
+    out_deg = np.bincount(s, minlength=n)
+    check(out_deg[:3].min() > 64 and all(out_deg[node] == k
+                                         for node, k in few[3:]),
+          "small graph: hub or 1-3-edge senders missing")
     g = Graph.from_coo(np.zeros((n, 1), np.float32), s, r)
     g = g.replace(kernel_plan=build_kernel_plan(s, r, n)).to(dev)
     empty = torch.as_tensor(np.bincount(r, minlength=n) == 0, device=dev)
-    silent = torch.as_tensor(np.bincount(s, minlength=n) == 0, device=dev)
+    silent = torch.as_tensor(out_deg == 0, device=dev)
     return g, empty, silent
 
 
@@ -724,6 +762,9 @@ def kernels_gatv2_main_shapes(data) -> list:
         kernel_args = _gatv2_kernel_args(plan, ins)
         label = f"H{heads} C{c}"
         errs = _gat_kernel_errs(kernel_args, label)
+        bwd_t = kernel_args["gatv2_bwd_t"]
+        check(torch.equal(at.gatv2_bwd_t(*bwd_t), at.gatv2_bwd_t(*bwd_t)),
+              f"gatv2_bwd_t[{label}]: two launches differ")
         worst = _check_gatv2_autograd(g, ins, heads, c, gen, label)
         log(f"[kernels] {label}: gatv2_bwd_f d_att rel L2 "
             f"{errs['gatv2_bwd_f d_att rel L2']:.3e}; gatv2_attention and "
@@ -783,21 +824,36 @@ def _per_launch_rows(per_shape, replaces, source, library_note) -> list:
     return rows
 
 
+GATV2_SMALL_SHAPES = ((8, 5), (1, 37), (4, 37), (3, 37), (32, 8))
+
+
 def kernels_gatv2_small(dev) -> None:
     """The GATv2 kernels with empty receivers, senders without out-edges,
-    and C = 5 and 37 besides the path's shapes."""
+    hub senders and senders with 1-3 out-edges, at C = 5, 37 and 8 (H = 3
+    and 32 among them) besides the path's shapes; and ``gatv2_bwd_t``'s
+    lane geometry as the kernel reports it against the launcher's rule for
+    every shape the kernels take."""
     import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+    shapes = [(h, c) for h in range(1, at.MAX_HEADS + 1)
+              for c in range(1, at.MAX_WIDTH // h + 1)]
+    bad = [(h, c) for h, c in shapes
+           if at.kernel_bwd_t_geometry(h, c) != at.bwd_t_geometry(h, c)]
+    check(not bad, f"gatv2_bwd_t geometry differs from bwd_t_geometry at "
+                   f"{bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    for heads, c in ((8, 5), (1, 37), (4, 37)) + GATV2_SHAPES:
+    for heads, c in GATV2_SMALL_SHAPES + GATV2_SHAPES:
         ins = _gatv2_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gatv2_kernel_args(g.kernel_plan, ins), label,
                          empty, silent)
         _check_gatv2_autograd(g, ins, heads, c, gen, label)
     torch.cuda.synchronize()
-    log("[kernels] GATv2 small-size checks passed (empty receivers, senders "
-        "without out-edges, C = 5, 37, 14, 112)")
+    log(f"[kernels] GATv2 small-size checks passed (empty receivers, senders "
+        f"without out-edges, hubs, 1-3-edge senders, (H, C) = "
+        f"{GATV2_SMALL_SHAPES + GATV2_SHAPES}); gatv2_bwd_t geometry agrees "
+        f"at {len(shapes)} shapes")
 
 
 # ---------------------------------------------------------------------------

@@ -30,24 +30,30 @@
 // What bounds them on an H100: device-memory bytes. Each edge gathers one
 // (forward, gatv2_bwd_f) or two (gatv2_bwd_t) F-float rows and does ~5
 // flops per gathered float, below the ~20 flop/byte where f32 arithmetic
-// would be the limit. The per-edge chain (row gather, per-head dot, exp,
-// rescale) is serial inside a warp, so latency hides only behind the other
-// warps of the SM.
+// would be the limit. The graph's endpoints are random and the gathered
+// rows exceed the 50 MB L2, so nearly every gathered row comes from
+// device memory: gatv2_bwd_t's floor is its gathered bytes (2 rows and
+// two 32 B sectors of m and g_d per edge, ~0.68 ms at the arxiv shape),
+// not the compulsory bytes. What keeps a kernel from that floor is how
+// many rows each warp has in flight.
 //
 // Design. The TPU kernels streamed sender windows through VMEM over a
 // sequential (receiver block x sender window) grid. Here one warp owns one
 // row of a CSR (receivers forward and for gatv2_bwd_f, senders for the
 // transpose), accumulates in registers and writes the row once: no
-// atomics, deterministic. Lane l holds columns l + 32 k (k < NPL), so each
-// gathered row is NPL coalesced warp-wide loads.
-// - The logit needs the gathered row: e depends on hl[s] and hr[r] through
-//   a per-head dot over C channels that straddles lanes and 32-column
-//   chunks (C = 14 with H = 8). A segmented warp scan (head_scan, 5
-//   shuffles, masks precomputed per lane) sums each head's run of columns
-//   inside a chunk; the lane that ends a run adds it into a per-head slot
-//   in shared memory. (gat_attention.cu inlines the same scan: computing
-//   its lane geometry through Columns cost gat_bwd_f 9 more registers and
-//   1.8x its time on an H100.)
+// atomics, deterministic.
+// - gatv2_fwd and gatv2_bwd_f walk the row's edges one at a time. Lane l
+//   holds columns l + 32 k (k < NPL), so each gathered row is NPL coalesced
+//   warp-wide loads. The logit needs the gathered row: e depends on hl[s]
+//   and hr[r] through a per-head dot over C channels that straddles lanes
+//   and 32-column chunks (C = 14 with H = 8). A segmented warp scan
+//   (head_scan, 5 shuffles, masks precomputed per lane) sums each head's
+//   run of columns inside a chunk; the lane that ends a run adds it into a
+//   per-head slot in shared memory. (gat_attention.cu inlines the same
+//   scan: computing its lane geometry through Columns cost gat_bwd_f 9 more
+//   registers and 1.8x its time on an H100.) That per-edge chain (gather,
+//   scans, barriers, exp) is serial inside the warp, so latency hides only
+//   behind the other warps of the SM.
 // - Forward: an online max, so each in-edge's row is gathered once (two
 //   sweeps would gather every row twice, and the gather is the cost).
 //   Lanes h < H keep head h's running max and denominator; per edge they
@@ -55,11 +61,25 @@
 //   pass both through shared memory to the lanes of head h's columns. m
 //   starts at -1e30, not -inf, so the first rescale is exp(-huge) = 0 and
 //   never NaN; an empty receiver keeps m = -1e30 and writes exact zeros.
-// - Backward: recompute e per edge (flash scheme) and the dot q in the
-//   same scan; lanes h < H form a and de; every lane then adds its columns'
-//   terms. gatv2_bwd_f keeps d_att per lane in registers across the rows a
+// - gatv2_bwd_f: recompute e per edge (flash scheme) and the dot q in the
+//   same scan; lanes h < H form a and de; every lane then adds its
+//   columns' terms. It keeps d_att per lane in registers across the rows a
 //   warp walks (a grid-stride loop over a fixed number of blocks), then the
 //   block's warps meet in shared memory in a fixed order: deterministic.
+// - gatv2_bwd_t: 32 / P out-edges at once. A group of P lanes owns one
+//   edge, and each lane holds K consecutive channels of one head (float2
+//   loads when C is even), heads padded to a power of two and given LH
+//   lanes each (edge_groups): P = 8, K = 14 at both arxiv shapes, one lane
+//   per head at (H8, C14), eight at (H1, C112). A head's e and q are the
+//   lane's own K-term sums, finished by log2(LH) xor-shuffles inside the
+//   head's aligned run: no scan, no shared memory, no barrier in the edge
+//   loop, and every lane forms a and de for its own head from m and g_d it
+//   loads itself. The receiver index two steps ahead and the rows one step
+//   ahead are issued before the current step's arithmetic, so each warp
+//   keeps up to 2 x 32 / P edges' rows in flight where the scan design
+//   kept one. The G groups' sums meet by xor-shuffles in a fixed order and
+//   group 0 writes the row: no atomics, deterministic. Lanes past the last
+//   head or past C, and groups past the row's last edge, are masked.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -225,8 +245,48 @@ __device__ __forceinline__ void edge_terms(
 }
 
 // gatv2_bwd_t: the row is a sender s, the walk over its out-edges (CSC
-// of the transpose). Dynamic shared memory: per warp, 4 x [H].
-template <int NPL>
+// of the transpose), G = 32 / P edges at a time (EdgeGroups). Group g of
+// the warp takes edges start + g, start + g + G, ...; lane j of a group
+// holds columns col .. col + nk - 1 of head h = j / LH. Step t issues the
+// receiver index of step t + 2 and the rows of step t + 1 before its own
+// arithmetic, so each group keeps two edges' rows in flight.
+template <int KT, int V>
+__device__ __forceinline__ void load_cols(const float* __restrict__ p,
+                                          int nk, float (&v)[KT]) {
+#pragma unroll
+  for (int k = 0; k < KT; k += V) {
+    if constexpr (V == 2) {
+      const float2 t = k < nk ? __ldg(reinterpret_cast<const float2*>(p + k))
+                              : make_float2(0.f, 0.f);
+      v[k] = t.x;
+      v[k + 1] = t.y;
+    } else {
+      v[k] = k < nk ? __ldg(p + k) : 0.f;
+    }
+  }
+}
+
+template <int KT>
+struct EdgeRows {
+  float hr[KT], go[KT];
+  float mm, gd;  // m[r, h] and g_d[r, h]
+};
+
+template <int KT, int V>
+__device__ __forceinline__ void load_edge(
+    EdgeRows<KT>& e, int r, const float* __restrict__ hr,
+    const float* __restrict__ g_o, const float* __restrict__ m,
+    const float* __restrict__ g_d, int F, int H, int h, int col, int nk) {
+  const bool ok = r >= 0;
+  const size_t off = (size_t)(ok ? r : 0) * F + col;
+  load_cols<KT, V>(hr + off, ok ? nk : 0, e.hr);
+  load_cols<KT, V>(g_o + off, ok ? nk : 0, e.go);
+  const bool head = ok && h < H;
+  e.mm = head ? __ldg(m + (size_t)r * H + h) : 0.f;
+  e.gd = head ? __ldg(g_d + (size_t)r * H + h) : 0.f;
+}
+
+template <int KT, int V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gatv2_bwd_t_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
                    const float* __restrict__ att, const float* __restrict__ m,
@@ -234,68 +294,82 @@ gatv2_bwd_t_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
                    const float* __restrict__ g_d,
                    const int* __restrict__ colptr,
                    const int* __restrict__ receivers, int n_rows, int heads,
-                   int channels, float slope, float* __restrict__ d_hl) {
-  extern __shared__ float smem[];
+                   int channels, float slope, int P, int LH, int K,
+                   float* __restrict__ d_hl) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kWarpsPerBlock + warp;
-  if (row >= n_rows) return;
-  const int H = heads, F = heads * channels;
-  float* s_e = smem + warp * 4 * H;
-  float* s_q = s_e + H;
-  float* s_a = s_q + H;
-  float* s_de = s_a + H;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // whole warps exit together
+  const int H = heads, C = channels, F = heads * channels;
+  const int G = 32 / P;
+  const int grp = lane / P, j = lane % P;
+  const int h = j / LH;
+  const int c0 = (j % LH) * K;
+  const int nk = h < H ? max(0, min(K, C - c0)) : 0;
+  const int col = nk > 0 ? h * C + c0 : 0;
+
+  float hl_own[KT], attv[KT], acc[KT];
+  load_cols<KT, V>(hl + (size_t)row * F + col, nk, hl_own);
+  load_cols<KT, V>(att + col, nk, attv);
+#pragma unroll
+  for (int k = 0; k < KT; ++k) acc[k] = 0.f;
+
   const int start = colptr[row];
   const int end = colptr[row + 1];
+  int r_cur = start + grp < end ? __ldg(receivers + start + grp) : -1;
+  int r_next = start + G + grp < end ? __ldg(receivers + start + G + grp)
+                                     : -1;
+  EdgeRows<KT> cur;
+  load_edge<KT, V>(cur, r_cur, hr, g_o, m, g_d, F, H, h, col, nk);
+  for (int base = start; base < end; base += G) {
+    const int i2 = base + 2 * G + grp;
+    const int r_after = i2 < end ? __ldg(receivers + i2) : -1;
+    EdgeRows<KT> nxt;
+    load_edge<KT, V>(nxt, r_next, hr, g_o, m, g_d, F, H, h, col, nk);
 
-  const Columns<NPL> cols(lane, F, channels);
-  float hl_own[NPL], attv[NPL], acc[NPL];
+    // e and q of my head: my columns' part, then the head's LH lanes
+    float pe = 0.f, pq = 0.f;
 #pragma unroll
-  for (int k = 0; k < NPL; ++k) {
-    const int col = lane + 32 * k;
-    const bool valid = cols.hk[k] >= 0;
-    hl_own[k] = valid ? __ldg(hl + (size_t)row * F + col) : 0.f;
-    attv[k] = valid ? __ldg(att + col) : 0.f;
-    acc[k] = 0.f;
+    for (int k = 0; k < KT; ++k) {
+      pe = fmaf(attv[k], leaky(hl_own[k] + cur.hr[k], slope), pe);
+      pq = fmaf(cur.go[k], hl_own[k], pq);
+    }
+    for (int off = 1; off < LH; off <<= 1) {
+      pe += __shfl_xor_sync(kFull, pe, off);
+      pq += __shfl_xor_sync(kFull, pq, off);
+    }
+    if (r_cur >= 0 && nk > 0) {
+      const float a = expf(pe - cur.mm);
+      const float de = a * (pq + cur.gd);
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        const float lrp = hl_own[k] + cur.hr[k] >= 0.f ? 1.f : slope;
+        acc[k] = fmaf(a, cur.go[k], acc[k]);
+        acc[k] = fmaf(de * attv[k], lrp, acc[k]);
+      }
+    }
+    cur = nxt;
+    r_cur = r_next;
+    r_next = r_after;
   }
-  if (lane < H) {
-    s_e[lane] = 0.f;
-    s_q[lane] = 0.f;
-  }
-  __syncwarp();
 
-  for (int base = start; base < end; base += 32) {
-    const int cnt = min(32, end - base);
-    const int my_r = lane < cnt ? __ldg(receivers + base + lane) : 0;
-    for (int j = 0; j < cnt; ++j) {
-      const int r = __shfl_sync(kFull, my_r, j);
-      float mm = 0.f, gd = 0.f;
-      if (lane < H) {
-        mm = __ldg(m + (size_t)r * H + lane);
-        gd = __ldg(g_d + (size_t)r * H + lane);
-      }
-      const size_t off = (size_t)r * F + lane;
-      float hr_v[NPL], go_v[NPL], lz[NPL], lrp[NPL];
+  // the G groups' sums, in a fixed order; group 0 writes the row
+  for (int off = P; off < 32; off <<= 1) {
 #pragma unroll
-      for (int k = 0; k < NPL; ++k) {
-        const bool valid = cols.hk[k] >= 0;
-        hr_v[k] = valid ? __ldg(hr + off + 32 * k) : 0.f;
-        go_v[k] = valid ? __ldg(g_o + off + 32 * k) : 0.f;
-      }
-      edge_terms<NPL>(cols, lane, H, slope, attv, hl_own, hr_v, go_v, mm, gd,
-                      s_e, s_q, s_a, s_de, lz, lrp);
+    for (int k = 0; k < KT; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
+  }
+  if (grp == 0 && nk > 0) {
+    float* out = d_hl + (size_t)row * F + col;
 #pragma unroll
-      for (int k = 0; k < NPL; ++k)
-        if (cols.hk[k] >= 0) {
-          const int h = cols.hk[k];
-          acc[k] = fmaf(s_a[h], go_v[k], acc[k]);
-          acc[k] = fmaf(s_de[h] * attv[k], lrp[k], acc[k]);
-        }
+    for (int k = 0; k < KT; k += V) {
+      if (k < nk) {
+        if constexpr (V == 2)
+          *reinterpret_cast<float2*>(out + k) =
+              make_float2(acc[k], acc[k + 1]);
+        else
+          out[k] = acc[k];
+      }
     }
   }
-#pragma unroll
-  for (int k = 0; k < NPL; ++k)
-    if (cols.hk[k] >= 0) d_hl[(size_t)row * F + lane + 32 * k] = acc[k];
 }
 
 // gatv2_bwd_f: each warp walks receivers r = warp id, + total warps, ...
@@ -415,11 +489,6 @@ void launch(int which, const Args& a, cudaStream_t s) {
     gatv2_fwd_kernel<NPL><<<blocks_for(a.n_rows), threads, shm, s>>>(
         a.hl, a.hr, a.att, a.ptr, a.idx, a.n_rows, a.heads, a.channels,
         a.slope, a.out0, a.out1, a.out2);
-  } else if (which == 1) {
-    const size_t shm = sizeof(float) * kWarpsPerBlock * 4 * a.heads;
-    gatv2_bwd_t_kernel<NPL><<<blocks_for(a.n_rows), threads, shm, s>>>(
-        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
-        a.heads, a.channels, a.slope, a.out0);
   } else {
     const size_t shm = sizeof(float) * kWarpsPerBlock * (4 * a.heads + F);
     gatv2_bwd_f_kernel<NPL><<<att_blocks(a.n_rows), threads, shm, s>>>(
@@ -428,10 +497,68 @@ void launch(int which, const Args& a, cudaStream_t s) {
   }
 }
 
+// gatv2_bwd_t's lane geometry: P lanes per edge (a power of two), LH lanes
+// per head (an aligned power-of-two run inside the group, heads padded to
+// a power of two), K channels per lane (K <= kMaxChans, even when C is, so
+// float2 loads never split a lane's run). LH is the least that keeps K <=
+// kMaxChans; with H <= 32 and H*C <= 256 that always gives P <= 32.
+constexpr int kMaxChans = 16;
+
+struct EdgeGroups {
+  int P, LH, K;
+};
+
+inline EdgeGroups edge_groups(int H, int C) {
+  int hp = 1;
+  while (hp < H) hp *= 2;
+  int lh = 1;
+  while ((C + lh - 1) / lh > kMaxChans) lh *= 2;
+  int k = (C + lh - 1) / lh;
+  if (C % 2 == 0 && k % 2 == 1) ++k;
+  return EdgeGroups{hp * lh, lh, k};
+}
+
+template <int KT>
+void launch_bwd_t(const Args& a, const EdgeGroups& g, bool pairs,
+                  cudaStream_t s) {
+  const int threads = kWarpsPerBlock * 32;
+  if (pairs)
+    gatv2_bwd_t_kernel<KT, 2><<<blocks_for(a.n_rows), threads, 0, s>>>(
+        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
+        a.heads, a.channels, a.slope, g.P, g.LH, g.K, a.out0);
+  else
+    gatv2_bwd_t_kernel<KT, 1><<<blocks_for(a.n_rows), threads, 0, s>>>(
+        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
+        a.heads, a.channels, a.slope, g.P, g.LH, g.K, a.out0);
+}
+
+inline bool aligned8(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 8 == 0;
+}
+
+int run_bwd_t(const Args& a, cudaStream_t s) {
+  const EdgeGroups g = edge_groups(a.heads, a.channels);
+  // float2 loads: C even (so every lane's run starts on an even column)
+  // and 8-byte aligned rows
+  const bool pairs = a.channels % 2 == 0 && aligned8(a.hl) &&
+                     aligned8(a.hr) && aligned8(a.att) && aligned8(a.g_o) &&
+                     aligned8(a.out0);
+  if (g.K <= 4)
+    launch_bwd_t<4>(a, g, pairs, s);
+  else if (g.K <= 8)
+    launch_bwd_t<8>(a, g, pairs, s);
+  else if (g.K <= 14)
+    launch_bwd_t<14>(a, g, pairs, s);
+  else
+    launch_bwd_t<16>(a, g, pairs, s);
+  return (int)cudaGetLastError();
+}
+
 int run(int which, const Args& a, void* stream) {
   if (!shape_ok(a.heads, a.channels)) return (int)cudaErrorInvalidValue;
   if (a.n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (which == 1) return run_bwd_t(a, s);
   switch (per_lane(a.heads * a.channels)) {
     case 2:
       launch<2>(which, a, s);
@@ -466,6 +593,18 @@ int gatv2_fwd(const float* hl, const float* hr, const float* att,
   const Args a{hl, hr, att, nullptr, nullptr, nullptr, rowptr, senders,
                n_rows, heads, channels, slope, o, d, m};
   return run(0, a, stream);
+}
+
+// gatv2_bwd_t's lanes per edge, lanes per head and channels per lane for
+// (heads, channels), in out[0..2]; cudaErrorInvalidValue if shape_ok
+// refuses the shape.
+int gatv2_bwd_t_geometry(int heads, int channels, int* out) {
+  if (!shape_ok(heads, channels)) return (int)cudaErrorInvalidValue;
+  const EdgeGroups g = edge_groups(heads, channels);
+  out[0] = g.P;
+  out[1] = g.LH;
+  out[2] = g.K;
+  return 0;
 }
 
 // (colptr, receivers): the transposed graph, sender-sorted.

@@ -1,0 +1,211 @@
+"""Time builds of the head-mix forward and ``gatv2_bwd_t`` kernels against
+each other on one card, at the shapes of their paths.
+
+    python3 -m egc_tpu_torch.exp.kernel_ab --versions DIR [DIR ...] \\
+        [--rounds 2] [--out results.json]
+
+Each DIR holds another build's ``headmix.cu`` and ``gatv2_attention.cu``
+(with the ``*.cuh`` headers they include), for example an earlier commit's
+``egc_tpu_torch/csrc/``; the package's own sources are the version
+``current``. Every version is built with the package's nvcc flags, its
+``ptxas`` register report kept, its output held against the plain PyTorch
+version, and timed in turns (current, the others, the others again,
+current: ``--rounds`` such passes) with CUDA events on the same inputs:
+the synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges), the head
+mix at H4 B4 A3 L32 beside ``torch.einsum("nhba,nabl->nhl")``, and
+``gatv2_bwd_t`` at (H8, C14) and (H1, C112). Prints one JSON line per
+measurement and the card's ``nvidia-smi`` name and power limit. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+from egc_tpu_torch.ops.cuda import _build
+from egc_tpu_torch.ops.cuda import attention as at
+from egc_tpu_torch.ops.cuda import headmix as hm
+
+KERNEL_SOURCES = ("headmix", "gatv2_attention")
+HEADMIX_SHAPE = dict(H=4, B=4, A=3, L=32)
+GATV2_SHAPES = ((8, 14), (1, 112))
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def build_version(label: str, csrc: Path) -> dict:
+    """nvcc each kernel source of ``csrc`` into ``_build/ab_<label>/``;
+    returns ``{source: (CDLL, ptxas lines)}``."""
+    out_dir = _build.BUILD_DIR / f"ab_{label}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNEL_SOURCES:
+        lib = out_dir / f"lib{name}.so"
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(lib), str(csrc / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    built = {}
+    for name, (proc, lib) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}/{name}:\n{report}")
+        built[name] = (ctypes.CDLL(str(lib)), _build.ptxas_summary(report))
+    return built
+
+
+def headmix_fwd(lib, w2d, ys, bias, H, B, A, L):
+    fn = lib.headmix_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([_P, ctypes.POINTER(_P), _I, _P] + [_I] * 5 + [_P, _P])
+    n = w2d.shape[0]
+    z = torch.empty(n, H * L, device=w2d.device)
+    err = fn(w2d.data_ptr(), (_P * hm.MAX_AGGRS)(*[y.data_ptr() for y in ys]),
+             A, bias.data_ptr(), n, H, B, L, B * L, z.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "headmix_fwd", lib)
+    return z
+
+
+def gatv2_bwd_t(lib, hl, hr, att, m, g_o, g_d, colptr, receivers):
+    fn = lib.gatv2_bwd_t
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 8 + [_I] * 3 + [_F, _P, _P]
+    n = hl.shape[0]
+    heads, c = att.shape
+    d_hl = torch.empty_like(hl)
+    err = fn(*[t.data_ptr() for t in (hl, hr, att, m, g_o, g_d, colptr,
+                                       receivers)],
+             n, heads, c, at.SLOPE, d_hl.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "gatv2_bwd_t", lib)
+    return d_hl
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _cases(dev):
+    """case -> (kernel source, run(lib), plain result, the library call
+    or None)."""
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
+    raw = synthetic_full_graph(num_nodes=169_343, avg_degree=14,
+                               num_features=128, num_classes=40, seed=0)
+    plan = full_graph_to_device_dict(raw, dev)["graph"].kernel_plan
+    n = plan.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    cases = {}
+    H, B, A, L = (HEADMIX_SHAPE[k] for k in "HBAL")
+    w2d = randn(n, H * B * A)
+    ys = [randn(n, B * L) for _ in range(A)]
+    bias = randn(H * L)
+    y_st = torch.stack(ys, 1).reshape(n, A, B, L)
+    w4 = w2d.reshape(n, H, B, A)
+    cases["headmix_fwd H4 B4 A3 L32"] = (
+        "headmix", lambda lib: headmix_fwd(lib, w2d, ys, bias, H, B, A, L),
+        hm.headmix_fwd_plain(w2d, ys, bias, **HEADMIX_SHAPE),
+        lambda: torch.einsum("nhba,nabl->nhl", w4, y_st))
+    for heads, c in GATV2_SHAPES:
+        f = heads * c
+        hl, hr = randn(n, f), randn(n, f)
+        att = randn(heads, c, scale=1 / math.sqrt(c))
+        g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
+        m = at.gatv2_fwd_plain(hl, hr, att, plan.rowptr, plan.fwd_senders)[2]
+        args = (hl, hr, att, m, g_o, g_d, plan.colptr, plan.bwd_receivers)
+        cases[f"gatv2_bwd_t H{heads} C{c}"] = (
+            "gatv2_attention",
+            lambda lib, args=args: gatv2_bwd_t(lib, *args),
+            at.gatv2_bwd_t_plain(*args), None)
+    return cases
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--versions", nargs="*", default=[])
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    versions = {"current": build_version("current", _build.CSRC)}
+    for d in args.versions:
+        versions[Path(d).name] = build_version(Path(d).name, Path(d))
+    for label, built in versions.items():
+        for name, (_, report) in built.items():
+            for line in report:
+                print(f"[ptxas] {label}/{name}: {line}", flush=True)
+    cases = _cases(dev)
+    results = []
+    for case, (src, run, ref, library) in cases.items():
+        for label, built in versions.items():
+            got = run(built[src][0])
+            torch.cuda.synchronize()
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+            same = torch.equal(got, run(built[src][0]))
+            results.append(dict(case=case, version=label, check=True,
+                                allclose=ok, repeat_bitwise=same,
+                                max_abs_err=float((got - ref).abs().max())))
+            print(json.dumps(results[-1]), flush=True)
+        others = [v for v in versions if v != "current"]
+        order = (["current"] + others + others[::-1] + ["current"]) \
+            * args.rounds
+        for i, label in enumerate(order):
+            lib = versions[label][src][0]
+            results.append(dict(case=case, version=label, turn=i,
+                                ms=time_ms(lambda: run(lib))))
+            print(json.dumps(results[-1]), flush=True)
+        if library is not None:
+            results.append(dict(case=case, version="library einsum",
+                                ms=time_ms(library)))
+            print(json.dumps(results[-1]), flush=True)
+    summary = {}
+    for r in results:
+        if "ms" in r:
+            summary.setdefault(r["case"], {}).setdefault(
+                r["version"], []).append(r["ms"])
+    summary = {c: {v: statistics.median(t) for v, t in vs.items()}
+               for c, vs in summary.items()}
+    print(json.dumps({"summary_median_ms": summary, "card": smi}))
+    print(smi)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump({"results": results, "summary": summary, "card": smi,
+                       "ptxas": {f"{lb}/{n}": rep for lb, b in versions.items()
+                                 for n, (_, rep) in b.items()}}, fh, indent=1)
+    bad = [r for r in results if r.get("check") and not r["allclose"]]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

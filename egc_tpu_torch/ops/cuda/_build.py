@@ -20,12 +20,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -88,6 +89,46 @@ def build_all() -> Dict[str, Path]:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     build_seconds = time.perf_counter() - t0
     return {name: out for name, (_, out) in targets.items()}
+
+
+def _kernel_name(mangled: str) -> str:
+    """``gatv2_bwd_t_kernel<14, 2>`` from a mangled entry name (integer
+    and bool template arguments only)."""
+    found = []   # (name, rest) of every <length><name> ending in _kernel
+    for i in range(len(mangled)):
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            continue
+        start = i + m.end()
+        name = mangled[start:start + int(m.group())]
+        if name.endswith("_kernel") and name.isidentifier():
+            found.append((name, mangled[start + len(name):]))
+    if not found:
+        return mangled
+    name, rest = min(found, key=lambda f: len(f[0]))   # a hash may alias
+    targs = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    args = re.findall(r"L([ib])(\d+)E", targs.group(1)) if targs else []
+    shown = [("true" if v == "1" else "false") if t == "b" else v
+             for t, v in args]
+    return name + (f"<{', '.join(shown)}>" if shown else "")
+
+
+def ptxas_summary(report: str) -> List[str]:
+    """One line per kernel of a ``ptxas -v`` report: its name, registers
+    and spill bytes."""
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = _kernel_name(entry.group(1))
+        elif "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        else:
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs and name is not None:
+                out.append(f"{name}: {regs.group(1)} registers, {spill}")
+                name, spill = None, ""
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

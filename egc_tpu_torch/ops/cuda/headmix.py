@@ -10,7 +10,8 @@ used (``y_width >= B*L``; dy's tail columns are 0). ``head_mix_fused``
 is an autograd function: on a CPU tensor it runs the plain versions, on a
 CUDA tensor kernel 3 forward and kernel 4 backward, or raises. dbias is
 ``dz.sum(0)`` in torch, as in the JAX package. ``launches`` counts kernel
-launches.
+launches. Kernel 3 has a float4 and a scalar variant; ``fwd_variant`` is
+the rule by which ``headmix_fwd`` in ``csrc/headmix.cu`` picks one.
 """
 
 from __future__ import annotations
@@ -91,6 +92,27 @@ def _check(w2d, ys, H, B, A, L, y_width, extra=()):
 
 def _ptr_array(tensors):
     return (ctypes.c_void_p * MAX_AGGRS)(*[t.data_ptr() for t in tensors])
+
+
+def fwd_variant(L: int, y_width: int, ptrs: Sequence[int]) -> str:
+    """``"vector"`` or ``"scalar"``: the kernel 3 variant for L, y_width and
+    the data pointers of ys and the bias (0 for none). The float4 variant
+    needs L and y_width multiples of 4 and 16-byte aligned pointers
+    (``fwd_vector_ok`` in ``csrc/headmix.cu``)."""
+    ok = L % 4 == 0 and y_width % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "vector" if ok else "scalar"
+
+
+def kernel_fwd_variant(ys, bias, L: int, y_width: int) -> str:
+    """The variant the compiled kernel 3 reports for these CUDA tensors, to
+    hold against ``fwd_variant``."""
+    fn = _build.library("headmix").headmix_fwd_variant
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    vec = fn(_ptr_array(ys), len(ys),
+             None if bias is None else bias.data_ptr(), L, y_width)
+    return "vector" if vec else "scalar"
 
 
 def _launch_fwd(w2d, ys, bias, H, B, A, L, y_width):

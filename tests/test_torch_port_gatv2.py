@@ -295,3 +295,109 @@ def test_gatv2_attention_refuses_mismatched_shapes():
         tat.gatv2_attention(hl, hl, torch.zeros(2, 4), plan)
     with pytest.raises(ValueError, match="rows"):
         tat.gatv2_attention(hl[:3], hl[:3], torch.zeros(2, 3), plan)
+
+
+def test_bwd_t_geometry_covers_every_column():
+    """For every (H, C) the kernels take (H <= 32, H*C <= 256), the lane
+    geometry of ``gatv2_bwd_t``: P divides the warp, each column of a row
+    is owned by exactly one lane of an edge group, and each head's lanes
+    are an aligned power-of-two run holding at most ``MAX_CHANS`` columns
+    each, an even number when C is even (float2 loads)."""
+    shapes = 0
+    for heads in range(1, tat.MAX_HEADS + 1):
+        for c in range(1, tat.MAX_WIDTH // heads + 1):
+            p, lh, k = tat.bwd_t_geometry(heads, c)
+            assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
+            assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
+            owner = {}
+            for j in range(p):                 # the kernel's formulas
+                h, c0 = j // lh, (j % lh) * k
+                nk = max(0, min(k, c - c0)) if h < heads else 0
+                for col in range(h * c + c0, h * c + c0 + nk):
+                    assert col not in owner, (heads, c, col)
+                    owner[col] = j
+            assert sorted(owner) == list(range(heads * c)), (heads, c)
+            for h in range(heads):
+                lanes = {owner[h * c + cc] for cc in range(c)}
+                run = range(h * lh, (h + 1) * lh)
+                assert lanes <= set(run) and run.start % lh == 0
+            shapes += 1
+    assert shapes > 1000
+
+
+def hub_graph(n, seed):
+    """Random graph with a hub sender (node 0, > 64 out-edges), senders
+    with exactly 1, 2 and 3 out-edges, silent senders and isolated
+    receivers; returns (s, r) coalesced."""
+    rng = np.random.default_rng(seed)
+    s = [rng.integers(0, n - 20, 4 * n)]
+    r = [rng.integers(0, n - 10, 4 * n)]    # the last 10 receive nothing
+    few = [(0, 80)] + [(node, 1 + i % 3)
+                       for i, node in enumerate(range(n - 20, n - 14))]
+    for node, k in few:                     # n-14 .. n-1 send nothing
+        s.append(np.full(k, node))
+        r.append(rng.choice(n - 10, k, replace=False))
+    s, r, _ = coalesce_np(np.concatenate(s).astype(np.int32),
+                          np.concatenate(r).astype(np.int32), n)
+    deg = np.bincount(s, minlength=n)
+    assert deg[0] > 64 and all(deg[node] == k for node, k in few[1:])
+    assert (deg[n - 14:] == 0).all()
+    return s, r
+
+
+@pytest.mark.parametrize("heads,c", [(4, 12), (1, 24), (8, 6)])
+def test_gatv2_bwd_t_plain_matches_jax_edge_pass(heads, c):
+    """``gatv2_bwd_t_plain`` against the JAX ``_v2_edge_pass`` with
+    ``_v2_bwd_t_kernel`` in interpret mode, fed the packing that
+    ``gatv2_attention``'s backward builds (head interleave, g_d in the ones
+    channel, m tiled), on a graph with a hub sender, 1-3-edge senders and
+    silent senders (exact zeros)."""
+    n = 160
+    s, r = hub_graph(n, 11)
+    jplan = jax_plan(s, r, n, two_phase=False)
+    npad = jplan.n_pad
+    cp = 1
+    while cp < c + 1 or (heads * cp) % 128:
+        cp *= 2
+    hcp = heads * cp
+    rng = np.random.default_rng(12)
+    hl = rng.normal(size=(n, heads, c)).astype(np.float32)
+    hr = rng.normal(size=(n, heads, c)).astype(np.float32)
+    att = (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32)
+    g_o = (rng.normal(size=(n, heads, c)) / np.sqrt(c)).astype(np.float32)
+    g_d = rng.normal(size=(n, heads)).astype(np.float32)
+
+    tplan = build_kernel_plan(s, r, n)
+    t = [torch.as_tensor(x.reshape(n, -1)) for x in (hl, hr, g_o)]
+    m = tat.gatv2_fwd_plain(t[0], t[1], torch.as_tensor(att), tplan.rowptr,
+                            tplan.fwd_senders)[2]
+    got = tat.gatv2_bwd_t_plain(t[0], t[1], torch.as_tensor(att), m, t[2],
+                                torch.as_tensor(g_d), tplan.colptr,
+                                tplan.bwd_receivers).numpy()
+
+    def interleave(x, fill=None):
+        """[n, H, C] -> [npad, C_p * H] head-interleaved; ``fill`` goes in
+        channel C (the ones channel of hl, g_d in g_o)."""
+        xt = np.zeros((npad, cp, heads), np.float32)
+        xt[:n, :c] = x.transpose(0, 2, 1)
+        if fill is not None:
+            xt[:n, c] = fill
+        return jnp.asarray(xt.reshape(npad, hcp))
+
+    m_np = np.zeros((npad, heads), np.float32)
+    m_np[:n] = m.numpy()
+    coeff = jnp.concatenate([interleave(g_o, fill=g_d), interleave(hr),
+                             jnp.tile(jnp.asarray(m_np), (1, cp))], axis=1)
+    att_i = np.zeros((cp, heads), np.float32)
+    att_i[:c] = att.T
+    att_rep = jnp.broadcast_to(jnp.asarray(att_i.reshape(1, hcp)), (8, hcp))
+    d_whl = jattn._v2_edge_pass(
+        jattn._v2_bwd_t_kernel, coeff, interleave(hl, fill=1.0), att_rep,
+        jattn._fold_matrix(heads, hcp), jplan.bwd_attn, hcp, heads=heads,
+        cp=cp, slope=tat.SLOPE)
+    ref = np.asarray(d_whl).reshape(npad, cp, heads).transpose(0, 2, 1)
+    ref = ref[:n, :, :c].reshape(n, -1)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    silent = np.bincount(s, minlength=n) == 0
+    assert silent.sum() >= 14 and np.all(got[silent] == 0)
+    assert np.abs(got[0]).max() > 0          # the hub's row

@@ -89,3 +89,51 @@ def test_plain_bwd_is_the_autograd_of_plain_fwd():
     torch.testing.assert_close(dw, w.grad, rtol=1e-5, atol=1e-5)
     for a in range(A):
         torch.testing.assert_close(dys[a], ys[a].grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("L,yw,offsets,with_bias,want", [
+    (32, 128, (0, 0, 0), True, "vector"),     # arxiv EGC-M h128
+    (8, 32, (0, 0), True, "vector"),          # y_width > B*L
+    (10, 40, (0,), True, "scalar"),           # L % 4 != 0
+    (5, 24, (0, 0), False, "scalar"),
+    (8, 30, (0,), False, "scalar"),           # y_width % 4 != 0
+    (32, 128, (0, 1, 0), True, "scalar"),     # one ys 4 bytes off
+    (32, 128, (0, 0, 0), False, "vector"),
+])
+def test_fwd_variant_rule(L, yw, offsets, with_bias, want):
+    """Kernel 3's variant from L, y_width and the alignment of the ys and
+    bias pointers, on real CPU tensors (the rule the card's kernel uses)."""
+    n = 6
+    bufs = [torch.zeros(n * yw + 4) for _ in offsets]
+    ys = [b[o:o + n * yw].view(n, yw) for b, o in zip(bufs, offsets)]
+    assert all(y.is_contiguous() for y in ys)
+    bias = torch.zeros(4 * L) if with_bias else None
+    ptrs = [y.data_ptr() for y in ys] + ([bias.data_ptr()] if with_bias
+                                         else [0])
+    assert thm.fwd_variant(L, yw, ptrs) == want
+    # the bias alone misaligned also forces the scalar variant
+    if with_bias:
+        off_bias = torch.zeros(4 * L + 1)[1:]
+        assert thm.fwd_variant(L, yw, ptrs[:-1] + [off_bias.data_ptr()]) \
+            == "scalar"
+
+
+def test_offset_views_match_jax():
+    """ys handed over as contiguous views at a 4-byte offset (the scalar
+    variant on the card) give the JAX head mix on the CPU."""
+    H, B, A, L, n = 4, 4, 3, 32, 40
+    rng = np.random.default_rng(5)
+    w2d = rng.normal(size=(n, H * B * A)).astype(np.float32)
+    ys = [rng.normal(size=(n, B * L)).astype(np.float32) for _ in range(A)]
+    ref = jhm.head_mix_fused(jnp.asarray(w2d), tuple(map(jnp.asarray, ys)),
+                             H=H, B=B, A=A, L=L, y_width=B * L, bias=None)
+    views = []
+    for y in ys:
+        buf = torch.zeros(n * B * L + 1)
+        buf[1:] = torch.as_tensor(y).reshape(-1)
+        views.append(buf[1:].view(n, B * L))
+    assert thm.fwd_variant(L, B * L, [v.data_ptr() for v in views]) \
+        == "scalar"
+    got = thm.head_mix_fused(torch.as_tensor(w2d), views, H=H, B=B, A=A, L=L)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
