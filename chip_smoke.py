@@ -16,15 +16,17 @@ Phases, each of which raises (exit code 1) on any failed check:
    GATv2 kernels at (H8, C14) and (H1, C112); values and gradients
    through the autograd functions (and the whole GATConv and GATv2Conv),
    and ``segment_gather_reduce`` (kernel 1 over COO edges); two
-   full-size launches of ``gatv2_bwd_t`` must agree bitwise. Then again at
-   a small size with empty receivers, senders without out-edges, hub
-   senders and senders with 1-3 out-edges, ties, F = 40 and 37, A = 1, the
-   head mix's float4 and scalar variants (the kernel's pick held against
-   ``headmix.fwd_variant``), GAT C = 5 and 37, GATv2 (H, C) = (8, 5),
-   (1, 37), (4, 37), (3, 37) and (32, 8), and ``gatv2_bwd_t``'s lane
-   geometry against ``attention.bwd_t_geometry`` at every shape it takes.
-   Kernel, plain and library times are medians of CUDA-event timed
-   launches.
+   full-size launches of each GATv2 kernel must agree bitwise. Then again
+   at a small size with empty receivers, senders without out-edges, hub
+   senders and receivers, senders and receivers with 1-3 edges, ties,
+   F = 40 and 37, A = 1, the head mix's float4 and scalar variants (the
+   kernel's pick held against ``headmix.fwd_variant``), GAT C = 5 and 37,
+   GATv2 (H, C) = (8, 5), (1, 37), (4, 37), (3, 37) and (32, 8), and the
+   GATv2 kernels' lane geometry against ``attention.edge_geometry`` at
+   every shape they take. Kernel, plain and library times are medians of
+   CUDA-event timed launches; each kernel's bound counts its compulsory
+   bytes, and its floor, for a gather over random endpoints, the rows it
+   gathers per edge (``floor_ms``).
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
@@ -102,6 +104,17 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def floor_ms(nbytes: float, row_bytes: float, n: int, e: int,
+             flops: float) -> float:
+    """The gathered-bytes floor of a gather over random endpoints: the
+    compulsory bytes ``nbytes`` count each gathered row once (n rows); here
+    each of the e edges reads its ``row_bytes`` from device memory, since
+    the gathered arrays (76-347 MB at the arxiv shape) exceed the 50 MB L2.
+    Per-head arrays (5.4 MB) fit in L2 and stay counted once. A dense
+    kernel (``row_bytes`` 0) keeps its compulsory bound."""
+    return bound_ms(nbytes + (e - n) * row_bytes, flops)[0]
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -207,7 +220,9 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
         replaces="egc_tpu/ops/pallas/gather_reduce.py:504",
         max_abs_err=err, ms=time_ms(lambda: gr.gather_reduce_fwd(*args)),
         plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        floor_ms=floor_ms(nbytes, 4 * f, n, e, 4.0 * e * f),   # vals[s]
+        library_ms=None,
         library_note="no single PyTorch call computes sum, wsum and max"))
 
     # kernel 2: the main path's segments, mx from the forward above
@@ -228,7 +243,9 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
         replaces="egc_tpu/ops/pallas/gather_reduce.py:839",
         max_abs_err=err, ms=time_ms(lambda: gr.gather_reduce_bwd(*bargs)),
         plain_ms=time_ms(lambda: gr.gather_reduce_bwd_plain(*bargs)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,   # gathers the coefficient row of r
+        floor_ms=floor_ms(nbytes, 4 * len(segs) * f, n, e, 6.0 * e * f),
+        library_ms=None,
         library_note="no single PyTorch call computes this gradient"))
 
     # kernels 1+2 through the autograd function vs the plain segment path
@@ -271,7 +288,7 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
         ms=time_ms(lambda: hm.headmix_fwd(w2d, ys, bias, y_width=B * L,
                                           **kw)),
         plain_ms=time_ms(lambda: hm.headmix_fwd_plain(w2d, ys, bias, **kw)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, floor_ms=b_ms,   # dense: no gather
         library_ms=time_ms(lambda: torch.einsum("nhba,nabl->nhl", w4, y_st)),
         library_note="torch.einsum('nhba,nabl->nhl'), bias add excluded"))
 
@@ -288,7 +305,7 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
         ms=time_ms(lambda: hm.headmix_bwd(w2d, ys, dz, y_width=B * L, **kw)),
         plain_ms=time_ms(lambda: hm.headmix_bwd_plain(w2d, ys, dz,
                                                       y_width=B * L, **kw)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, floor_ms=b_ms, library_ms=None,
         library_note="no single PyTorch call computes dw and dy"))
 
     # kernels 3+4 through the autograd function vs autograd of the plain
@@ -296,8 +313,8 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
     for row in rows:
         log(f"[kernels] {row['name']}: {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.4f}, library {row['library_ms']}, bound "
-            f"{row['bound_ms']:.4f} by {row['bound_by']}), max abs err "
-            f"{row['max_abs_err']:.3e}")
+            f"{row['bound_ms']:.4f} by {row['bound_by']}, floor "
+            f"{row['floor_ms']:.4f}), max abs err {row['max_abs_err']:.3e}")
     return rows
 
 
@@ -432,15 +449,16 @@ def check_segment_gather_reduce(data) -> dict:
     err = max(_close(f"segment_gather_reduce[{p}]", a, b)
               for p, a, b in zip(ops, got, ref))
     e = plan.num_edges
-    b_ms, b_by = bound_ms(4 * (n * 128 + 3 * e + len(ops) * n * 128),
-                          4.0 * e * 128)
+    nbytes = 4 * (n * 128 + 3 * e + len(ops) * n * 128)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * e * 128)
     res = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               floor_ms=floor_ms(nbytes, 4 * 128, n, e, 4.0 * e * 128),
                ms=time_ms(lambda: gr.segment_gather_reduce(*args, **kw)),
                plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(
                    vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, ops)))
     log(f"[kernels] segment_gather_reduce: {res['ms']:.4f} ms (plain "
-        f"{res['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}), max abs err "
-        f"{err:.3e}")
+        f"{res['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, floor "
+        f"{res['floor_ms']:.4f}), max abs err {err:.3e}")
     return res
 
 
@@ -584,22 +602,24 @@ def kernels_gat_main_shapes(data) -> list:
             f"the plain path: worst rel L2 {worst:.3e}")
         nh = 4 * n * heads
         ptr_idx = 4 * (n + 1 + e)
-        cost = {   # (compulsory bytes, operations)
-            "gat_fwd": (4 * 2 * n * f + 4 * nh + ptr_idx,
+        cost = {   # (compulsory bytes, bytes gathered per edge, operations)
+            "gat_fwd": (4 * 2 * n * f + 4 * nh + ptr_idx, 4 * f,   # wh[s]
                         e * (2.0 * f + 6 * heads)),
-            "gat_bwd_t": (4 * 3 * n * f + 5 * nh + ptr_idx,
+            "gat_bwd_t": (4 * 3 * n * f + 5 * nh + ptr_idx, 4 * f,  # g_o[r]
                           e * (4.0 * f + 10 * heads)),
-            "gat_bwd_f": (4 * 2 * n * f + 5 * nh + ptr_idx,
+            "gat_bwd_f": (4 * 2 * n * f + 5 * nh + ptr_idx, 4 * f,  # wh[s]
                           e * (2.0 * f + 10 * heads)),
         }
         for name, args in kernel_args.items():
             kern, plain = getattr(at, name), getattr(at, name + "_plain")
-            b_ms, b_by = bound_ms(*cost[name])
+            nbytes, row_bytes, ops = cost[name]
+            b_ms, b_by = bound_ms(nbytes, ops)
             per_shape.setdefault(name, []).append(dict(
                 heads=heads, channels=c, max_abs_err=errs[name],
                 ms=time_ms(lambda: kern(*args)),
                 plain_ms=time_ms(lambda: plain(*args)),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by,
+                floor_ms=floor_ms(nbytes, row_bytes, n, e, ops)))
         del ins, kernel_args
         torch.cuda.empty_cache()
     replaces = {"gat_fwd": "egc_tpu/ops/pallas/attention.py:160",
@@ -612,10 +632,12 @@ def kernels_gat_main_shapes(data) -> list:
 
 
 def _small_attention_graph(dev):
-    """A 1,000-node graph with 50 receivers without in-edges, 40 senders
+    """A 1,000-node graph with 40 receivers without in-edges, 40 senders
     without out-edges, three hub senders with 70, 100 and 150 more
-    out-edges, and ten senders with exactly 1, 2 or 3 out-edges; and masks
-    of the empty and the silent rows."""
+    out-edges and three hub receivers with as many more in-edges, ten
+    senders with exactly 1, 2 or 3 out-edges and ten receivers with exactly
+    1, 2 or 3 in-edges (fewer than a warp's edge groups); and masks of the
+    empty and the silent rows."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.structure import Graph
@@ -624,21 +646,28 @@ def _small_attention_graph(dev):
 
     rng = np.random.default_rng(1)
     n = 1000
-    s = [rng.integers(0, n - 50, 6000)]      # senders n-50 .. n-1 added below
-    r = [rng.integers(0, n - 50, 6000)]      # 50 receivers without in-edges
-    few = [(hub, k) for hub, k in ((0, 70), (1, 100), (2, 150))]
-    few += [(node, 1 + i % 3) for i, node in enumerate(range(n - 50, n - 40))]
-    for node, k in few:                      # n-40 .. n-1 send nothing
+    s = [rng.integers(0, n - 50, 6000)]      # nodes n-50 .. n-1 added below
+    r = [rng.integers(0, n - 50, 6000)]
+    few = [(node, 1 + i % 3) for i, node in enumerate(range(n - 50, n - 40))]
+    few_out = [(0, 70), (1, 100), (2, 150)] + few
+    few_in = [(3, 70), (4, 100), (5, 150)] + few
+    for node, k in few_out:                  # n-40 .. n-1 send nothing
         s.append(np.full(k, node))
         r.append(rng.choice(n - 50, k, replace=False))
+    for node, k in few_in:                   # n-40 .. n-1 receive nothing
+        r.append(np.full(k, node))
+        s.append(rng.choice(n - 50, k, replace=False))
     s, r, _ = coalesce_np(np.concatenate(s), np.concatenate(r), n)
     out_deg = np.bincount(s, minlength=n)
-    check(out_deg[:3].min() > 64 and all(out_deg[node] == k
-                                         for node, k in few[3:]),
-          "small graph: hub or 1-3-edge senders missing")
+    in_deg = np.bincount(r, minlength=n)
+    for deg, hubs, side in ((out_deg, few_out, "senders"),
+                            (in_deg, few_in, "receivers")):
+        check(min(deg[node] for node, _ in hubs[:3]) > 64
+              and all(deg[node] == k for node, k in hubs[3:]),
+              f"small graph: hub or 1-3-edge {side} missing")
     g = Graph.from_coo(np.zeros((n, 1), np.float32), s, r)
     g = g.replace(kernel_plan=build_kernel_plan(s, r, n)).to(dev)
-    empty = torch.as_tensor(np.bincount(r, minlength=n) == 0, device=dev)
+    empty = torch.as_tensor(in_deg == 0, device=dev)
     silent = torch.as_tensor(out_deg == 0, device=dev)
     return g, empty, silent
 
@@ -657,7 +686,8 @@ def kernels_gat_small(dev) -> None:
         _check_gat_autograd(g, ins, heads, c, gen, label)
     torch.cuda.synchronize()
     log("[kernels] GAT small-size checks passed (empty receivers, senders "
-        "without out-edges, C = 5, 37, 19, 152)")
+        "without out-edges, hubs, 1-3-edge senders and receivers, C = 5, 37, "
+        "19, 152)")
 
 
 def _gatv2_inputs(n, heads, c, gen, dev):
@@ -762,31 +792,37 @@ def kernels_gatv2_main_shapes(data) -> list:
         kernel_args = _gatv2_kernel_args(plan, ins)
         label = f"H{heads} C{c}"
         errs = _gat_kernel_errs(kernel_args, label)
-        bwd_t = kernel_args["gatv2_bwd_t"]
-        check(torch.equal(at.gatv2_bwd_t(*bwd_t), at.gatv2_bwd_t(*bwd_t)),
-              f"gatv2_bwd_t[{label}]: two launches differ")
+        for name, args in kernel_args.items():   # o, d, m; d_hl; d_hr, d_att
+            first, second = getattr(at, name)(*args), getattr(at, name)(*args)
+            first = first if isinstance(first, tuple) else (first,)
+            second = second if isinstance(second, tuple) else (second,)
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"{name}[{label}]: two launches differ")
         worst = _check_gatv2_autograd(g, ins, heads, c, gen, label)
         log(f"[kernels] {label}: gatv2_bwd_f d_att rel L2 "
             f"{errs['gatv2_bwd_f d_att rel L2']:.3e}; gatv2_attention and "
             f"GATv2Conv grads vs the plain path: worst rel L2 {worst:.3e}")
         nh = 4 * n * heads
         ptr_idx = 4 * (n + 1 + e)
-        cost = {   # (compulsory bytes, operations)
+        cost = {   # (compulsory bytes, bytes gathered per edge, operations)
             "gatv2_fwd": (4 * 3 * n * f + 2 * nh + ptr_idx + 4 * f,
-                          e * (7.0 * f + 6 * heads)),
+                          4 * f, e * (7.0 * f + 6 * heads)),       # hl[s]
             "gatv2_bwd_t": (4 * 4 * n * f + 2 * nh + ptr_idx + 4 * f,
+                            8 * f,                        # hr[r], g_o[r]
                             e * (10.0 * f + 4 * heads)),
             "gatv2_bwd_f": (4 * 4 * n * f + 2 * nh + ptr_idx + 8 * f,
-                            e * (10.0 * f + 4 * heads)),
+                            4 * f, e * (10.0 * f + 4 * heads)),    # hl[s]
         }
         for name, args in kernel_args.items():
             kern, plain = getattr(at, name), getattr(at, name + "_plain")
-            b_ms, b_by = bound_ms(*cost[name])
+            nbytes, row_bytes, ops = cost[name]
+            b_ms, b_by = bound_ms(nbytes, ops)
             per_shape.setdefault(name, []).append(dict(
                 heads=heads, channels=c, max_abs_err=errs[name],
                 ms=time_ms(lambda: kern(*args)),
                 plain_ms=time_ms(lambda: plain(*args)),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by,
+                floor_ms=floor_ms(nbytes, row_bytes, n, e, ops)))
         per_shape["gatv2_bwd_f"][-1]["d_att_rel_l2"] = \
             errs["gatv2_bwd_f d_att rel L2"]
         del ins, kernel_args
@@ -808,7 +844,8 @@ def _per_launch_rows(per_shape, replaces, source, library_note) -> list:
         for sh in shapes:
             log(f"[kernels] {name} H{sh['heads']} C{sh['channels']}: "
                 f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}, bound "
-                f"{sh['bound_ms']:.4f} by {sh['bound_by']}), max abs err "
+                f"{sh['bound_ms']:.4f} by {sh['bound_by']}, floor "
+                f"{sh['floor_ms']:.4f}), max abs err "
                 f"{sh['max_abs_err']:.3e}")
 
         def per_launch(key):
@@ -819,7 +856,8 @@ def _per_launch_rows(per_shape, replaces, source, library_note) -> list:
             max_abs_err=max(sh["max_abs_err"] for sh in shapes),
             ms=per_launch("ms"), plain_ms=per_launch("plain_ms"),
             bound_ms=per_launch("bound_ms"),
-            bound_by=shapes[0]["bound_by"], library_ms=None,
+            bound_by=shapes[0]["bound_by"], floor_ms=per_launch("floor_ms"),
+            library_ms=None,
             library_note=library_note, per_shape=shapes))
     return rows
 
@@ -829,18 +867,19 @@ GATV2_SMALL_SHAPES = ((8, 5), (1, 37), (4, 37), (3, 37), (32, 8))
 
 def kernels_gatv2_small(dev) -> None:
     """The GATv2 kernels with empty receivers, senders without out-edges,
-    hub senders and senders with 1-3 out-edges, at C = 5, 37 and 8 (H = 3
-    and 32 among them) besides the path's shapes; and ``gatv2_bwd_t``'s
-    lane geometry as the kernel reports it against the launcher's rule for
-    every shape the kernels take."""
+    hub senders and receivers, and senders and receivers with 1-3 edges, at
+    C = 5, 37 and 8 (H = 3 and 32 among them) besides the path's shapes;
+    and the lane geometry of ``gatv2_fwd``, ``gatv2_bwd_t`` and
+    ``gatv2_bwd_f`` as the kernels report it against the launcher's rule
+    for every shape they take."""
     import torch
     from egc_tpu_torch.ops.cuda import attention as at
     shapes = [(h, c) for h in range(1, at.MAX_HEADS + 1)
               for c in range(1, at.MAX_WIDTH // h + 1)]
     bad = [(h, c) for h, c in shapes
-           if at.kernel_bwd_t_geometry(h, c) != at.bwd_t_geometry(h, c)]
-    check(not bad, f"gatv2_bwd_t geometry differs from bwd_t_geometry at "
-                   f"{bad[:5]}")
+           if at.kernel_edge_geometry(h, c) != at.edge_geometry(h, c)]
+    check(not bad, f"the geometry of gatv2_fwd, gatv2_bwd_t and gatv2_bwd_f "
+                   f"differs from edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     for heads, c in GATV2_SMALL_SHAPES + GATV2_SHAPES:
@@ -851,9 +890,10 @@ def kernels_gatv2_small(dev) -> None:
         _check_gatv2_autograd(g, ins, heads, c, gen, label)
     torch.cuda.synchronize()
     log(f"[kernels] GATv2 small-size checks passed (empty receivers, senders "
-        f"without out-edges, hubs, 1-3-edge senders, (H, C) = "
-        f"{GATV2_SMALL_SHAPES + GATV2_SHAPES}); gatv2_bwd_t geometry agrees "
-        f"at {len(shapes)} shapes")
+        f"without out-edges, hub senders and receivers, 1-3-edge senders and "
+        f"receivers, (H, C) = {GATV2_SMALL_SHAPES + GATV2_SHAPES}); the "
+        f"geometry of gatv2_fwd, gatv2_bwd_t and gatv2_bwd_f agrees at "
+        f"{len(shapes)} shapes")
 
 
 # ---------------------------------------------------------------------------
@@ -1026,7 +1066,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+            "library_ms")
     log(f"[done] {results['seconds']:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(info["nvidia_smi"])

@@ -1,4 +1,4 @@
-"""Time builds of the head-mix forward and ``gatv2_bwd_t`` kernels against
+"""Time builds of the head-mix forward and the three GATv2 kernels against
 each other on one card, at the shapes of their paths.
 
     python3 -m egc_tpu_torch.exp.kernel_ab --versions DIR [DIR ...] \\
@@ -13,9 +13,12 @@ version, and timed in turns (current, the others, the others again,
 current: ``--rounds`` such passes) with CUDA events on the same inputs:
 the synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges), the head
 mix at H4 B4 A3 L32 beside ``torch.einsum("nhba,nabl->nhl")``, and
-``gatv2_bwd_t`` at (H8, C14) and (H1, C112). Prints one JSON line per
-measurement and the card's ``nvidia-smi`` name and power limit. Needs a
-CUDA device.
+``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at (H8, C14) and (H1,
+C112). Outputs are held at rtol = atol = 1e-5, except ``gatv2_bwd_f``'s
+d_att (a sum over every edge whose terms cancel), held after its rows are
+summed at relative L2 <= 1e-4; two launches of a version must agree
+bitwise. Prints one JSON line per measurement and the card's
+``nvidia-smi`` name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -74,19 +77,44 @@ def headmix_fwd(lib, w2d, ys, bias, H, B, A, L):
     return z
 
 
-def gatv2_bwd_t(lib, hl, hr, att, m, g_o, g_d, colptr, receivers):
-    fn = lib.gatv2_bwd_t
+def _gatv2(lib, name, inputs, outs, att):
+    """Launch ``name`` of a GATv2 build: the tensors ``inputs``, then
+    (n, H, C, slope), then the tensors ``outs``."""
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 8 + [_I] * 3 + [_F, _P, _P]
-    n = hl.shape[0]
+    fn.argtypes = ([_P] * len(inputs) + [_I] * 3 + [_F] + [_P] * len(outs)
+                   + [_P])                                   # the stream
     heads, c = att.shape
-    d_hl = torch.empty_like(hl)
-    err = fn(*[t.data_ptr() for t in (hl, hr, att, m, g_o, g_d, colptr,
-                                       receivers)],
-             n, heads, c, at.SLOPE, d_hl.data_ptr(),
+    err = fn(*[t.data_ptr() for t in inputs], inputs[0].shape[0], heads, c,
+             at.SLOPE, *[t.data_ptr() for t in outs],
              torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "gatv2_bwd_t", lib)
-    return d_hl
+    _build.check_launch(err, name, lib)
+
+
+def gatv2_fwd(lib, hl, hr, att, rowptr, senders):
+    n, heads = hl.shape[0], att.shape[0]
+    outs = (torch.empty_like(hl), hl.new_empty(n, heads),
+            hl.new_empty(n, heads))
+    _gatv2(lib, "gatv2_fwd", (hl, hr, att, rowptr, senders), outs, att)
+    return outs
+
+
+def gatv2_bwd_t(lib, hl, hr, att, m, g_o, g_d, colptr, receivers):
+    d_hl = torch.empty_like(hl)
+    _gatv2(lib, "gatv2_bwd_t", (hl, hr, att, m, g_o, g_d, colptr, receivers),
+           (d_hl,), att)
+    return (d_hl,)
+
+
+def gatv2_bwd_f(lib, hl, hr, att, m, g_o, g_d, rowptr, senders):
+    """``(d_hr, d_att)``, d_att summed from the build's partial rows."""
+    blocks = lib.gatv2_att_blocks
+    blocks.restype, blocks.argtypes = ctypes.c_int, [ctypes.c_int]
+    d_hr = torch.empty_like(hl)
+    part = hl.new_empty(blocks(hl.shape[0]), hl.shape[1])
+    _gatv2(lib, "gatv2_bwd_f", (hl, hr, att, m, g_o, g_d, rowptr, senders),
+           (d_hr, part), att)
+    return d_hr, part.sum(0).view(att.shape)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -107,8 +135,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def _cases(dev):
-    """case -> (kernel source, run(lib), plain result, the library call
-    or None)."""
+    """case -> (kernel source, run(lib) -> outputs, the plain version's
+    outputs, the indices of the outputs held by relative L2, the library
+    call or None)."""
     from egc_tpu_torch.data.synthetic import synthetic_full_graph
     from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
     raw = synthetic_full_graph(num_nodes=169_343, avg_degree=14,
@@ -128,21 +157,46 @@ def _cases(dev):
     y_st = torch.stack(ys, 1).reshape(n, A, B, L)
     w4 = w2d.reshape(n, H, B, A)
     cases["headmix_fwd H4 B4 A3 L32"] = (
-        "headmix", lambda lib: headmix_fwd(lib, w2d, ys, bias, H, B, A, L),
-        hm.headmix_fwd_plain(w2d, ys, bias, **HEADMIX_SHAPE),
+        "headmix", lambda lib: (headmix_fwd(lib, w2d, ys, bias, H, B, A, L),),
+        (hm.headmix_fwd_plain(w2d, ys, bias, **HEADMIX_SHAPE),), (),
         lambda: torch.einsum("nhba,nabl->nhl", w4, y_st))
     for heads, c in GATV2_SHAPES:
         f = heads * c
         hl, hr = randn(n, f), randn(n, f)
         att = randn(heads, c, scale=1 / math.sqrt(c))
         g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
-        m = at.gatv2_fwd_plain(hl, hr, att, plan.rowptr, plan.fwd_senders)[2]
-        args = (hl, hr, att, m, g_o, g_d, plan.colptr, plan.bwd_receivers)
-        cases[f"gatv2_bwd_t H{heads} C{c}"] = (
-            "gatv2_attention",
-            lambda lib, args=args: gatv2_bwd_t(lib, *args),
-            at.gatv2_bwd_t_plain(*args), None)
+        fwd = (hl, hr, att, plan.rowptr, plan.fwd_senders)
+        ref_fwd = at.gatv2_fwd_plain(*fwd)
+        m = ref_fwd[2]
+        bwd_t = (hl, hr, att, m, g_o, g_d, plan.colptr, plan.bwd_receivers)
+        bwd_f = (hl, hr, att, m, g_o, g_d, plan.rowptr, plan.fwd_senders)
+        shape = f"H{heads} C{c}"
+        cases[f"gatv2_bwd_t {shape}"] = (
+            "gatv2_attention", lambda lib, a=bwd_t: gatv2_bwd_t(lib, *a),
+            (at.gatv2_bwd_t_plain(*bwd_t),), (), None)
+        cases[f"gatv2_fwd {shape}"] = (
+            "gatv2_attention", lambda lib, a=fwd: gatv2_fwd(lib, *a),
+            ref_fwd, (), None)
+        cases[f"gatv2_bwd_f {shape}"] = (
+            "gatv2_attention", lambda lib, a=bwd_f: gatv2_bwd_f(lib, *a),
+            at.gatv2_bwd_f_plain(*bwd_f), (1,), None)
     return cases
+
+
+def _held(got, ref, rel_l2_outputs) -> dict:
+    """Each output against the plain version's: max abs error, and whether
+    all are within rtol = atol = 1e-5 (relative L2 <= 1e-4 for the outputs
+    in ``rel_l2_outputs``)."""
+    ok, errs, rels = True, [], {}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        errs.append(float((a - b).abs().max()))
+        if i in rel_l2_outputs:
+            rels[i] = float((a.double() - b.double()).norm()
+                            / b.double().norm().clamp_min(1e-30))
+            ok = ok and rels[i] <= 1e-4
+        else:
+            ok = ok and torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+    return dict(allclose=ok, max_abs_err=max(errs), rel_l2=rels)
 
 
 def main(argv=None) -> int:
@@ -167,15 +221,15 @@ def main(argv=None) -> int:
                 print(f"[ptxas] {label}/{name}: {line}", flush=True)
     cases = _cases(dev)
     results = []
-    for case, (src, run, ref, library) in cases.items():
+    for case, (src, run, ref, rel_l2_outputs, library) in cases.items():
         for label, built in versions.items():
             got = run(built[src][0])
             torch.cuda.synchronize()
-            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
-            same = torch.equal(got, run(built[src][0]))
+            same = all(torch.equal(a, b)
+                       for a, b in zip(got, run(built[src][0])))
             results.append(dict(case=case, version=label, check=True,
-                                allclose=ok, repeat_bitwise=same,
-                                max_abs_err=float((got - ref).abs().max())))
+                                repeat_bitwise=same,
+                                **_held(got, ref, rel_l2_outputs)))
             print(json.dumps(results[-1]), flush=True)
         others = [v for v in versions if v != "current"]
         order = (["current"] + others + others[::-1] + ["current"]) \
@@ -203,7 +257,8 @@ def main(argv=None) -> int:
             json.dump({"results": results, "summary": summary, "card": smi,
                        "ptxas": {f"{lb}/{n}": rep for lb, b in versions.items()
                                  for n, (_, rep) in b.items()}}, fh, indent=1)
-    bad = [r for r in results if r.get("check") and not r["allclose"]]
+    bad = [r for r in results if r.get("check")
+           and not (r["allclose"] and r["repeat_bitwise"])]
     return 1 if bad else 0
 
 

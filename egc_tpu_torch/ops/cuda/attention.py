@@ -59,8 +59,8 @@ from egc_tpu_torch.ops.cuda.gather_reduce import _row_ids
 SLOPE = 0.2
 EMPTY_MAX = -1e30      # m of a receiver without in-edges
 MAX_HEADS = 32         # kMaxHeads in csrc/warp_rows.cuh
-MAX_WIDTH = 256        # H*C: 32 lanes x 8 columns (csrc per_lane)
-MAX_CHANS = 16         # kMaxChans: gatv2_bwd_t's channels per lane
+MAX_WIDTH = 256        # H*C, as shape_ok in csrc/warp_rows.cuh allows
+MAX_CHANS = 16         # kMaxChans: the GATv2 kernels' channels per lane
 
 launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0,
                             "gatv2_fwd": 0, "gatv2_bwd_t": 0,
@@ -351,13 +351,13 @@ def _check_v2(hl, hr, att, heads_arrays, ptr, idx):
     return n, heads, c
 
 
-def bwd_t_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
-    """``(P, LH, K)`` of the ``gatv2_bwd_t`` kernel (``edge_groups`` in
-    ``csrc/gatv2_attention.cu``): P lanes own one out-edge (32 / P edges
-    per warp step), heads padded to a power of two get LH lanes each (an
-    aligned power-of-two run), and each lane holds K consecutive channels
-    of its head. LH is the least that keeps K <= ``MAX_CHANS``; K is even
-    when C is, so float2 loads never split a lane's run."""
+def edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
+    """``(P, LH, K)`` of the three GATv2 kernels (``edge_groups`` in
+    ``csrc/gatv2_attention.cu``): P lanes own one edge of a row (32 / P
+    edges per warp step), heads padded to a power of two get LH lanes each
+    (an aligned power-of-two run), and each lane holds K consecutive
+    channels of its head. LH is the least that keeps K <= ``MAX_CHANS``;
+    K is even when C is, so float2 loads never split a lane's run."""
     hp = 1 << (heads - 1).bit_length()
     lh = 1
     while -(-channels // lh) > MAX_CHANS:
@@ -368,15 +368,16 @@ def bwd_t_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
     return hp * lh, lh, k
 
 
-def kernel_bwd_t_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
-    """``(P, LH, K)`` as the compiled kernel reports it, to hold against
-    ``bwd_t_geometry``."""
-    fn = _build.library("gatv2_attention").gatv2_bwd_t_geometry
+def kernel_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
+    """``(P, LH, K)`` as the compiled kernels report it, to hold against
+    ``edge_geometry``."""
+    fn = _build.library("gatv2_attention").gatv2_edge_geometry
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 3)()
     if fn(heads, channels, out) != 0:
-        raise ValueError(f"gatv2_bwd_t refuses H={heads}, C={channels}")
+        raise ValueError(f"the GATv2 kernels refuse H={heads}, "
+                         f"C={channels}")
     return tuple(out)
 
 

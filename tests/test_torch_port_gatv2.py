@@ -115,14 +115,21 @@ def jax_gatv2_attention(plan, heads, c):
 
 
 @pytest.mark.parametrize("two_phase", [False, True])
-@pytest.mark.parametrize("heads,c", [(4, 12), (1, 24)])
-def test_gatv2_attention_matches_jax(heads, c, two_phase):
+@pytest.mark.parametrize("heads,c,graph", [
+    pytest.param(4, 12, "random", id="4-12"),
+    pytest.param(1, 24, "random", id="1-24"),
+    pytest.param(8, 6, "hub_receivers", id="8-6-hub_receivers")])
+def test_gatv2_attention_matches_jax(heads, c, graph, two_phase):
     """Normalised outputs, d, and the gradients of a fixed projection of
     the outputs with respect to hl, hr and att, against the JAX kernels on
     the one-phase and two-phase layouts, with isolated receivers and
-    silent senders."""
+    silent senders; on a random graph, and on one with a hub receiver and
+    receivers with 1-3 in-edges."""
     n = 150
-    s, r = small_graph(3, n, 700, isolated=12, silent=9)
+    if graph == "random":
+        s, r = small_graph(3, n, 700, isolated=12, silent=9)
+    else:
+        s, r = hub_receiver_graph(n, 3)
     jplan = jax_plan(s, r, n, two_phase)
     f, cp = jax_gatv2_attention(jplan, heads, c)
     assert cp > c
@@ -299,14 +306,15 @@ def test_gatv2_attention_refuses_mismatched_shapes():
 
 def test_bwd_t_geometry_covers_every_column():
     """For every (H, C) the kernels take (H <= 32, H*C <= 256), the lane
-    geometry of ``gatv2_bwd_t``: P divides the warp, each column of a row
-    is owned by exactly one lane of an edge group, and each head's lanes
-    are an aligned power-of-two run holding at most ``MAX_CHANS`` columns
-    each, an even number when C is even (float2 loads)."""
+    geometry that ``gatv2_fwd``, ``gatv2_bwd_t`` and ``gatv2_bwd_f`` share:
+    P divides the warp, each column of a row is owned by exactly one lane
+    of an edge group, and each head's lanes are an aligned power-of-two run
+    holding at most ``MAX_CHANS`` columns each, an even number when C is
+    even (float2 loads)."""
     shapes = 0
     for heads in range(1, tat.MAX_HEADS + 1):
         for c in range(1, tat.MAX_WIDTH // heads + 1):
-            p, lh, k = tat.bwd_t_geometry(heads, c)
+            p, lh, k = tat.edge_geometry(heads, c)
             assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
             assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
             owner = {}
@@ -345,35 +353,49 @@ def hub_graph(n, seed):
     return s, r
 
 
-@pytest.mark.parametrize("heads,c", [(4, 12), (1, 24), (8, 6)])
-def test_gatv2_bwd_t_plain_matches_jax_edge_pass(heads, c):
-    """``gatv2_bwd_t_plain`` against the JAX ``_v2_edge_pass`` with
-    ``_v2_bwd_t_kernel`` in interpret mode, fed the packing that
-    ``gatv2_attention``'s backward builds (head interleave, g_d in the ones
-    channel, m tiled), on a graph with a hub sender, 1-3-edge senders and
-    silent senders (exact zeros)."""
-    n = 160
-    s, r = hub_graph(n, 11)
-    jplan = jax_plan(s, r, n, two_phase=False)
-    npad = jplan.n_pad
-    cp = 1
-    while cp < c + 1 or (heads * cp) % 128:
-        cp *= 2
-    hcp = heads * cp
-    rng = np.random.default_rng(12)
+def hub_receiver_graph(n, seed):
+    """The receiver-side twin of ``hub_graph``: a hub receiver (node 0,
+    > 64 in-edges), receivers with exactly 1, 2 and 3 in-edges (fewer than
+    the kernels' 4 edge groups per warp), isolated receivers and silent
+    senders; returns (s, r) coalesced."""
+    rng = np.random.default_rng(seed)
+    s = [rng.integers(0, n - 10, 4 * n)]    # the last 10 send nothing
+    r = [rng.integers(0, n - 20, 4 * n)]
+    few = [(0, 80)] + [(node, 1 + i % 3)
+                       for i, node in enumerate(range(n - 20, n - 14))]
+    for node, k in few:                     # n-14 .. n-1 receive nothing
+        r.append(np.full(k, node))
+        s.append(rng.choice(n - 10, k, replace=False))
+    s, r, _ = coalesce_np(np.concatenate(s).astype(np.int32),
+                          np.concatenate(r).astype(np.int32), n)
+    deg = np.bincount(r, minlength=n)
+    assert deg[0] > 64 and all(deg[node] == k for node, k in few[1:])
+    assert (deg[n - 14:] == 0).all()
+    return s, r
+
+
+def _gatv2_inputs(n, heads, c, seed):
+    """hl, hr, att, g_o, g_d as numpy, att and g_o scaled so the logits
+    and the per-head dot are O(1)."""
+    rng = np.random.default_rng(seed)
     hl = rng.normal(size=(n, heads, c)).astype(np.float32)
     hr = rng.normal(size=(n, heads, c)).astype(np.float32)
     att = (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32)
     g_o = (rng.normal(size=(n, heads, c)) / np.sqrt(c)).astype(np.float32)
     g_d = rng.normal(size=(n, heads)).astype(np.float32)
+    return hl, hr, att, g_o, g_d
 
-    tplan = build_kernel_plan(s, r, n)
-    t = [torch.as_tensor(x.reshape(n, -1)) for x in (hl, hr, g_o)]
-    m = tat.gatv2_fwd_plain(t[0], t[1], torch.as_tensor(att), tplan.rowptr,
-                            tplan.fwd_senders)[2]
-    got = tat.gatv2_bwd_t_plain(t[0], t[1], torch.as_tensor(att), m, t[2],
-                                torch.as_tensor(g_d), tplan.colptr,
-                                tplan.bwd_receivers).numpy()
+
+def _jax_v2_backward_packing(npad, heads, c, hl, hr, att, g_o, g_d, m):
+    """The packing ``gatv2_attention``'s backward builds for
+    ``_v2_edge_pass`` (head interleave, g_d in g_o's ones channel, m
+    tiled): ``(coeff, whl, att_rep, fold, hcp, unpack)``, where ``unpack``
+    takes a [npad, C_p * H] head-interleaved array back to [n, H, C]."""
+    n = hl.shape[0]
+    cp = 1
+    while cp < c + 1 or (heads * cp) % 128:
+        cp *= 2
+    hcp = heads * cp
 
     def interleave(x, fill=None):
         """[n, H, C] -> [npad, C_p * H] head-interleaved; ``fill`` goes in
@@ -384,20 +406,153 @@ def test_gatv2_bwd_t_plain_matches_jax_edge_pass(heads, c):
             xt[:n, c] = fill
         return jnp.asarray(xt.reshape(npad, hcp))
 
+    def unpack(x):
+        return np.asarray(x).reshape(-1, cp, heads).transpose(0, 2, 1)[
+            :n, :, :c]
+
     m_np = np.zeros((npad, heads), np.float32)
-    m_np[:n] = m.numpy()
+    m_np[:n] = m
     coeff = jnp.concatenate([interleave(g_o, fill=g_d), interleave(hr),
                              jnp.tile(jnp.asarray(m_np), (1, cp))], axis=1)
     att_i = np.zeros((cp, heads), np.float32)
     att_i[:c] = att.T
     att_rep = jnp.broadcast_to(jnp.asarray(att_i.reshape(1, hcp)), (8, hcp))
+    return (coeff, interleave(hl, fill=1.0), att_rep,
+            jattn._fold_matrix(heads, hcp), hcp, unpack)
+
+
+@pytest.mark.parametrize("heads,c", [(4, 12), (1, 24), (8, 6)])
+def test_gatv2_bwd_t_plain_matches_jax_edge_pass(heads, c):
+    """``gatv2_bwd_t_plain`` against the JAX ``_v2_edge_pass`` with
+    ``_v2_bwd_t_kernel`` in interpret mode, fed the packing that
+    ``gatv2_attention``'s backward builds (head interleave, g_d in the ones
+    channel, m tiled), on a graph with a hub sender, 1-3-edge senders and
+    silent senders (exact zeros)."""
+    n = 160
+    s, r = hub_graph(n, 11)
+    jplan = jax_plan(s, r, n, two_phase=False)
+    hl, hr, att, g_o, g_d = _gatv2_inputs(n, heads, c, 12)
+
+    tplan = build_kernel_plan(s, r, n)
+    t = [torch.as_tensor(x.reshape(n, -1)) for x in (hl, hr, g_o)]
+    m = tat.gatv2_fwd_plain(t[0], t[1], torch.as_tensor(att), tplan.rowptr,
+                            tplan.fwd_senders)[2]
+    got = tat.gatv2_bwd_t_plain(t[0], t[1], torch.as_tensor(att), m, t[2],
+                                torch.as_tensor(g_d), tplan.colptr,
+                                tplan.bwd_receivers).numpy()
+
+    coeff, whl, att_rep, fold, hcp, unpack = _jax_v2_backward_packing(
+        jplan.n_pad, heads, c, hl, hr, att, g_o, g_d, m.numpy())
     d_whl = jattn._v2_edge_pass(
-        jattn._v2_bwd_t_kernel, coeff, interleave(hl, fill=1.0), att_rep,
-        jattn._fold_matrix(heads, hcp), jplan.bwd_attn, hcp, heads=heads,
-        cp=cp, slope=tat.SLOPE)
-    ref = np.asarray(d_whl).reshape(npad, cp, heads).transpose(0, 2, 1)
-    ref = ref[:n, :, :c].reshape(n, -1)
+        jattn._v2_bwd_t_kernel, coeff, whl, att_rep, fold, jplan.bwd_attn,
+        hcp, heads=heads, cp=hcp // heads, slope=tat.SLOPE)
+    ref = unpack(d_whl).reshape(n, -1)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
     silent = np.bincount(s, minlength=n) == 0
     assert silent.sum() >= 14 and np.all(got[silent] == 0)
     assert np.abs(got[0]).max() > 0          # the hub's row
+
+
+@pytest.mark.parametrize("heads,c", [(4, 12), (1, 24), (8, 6)])
+def test_gatv2_bwd_f_plain_matches_jax_edge_pass(heads, c):
+    """``gatv2_bwd_f_plain`` against the JAX ``_v2_edge_pass`` with
+    ``_v2_bwd_f_kernel`` in interpret mode, fed the same packing, on a
+    graph with a hub receiver, 1-3-edge receivers and isolated receivers
+    (exact zeros): d_hr at rtol = atol = 1e-4, d_att by relative L2 after
+    the JAX per-row partial sums are summed."""
+    n = 160
+    s, r = hub_receiver_graph(n, 13)
+    jplan = jax_plan(s, r, n, two_phase=False)
+    hl, hr, att, g_o, g_d = _gatv2_inputs(n, heads, c, 14)
+
+    tplan = build_kernel_plan(s, r, n)
+    t = [torch.as_tensor(x.reshape(n, -1)) for x in (hl, hr, g_o)]
+    m = tat.gatv2_fwd_plain(t[0], t[1], torch.as_tensor(att), tplan.rowptr,
+                            tplan.fwd_senders)[2]
+    d_hr, d_att = tat.gatv2_bwd_f_plain(
+        t[0], t[1], torch.as_tensor(att), m, t[2], torch.as_tensor(g_d),
+        tplan.rowptr, tplan.fwd_senders)
+    d_hr = d_hr.numpy()
+
+    coeff, whl, att_rep, fold, hcp, unpack = _jax_v2_backward_packing(
+        jplan.n_pad, heads, c, hl, hr, att, g_o, g_d, m.numpy())
+    fpass = jattn._v2_edge_pass(
+        jattn._v2_bwd_f_kernel, whl, coeff, att_rep, fold, jplan.fwd_attn,
+        2 * hcp, heads=heads, cp=hcp // heads, slope=tat.SLOPE)
+    np.testing.assert_allclose(d_hr, unpack(fpass[:, :hcp]).reshape(n, -1),
+                               rtol=1e-4, atol=1e-4)
+    ref_att = unpack(jnp.sum(fpass[:, hcp:], axis=0, keepdims=True))[0]
+    assert rel_l2(d_att.numpy(), ref_att) <= 1e-4
+    empty = np.bincount(r, minlength=n) == 0
+    assert empty.sum() >= 14 and np.all(d_hr[empty] == 0)
+    assert np.abs(d_hr[0]).max() > 0         # the hub's row
+
+
+def grouped_online_softmax(hl, hr, att, rowptr, senders, groups):
+    """A pure-torch emulation of the ``gatv2_fwd`` kernel's order: edge
+    start + g + t G of a row goes to group g, each group keeps its own
+    online softmax state (m, d, o) per head from m = -1e30, d = 0, o = 0,
+    and the groups merge by xor partner at offsets 1, 2, ..., G / 2 (the
+    kernel's lane offsets P, 2P, ..., 16), group 0's state being the
+    row's. Returns ``(o [N, H*C], d [N, H], m [N, H])``."""
+    n, hc = hl.shape
+    heads, c = att.shape
+    deg = rowptr[1:] - rowptr[:-1]
+    rows = torch.arange(n)
+    m = torch.full((n, groups, heads), tat.EMPTY_MAX)
+    d = torch.zeros(n, groups, heads)
+    o = torch.zeros(n, groups, heads, c)
+    hl3, hr3 = hl.view(n, heads, c), hr.view(n, heads, c)
+    for g in range(groups):
+        for t in range(-(-int(deg.max()) // groups)):
+            pos = g + t * groups
+            live = rows[deg > pos]
+            s = senders[rowptr[live] + pos].long()
+            e = (tat._leaky(hl3[s] + hr3[live]) * att).sum(-1)
+            m_new = torch.maximum(m[live, g], e)
+            cc = torch.exp(m[live, g] - m_new)
+            p = torch.exp(e - m_new)
+            d[live, g] = d[live, g] * cc + p
+            o[live, g] = o[live, g] * cc[..., None] + p[..., None] * hl3[s]
+            m[live, g] = m_new
+    off = 1
+    while off < groups:
+        partner = torch.arange(groups) ^ off
+        m_b, d_b, o_b = m[:, partner], d[:, partner], o[:, partner]
+        m_new = torch.maximum(m, m_b)
+        ca, cb = torch.exp(m - m_new), torch.exp(m_b - m_new)
+        d = d * ca + d_b * cb
+        o = o * ca[..., None] + o_b * cb[..., None]
+        m = m_new
+        off *= 2
+    return o[:, 0].reshape(n, hc), d[:, 0], m[:, 0]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8, 32])
+def test_grouped_online_softmax_merge_matches_plain(groups):
+    """The forward kernel's order (per-group online softmax, then the
+    fixed xor merge of the groups' states) equals ``gatv2_fwd_plain`` at
+    rtol = atol = 1e-5 on a graph with a hub receiver and receivers with
+    1-3 in-edges; a receiver without in-edges gets exact zeros and
+    m = -1e30, and one with a single in-edge the gathered row exactly and
+    d = 1, so the empty groups it merges add exact zeros."""
+    n, heads, c = 160, 4, 6
+    s, r = hub_receiver_graph(n, 15)
+    plan = build_kernel_plan(s, r, n)
+    hl, hr, att, _, _ = _gatv2_inputs(n, heads, c, 16)
+    args = (torch.as_tensor(hl.reshape(n, -1)),
+            torch.as_tensor(hr.reshape(n, -1)), torch.as_tensor(att),
+            plan.rowptr, plan.fwd_senders)
+    got = grouped_online_softmax(*args, groups)
+    ref = tat.gatv2_fwd_plain(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    deg = np.bincount(r, minlength=n)
+    assert deg[0] > 64 and {0, 1, 2, 3} <= set(deg.tolist())
+    empty, one = torch.as_tensor(deg == 0), torch.as_tensor(deg == 1)
+    o, d, m = got
+    assert torch.all(o[empty] == 0) and torch.all(d[empty] == 0)
+    assert torch.all(m[empty] == tat.EMPTY_MAX)
+    single = plan.fwd_senders[plan.rowptr[:-1][one]].long()
+    assert torch.equal(o[one], args[0][single])
+    assert torch.all(d[one] == 1)
