@@ -16,17 +16,20 @@ Phases, each of which raises (exit code 1) on any failed check:
    GATv2 kernels at (H8, C14) and (H1, C112); values and gradients
    through the autograd functions (and the whole GATConv and GATv2Conv),
    and ``segment_gather_reduce`` (kernel 1 over COO edges); two
-   full-size launches of each GATv2 kernel must agree bitwise. Then again
-   at a small size with empty receivers, senders without out-edges, hub
-   senders and receivers, senders and receivers with 1-3 edges, ties,
-   F = 40 and 37, A = 1, the head mix's float4 and scalar variants (the
-   kernel's pick held against ``headmix.fwd_variant``), GAT C = 5 and 37,
-   GATv2 (H, C) = (8, 5), (1, 37), (4, 37), (3, 37) and (32, 8), and the
-   GATv2 kernels' lane geometry against ``attention.edge_geometry`` at
-   every shape they take. Kernel, plain and library times are medians of
-   CUDA-event timed launches; each kernel's bound counts its compulsory
-   bytes, and its floor, for a gather over random endpoints, the rows it
-   gathers per edge (``floor_ms``).
+   full-size launches of ``headmix_bwd`` and of each GAT and GATv2 kernel
+   must agree bitwise. Then again at a small size with empty receivers,
+   senders without out-edges, hub senders and receivers, senders and
+   receivers with 1-3 edges, ties, F = 40 and 37, the head mix's float4
+   and scalar variants forward and backward (each kernel's pick held
+   against ``headmix.fwd_variant`` / ``bwd_variant``; A = 1 and 6, L = 34,
+   H8 L44, y_width > B*L, H = 12), GAT and GATv2 (H, C) = (8, 5),
+   (1, 37), (4, 37), (3, 37) and (32, 8), and the lane geometry of
+   ``gat_bwd_t`` and of the GATv2 kernels against
+   ``attention.gat_edge_geometry`` / ``edge_geometry`` at every shape they
+   take. Kernel, plain and library times are medians of CUDA-event timed
+   launches; each kernel's bound counts its compulsory bytes, and its
+   floor, for a gather over random endpoints, the rows it gathers per edge
+   (``floor_ms``).
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
@@ -293,20 +296,34 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
         library_note="torch.einsum('nhba,nabl->nhl'), bias add excluded"))
 
     dw, dys = hm.headmix_bwd(w2d, ys, dz, y_width=B * L, **kw)
+    check(hm.kernel_bwd_variant(ys, dys, dz, L, B * L) == "vector",
+          "headmix_bwd: the path's shape does not take the float4 variant")
     dw_p, dys_p = hm.headmix_bwd_plain(w2d, ys, dz, y_width=B * L, **kw)
     err = max([_close("headmix_bwd[dw]", dw, dw_p)]
               + [_close(f"headmix_bwd[dy{a}]", d, p)
                  for a, (d, p) in enumerate(zip(dys, dys_p))])
+    dw2, dys2 = hm.headmix_bwd(w2d, ys, dz, y_width=B * L, **kw)
+    check(torch.equal(dw, dw2) and all(torch.equal(a, b)
+                                       for a, b in zip(dys, dys2)),
+          "headmix_bwd: two launches differ")
     nbytes = 4 * (2 * n * HBA + 2 * A * n * B * L + n * O)
     b_ms, b_by = bound_ms(nbytes, 4.0 * n * H * B * A * L)
+    dz4 = dz.reshape(n, H, L)
+
+    def einsum_pair():   # the einsum's backward: dw, then dy
+        torch.einsum("nhl,nabl->nhba", dz4, y_st)
+        torch.einsum("nhba,nhl->nabl", w4, dz4)
+
     rows.append(dict(
         name="headmix_bwd", route="cuda", source="egc_tpu_torch/csrc/headmix.cu",
         replaces="egc_tpu/ops/pallas/headmix.py:160", max_abs_err=err,
         ms=time_ms(lambda: hm.headmix_bwd(w2d, ys, dz, y_width=B * L, **kw)),
         plain_ms=time_ms(lambda: hm.headmix_bwd_plain(w2d, ys, dz,
                                                       y_width=B * L, **kw)),
-        bound_ms=b_ms, bound_by=b_by, floor_ms=b_ms, library_ms=None,
-        library_note="no single PyTorch call computes dw and dy"))
+        bound_ms=b_ms, bound_by=b_by, floor_ms=b_ms,
+        library_ms=time_ms(einsum_pair),
+        library_note="two calls: torch.einsum('nhl,nabl->nhba') for dw and "
+                     "torch.einsum('nhba,nhl->nabl') for dy, unsplit"))
 
     # kernels 3+4 through the autograd function vs autograd of the plain
     _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, B * L)
@@ -339,11 +356,19 @@ def _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, yw):
         check(r <= GRAD_REL_L2, f"head_mix_fused grad {i} rel L2 {r}")
 
 
-# (H, B, A, L, y_width, ys offset in floats, kernel 3 variant)
+# (H, B, A, L, y_width, ys offset in floats, the variant of kernels 3
+# and 4): A = 1 and 6, L = 34 (EGC-M h136 H4), H8 L44 (mag h352), y_width
+# > B*L in both variants, H = 12 (kernel 4's second pass of heads)
 HEADMIX_SMALL_SHAPES = ((4, 4, 1, 10, 40, 0, "scalar"),
                         (2, 3, 2, 5, 24, 0, "scalar"),
                         (2, 3, 2, 8, 32, 0, "vector"),
-                        (4, 4, 3, 32, 128, 1, "scalar"))
+                        (4, 4, 3, 32, 128, 1, "scalar"),
+                        (4, 4, 6, 32, 128, 0, "vector"),
+                        (4, 4, 3, 34, 136, 0, "scalar"),
+                        (8, 4, 3, 44, 176, 0, "vector"),
+                        (4, 4, 3, 32, 132, 0, "vector"),
+                        (1, 1, 1, 4, 4, 0, "vector"),
+                        (12, 2, 2, 8, 20, 0, "vector"))
 
 
 def kernels_small(dev) -> None:
@@ -403,9 +428,10 @@ def kernels_small(dev) -> None:
             (y2 * ct).sum().backward()
             rr = rel_l2(x1.grad, x2.grad)
             check(rr <= GRAD_REL_L2, f"small fused grad rel L2 {rr}")
-    # head mix: A = 1, odd shapes with y_width > B*L, both kernel 3
-    # variants; ys at a 4-byte offset force the scalar one
+    # head mix: both variants of kernels 3 and 4 at the shapes above; ys
+    # at a 4-byte offset force the scalar ones
     for H, B, A, L, yw, offset, variant in HEADMIX_SMALL_SHAPES:
+        shape = (H, B, A, L, yw, offset)
         w2d = torch.randn(n, H * B * A, device=dev)
         bufs = [torch.randn(n * yw + 4, device=dev) for _ in range(A)]
         ys = [b[offset:offset + n * yw].view(n, yw) for b in bufs]
@@ -415,19 +441,31 @@ def kernels_small(dev) -> None:
         got = (hm.fwd_variant(L, yw, ptrs),
                hm.kernel_fwd_variant(ys, bias, L, yw))
         check(got == (variant, variant),
-              f"head mix {(H, B, A, L, yw, offset)}: variant (rule, kernel) "
-              f"{got}, expected {variant}")
+              f"headmix_fwd {shape}: variant (rule, kernel) {got}, "
+              f"expected {variant}")
         kw = dict(H=H, B=B, A=A, L=L)
-        _close(f"headmix_fwd {(H, B, A, L, yw, offset)}",
+        _close(f"headmix_fwd {shape}",
                hm.headmix_fwd(w2d, ys, bias, y_width=yw, **kw),
                hm.headmix_fwd_plain(w2d, ys, bias, **kw))
         _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, yw)
-        _, dys = hm.headmix_bwd(w2d, ys, dz, H=H, B=B, A=A, L=L, y_width=yw)
+        dw, dys = hm.headmix_bwd(w2d, ys, dz, y_width=yw, **kw)
+        ptrs = [t.data_ptr() for t in ys + list(dys) + [dz]]
+        got = (hm.bwd_variant(L, yw, ptrs),
+               hm.kernel_bwd_variant(ys, dys, dz, L, yw))
+        check(got == (variant, variant),
+              f"headmix_bwd {shape}: variant (rule, kernel) {got}, "
+              f"expected {variant}")
+        dw_p, dys_p = hm.headmix_bwd_plain(w2d, ys, dz, y_width=yw, **kw)
+        _close(f"headmix_bwd {shape} dw", dw, dw_p)
+        for a, (d, p) in enumerate(zip(dys, dys_p)):
+            _close(f"headmix_bwd {shape} dy{a}", d, p)
         check(all(bool((d[:, B * L:] == 0).all()) for d in dys),
-              "head-mix dy tail not zero")
+              f"headmix_bwd {shape}: dy tail not zero")
     torch.cuda.synchronize()
     log("[kernels] small-size checks passed (empty rows, ties, F=40/37, "
-        "A=1, y_width > B*L, head-mix vector and scalar variants)")
+        "A=1, head mix (H, B, A, L, y_width, offset) = "
+        f"{[sh[:6] for sh in HEADMIX_SMALL_SHAPES]}, vector and scalar "
+        "variants of kernels 3 and 4)")
 
 
 def check_segment_gather_reduce(data) -> dict:
@@ -523,6 +561,18 @@ def _gat_kernel_errs(kernel_args, label, empty=None, silent=None) -> dict:
     return errs
 
 
+def _check_repeat_bitwise(kernel_args, label) -> None:
+    """Two launches of each GAT or GATv2 kernel give the same bits."""
+    import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+    for name, args in kernel_args.items():
+        first, second = getattr(at, name)(*args), getattr(at, name)(*args)
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{name}[{label}]: two launches differ")
+
+
 def _check_gat_autograd(g, ins, heads, c, gen, label) -> float:
     """Gradients through ``gat_attention`` (with the self-term merge) and
     through the whole GATConv against autograd of the plain segment path
@@ -597,6 +647,7 @@ def kernels_gat_main_shapes(data) -> list:
         ins = _gat_inputs(n, heads, c, gen, dev)
         kernel_args = _gat_kernel_args(plan, ins)
         errs = _gat_kernel_errs(kernel_args, f"H{heads} C{c}")
+        _check_repeat_bitwise(kernel_args, f"H{heads} C{c}")
         worst = _check_gat_autograd(g, ins, heads, c, gen, f"H{heads} C{c}")
         log(f"[kernels] H{heads} C{c}: gat_attention and GATConv grads vs "
             f"the plain path: worst rel L2 {worst:.3e}")
@@ -672,22 +723,36 @@ def _small_attention_graph(dev):
     return g, empty, silent
 
 
+GAT_SMALL_SHAPES = ((8, 5), (1, 37), (4, 37), (3, 37), (32, 8))
+
+
 def kernels_gat_small(dev) -> None:
-    """Kernels 5-7 with empty receivers, senders without out-edges, and
-    C = 5 and 37 besides the path's shapes."""
+    """Kernels 5-7 with empty receivers, senders without out-edges, hub
+    senders and receivers and senders and receivers with 1-3 edges, at
+    C = 5, 37 and 8 (H = 3 and 32 among them) besides the path's shapes;
+    and the lane geometry of ``gat_bwd_t`` as the kernel reports it against
+    ``attention.gat_edge_geometry`` at every shape it takes."""
     import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+    shapes = [(h, c) for h in range(1, at.MAX_HEADS + 1)
+              for c in range(1, at.MAX_WIDTH // h + 1)]
+    bad = [(h, c) for h, c in shapes
+           if at.kernel_gat_edge_geometry(h, c) != at.gat_edge_geometry(h, c)]
+    check(not bad, f"the geometry of gat_bwd_t differs from "
+                   f"gat_edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    for heads, c in ((8, 5), (1, 37), (4, 37)) + GAT_SHAPES:
+    for heads, c in GAT_SMALL_SHAPES + GAT_SHAPES:
         ins = _gat_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gat_kernel_args(g.kernel_plan, ins), label, empty,
                          silent)
         _check_gat_autograd(g, ins, heads, c, gen, label)
     torch.cuda.synchronize()
-    log("[kernels] GAT small-size checks passed (empty receivers, senders "
-        "without out-edges, hubs, 1-3-edge senders and receivers, C = 5, 37, "
-        "19, 152)")
+    log(f"[kernels] GAT small-size checks passed (empty receivers, senders "
+        f"without out-edges, hubs, 1-3-edge senders and receivers, (H, C) = "
+        f"{GAT_SMALL_SHAPES + GAT_SHAPES}); the geometry of gat_bwd_t agrees "
+        f"at {len(shapes)} shapes")
 
 
 def _gatv2_inputs(n, heads, c, gen, dev):
@@ -792,12 +857,7 @@ def kernels_gatv2_main_shapes(data) -> list:
         kernel_args = _gatv2_kernel_args(plan, ins)
         label = f"H{heads} C{c}"
         errs = _gat_kernel_errs(kernel_args, label)
-        for name, args in kernel_args.items():   # o, d, m; d_hl; d_hr, d_att
-            first, second = getattr(at, name)(*args), getattr(at, name)(*args)
-            first = first if isinstance(first, tuple) else (first,)
-            second = second if isinstance(second, tuple) else (second,)
-            check(all(torch.equal(a, b) for a, b in zip(first, second)),
-                  f"{name}[{label}]: two launches differ")
+        _check_repeat_bitwise(kernel_args, label)
         worst = _check_gatv2_autograd(g, ins, heads, c, gen, label)
         log(f"[kernels] {label}: gatv2_bwd_f d_att rel L2 "
             f"{errs['gatv2_bwd_f d_att rel L2']:.3e}; gatv2_attention and "

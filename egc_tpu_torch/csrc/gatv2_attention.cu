@@ -43,11 +43,12 @@
 // row of a CSR (receivers for gatv2_fwd and gatv2_bwd_f, senders of the
 // transpose for gatv2_bwd_t), accumulates in registers and writes the row
 // once: no atomics, deterministic. The three kernels share one lane
-// geometry (edge_groups): a group of P lanes owns one edge, so a warp
-// walks its row G = 32 / P edges at a time, and each lane holds K
-// consecutive channels of one head (float2 loads when C is even), heads
-// padded to a power of two and given LH lanes each. P = 8, K = 14 at both
-// arxiv shapes: one lane per head at (H8, C14), eight at (H1, C112).
+// geometry (edge_groups.cuh, at most kMaxChans channels per lane): a group
+// of P lanes owns one edge, so a warp walks its row G = 32 / P edges at a
+// time, and each lane holds K consecutive channels of one head (float2
+// loads when C is even), heads padded to a power of two and given LH lanes
+// each. P = 8, K = 14 at both arxiv shapes: one lane per head at (H8, C14),
+// eight at (H1, C112).
 // - A head's per-edge sums (e, and q in the backward) are the lane's own
 //   K-term sums, finished by log2(LH) xor-shuffles inside the head's
 //   aligned run: no scan, no shared memory and no barrier in the edge
@@ -78,118 +79,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "edge_groups.cuh"
 #include "warp_rows.cuh"
 
 namespace {
 
 constexpr int kMaxAttBlocks = 1024;  // gatv2_bwd_f: rows of d_att partials
 constexpr int kMaxWidth = 32 * 8;    // H*C, as shape_ok allows
-
-// The lane geometry: P lanes per edge (a power of two), LH lanes per head
-// (an aligned power-of-two run inside the group, heads padded to a power
-// of two), K channels per lane (K <= kMaxChans, even when C is, so float2
-// loads never split a lane's run). LH is the least that keeps K <=
-// kMaxChans; with H <= 32 and H*C <= 256 that always gives P <= 32.
-constexpr int kMaxChans = 16;
-
-struct EdgeGroups {
-  int P, LH, K;
-};
-
-inline EdgeGroups edge_groups(int H, int C) {
-  int hp = 1;
-  while (hp < H) hp *= 2;
-  int lh = 1;
-  while ((C + lh - 1) / lh > kMaxChans) lh *= 2;
-  int k = (C + lh - 1) / lh;
-  if (C % 2 == 0 && k % 2 == 1) ++k;
-  return EdgeGroups{hp * lh, lh, k};
-}
-
-// What a lane holds: lane j = lane % P of group grp = lane / P holds the nk
-// channels c0 .. c0 + nk - 1 of head h = j / LH, from column col of a row;
-// nk = 0 past the last head or past C.
-struct LaneCols {
-  int grp, h, c0, nk, col;
-
-  __device__ __forceinline__ LaneCols(int lane, int P, int LH, int K, int H,
-                                      int C) {
-    const int j = lane % P;
-    grp = lane / P;
-    h = j / LH;
-    c0 = (j % LH) * K;
-    nk = h < H ? max(0, min(K, C - c0)) : 0;
-    col = nk > 0 ? h * C + c0 : 0;
-  }
-};
-
-template <int KT, int V>
-__device__ __forceinline__ void load_cols(const float* __restrict__ p,
-                                          int nk, float (&v)[KT]) {
-#pragma unroll
-  for (int k = 0; k < KT; k += V) {
-    if constexpr (V == 2) {
-      const float2 t = k < nk ? __ldg(reinterpret_cast<const float2*>(p + k))
-                              : make_float2(0.f, 0.f);
-      v[k] = t.x;
-      v[k + 1] = t.y;
-    } else {
-      v[k] = k < nk ? __ldg(p + k) : 0.f;
-    }
-  }
-}
-
-template <int KT, int V>
-__device__ __forceinline__ void store_cols(float* __restrict__ p, int nk,
-                                           const float (&v)[KT]) {
-#pragma unroll
-  for (int k = 0; k < KT; k += V) {
-    if (k < nk) {
-      if constexpr (V == 2)
-        *reinterpret_cast<float2*>(p + k) = make_float2(v[k], v[k + 1]);
-      else
-        p[k] = v[k];
-    }
-  }
-}
-
-// Row i's columns of the lane (zeros for i < 0, a group past the row).
-template <int KT, int V>
-__device__ __forceinline__ void load_row(const float* __restrict__ x, int i,
-                                         int F, const LaneCols& lc,
-                                         float (&v)[KT]) {
-  const bool ok = i >= 0;
-  load_cols<KT, V>(x + (size_t)(ok ? i : 0) * F + lc.col, ok ? lc.nk : 0, v);
-}
-
-// The neighbour index at position i of the edge list, or -1 at or past the
-// row's end.
-__device__ __forceinline__ int edge_at(const int* __restrict__ idx, int i,
-                                       int end) {
-  return i < end ? __ldg(idx + i) : -1;
-}
-
-// A head's per-edge sum over its LH lanes, of one value or of two.
-__device__ __forceinline__ float sum_head(float a, int LH) {
-  for (int off = 1; off < LH; off <<= 1) a += __shfl_xor_sync(kFull, a, off);
-  return a;
-}
-
-__device__ __forceinline__ void sum_head(float& a, float& b, int LH) {
-  for (int off = 1; off < LH; off <<= 1) {
-    a += __shfl_xor_sync(kFull, a, off);
-    b += __shfl_xor_sync(kFull, b, off);
-  }
-}
-
-// The G groups' sums, in a fixed order; every group ends with the total.
-template <int KT>
-__device__ __forceinline__ void sum_groups(float (&v)[KT], int P) {
-  for (int off = P; off < 32; off <<= 1) {
-#pragma unroll
-    for (int k = 0; k < KT; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
-  }
-}
 
 // gatv2_fwd: the row is a receiver r, the walk over its in-edges (CSR).
 // Group g takes edges start + g, start + g + G, ... and keeps its own

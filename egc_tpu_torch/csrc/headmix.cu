@@ -31,9 +31,38 @@
 // headmix_fwd picks the variant (fwd_vector_ok); headmix_fwd_variant
 // reports the pick, so a caller can hold it against its own rule.
 //
-// Backward design. One warp per node: lanes stride over l, so dy rows are
-// written coalesced, and each dw entry is a sum over l finished by a warp
-// shuffle reduction. The A aggregator arrays come as separate pointers (at
+// Backward design. The first design gave a warp to each node, its lanes
+// striding over l: it re-read the node's dz row A*B times and each ys row
+// H times, loaded one w word and one dz word per FMA, and finished each of
+// the H*B*A dw entries with its own 5-shuffle reduction and a lone 4-byte
+// store (~500 warp instructions to move 3,968 bytes per node at the arxiv
+// shape; 4.7x its byte bound). Now it takes the forward's geometry: a
+// thread owns V consecutive l of one node (V = 4, one float4; V = 1, the
+// scalar variant, when L or y_width is not a multiple of 4 or a ys, dy or
+// dz pointer is not 16-byte aligned), and a node's base b gets T threads
+// of its own (L/V rounded up to a power of two, at most 32: 8 at L = 32,
+// so the 4 bases of a node fill a warp); past 32 V columns a thread takes
+// nc chunks of V columns, T V apart. A thread loads its dz values of HP
+// heads (HP = 4, or 8 for H > 4; the node's other bases load the same
+// addresses in the same warp instruction) and its A V-wide ys values, all
+// at once, and w2d words by broadcast loads that the group shares. It then
+// forms
+//     dy[a] = sum_h w[h, b, a] dz[h]     (A V-wide stores, coalesced)
+//     part[a][h] = sum over its columns of dz[h] ys[a]
+// (A capped by AP = 4 or 8; HP and AP size the register arrays), and the
+// group's T threads sum each part by xor-shuffles at offsets 1, 2, ...,
+// T/2, in that order, so every thread ends with the same sums and the
+// result is deterministic; thread (h*A + a) % T writes entry (h, b, a).
+// A thread has no loop over b, so all its loads go out at once. The
+// shuffles name the whole warp: threads past the last (node, b) (in the
+// last block only) redo its loads and store nothing, so no lane exits
+// early. With a mask of the group's T lanes instead, the kernel took 122
+// registers against 80 and 0.50 against 0.30 ms at the arxiv shape
+// on an H100. Heads past HP take further passes, which add into the dy
+// the thread itself wrote. dy's columns B*L .. y_width-1 are written as 0
+// by the last base's threads.
+// headmix_bwd picks the variant (bwd_vector_ok); headmix_bwd_variant
+// reports the pick. The A aggregator arrays come as separate pointers (at
 // most kMaxAggrs), never stacked.
 
 #include <cuda_runtime.h>
@@ -42,7 +71,6 @@
 namespace {
 
 constexpr int kMaxAggrs = 8;
-constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct InPtrs {
@@ -68,6 +96,10 @@ struct Vec<1> {
   static __device__ __forceinline__ float add(float x, float y) {
     return x + y;
   }
+  static __device__ __forceinline__ float ld_rw(const float* p) { return *p; }
+  static __device__ __forceinline__ float dot(float x, float y, float acc) {
+    return fmaf(x, y, acc);
+  }
 };
 template <>
 struct Vec<4> {
@@ -88,6 +120,13 @@ struct Vec<4> {
   }
   static __device__ __forceinline__ float4 add(float4 x, float4 y) {
     return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+  }
+  static __device__ __forceinline__ float4 ld_rw(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float dot(float4 x, float4 y,
+                                              float acc) {
+    return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
   }
 };
 
@@ -142,45 +181,86 @@ headmix_fwd_kernel(const float* __restrict__ w2d, InPtrs ys,
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Thread t: (node, b) = divmod(t / T, B), the nc chunks of columns
+// l = V * (t % T + T i) of base b. HP and AP cap the heads of a pass and
+// the aggregators: they size the register arrays. Every lane of a warp
+// reaches the shuffles; a thread past the last group takes the last
+// group's loads and stores nothing.
+template <int V, int HP, int AP>
+__global__ void __launch_bounds__(256)
 headmix_bwd_kernel(const float* __restrict__ w2d, InPtrs ys,
                    const float* __restrict__ dz, int n, int H, int B, int A,
-                   int L, int yw, float* __restrict__ dw, OutPtrs dys) {
-  const int lane = threadIdx.x & 31;
-  const int node = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (node >= n) return;  // whole warps exit together
+                   int L, int yw, int lg_t, int nc, float* __restrict__ dw,
+                   OutPtrs dys) {
+  using Op = Vec<V>;
+  using VT = typename Op::T;
+  const int T = 1 << lg_t;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = (idx >> lg_t) < (size_t)n * B;
+  const size_t group = live ? idx >> lg_t : (size_t)n * B - 1;
+  const size_t node = group / B;
+  const int b = (int)(group - node * B);
+  const int j = (int)(idx & (T - 1));
   const int BA = B * A;
-  const float* wrow = w2d + (size_t)node * H * BA;
-  const float* dzrow = dz + (size_t)node * H * L;
-  const size_t ybase = (size_t)node * yw;
+  const float* wrow = w2d + node * (size_t)(H * BA) + b * A;
+  const float* dzrow = dz + node * (size_t)(H * L);
+  const size_t ycol = node * (size_t)yw + b * L;
+  float* dwrow = dw + node * (size_t)(H * BA) + b * A;
 
-  for (int a = 0; a < A; ++a) {
-    float* dy = dys.p[a] + ybase;
-    for (int b = 0; b < B; ++b) {
-      for (int l = lane; l < L; l += 32) {
-        float acc = 0.f;
-        for (int h = 0; h < H; ++h)
-          acc = fmaf(__ldg(wrow + h * BA + b * A + a),
-                     __ldg(dzrow + h * L + l), acc);
-        dy[b * L + l] = acc;
+  for (int h0 = 0; h0 < H; h0 += HP) {
+    const int hp = min(HP, H - h0);
+    float part[AP][HP];
+#pragma unroll
+    for (int a = 0; a < AP; ++a)
+#pragma unroll
+      for (int h = 0; h < HP; ++h) part[a][h] = 0.f;
+    for (int i = 0; i < nc; ++i) {
+      const int l = V * (j + (i << lg_t));
+      if (l >= L) break;
+      // the loads of this chunk go out back to back: dz of the pass's
+      // heads (shared with the node's other b) and the A ys values
+      VT d[HP], y[AP];
+#pragma unroll
+      for (int h = 0; h < HP; ++h)
+        d[h] = h < hp ? Op::ld(dzrow + (h0 + h) * L + l) : Op::zero();
+#pragma unroll
+      for (int a = 0; a < AP; ++a)
+        if (a < A) y[a] = Op::ld(ys.p[a] + ycol + l);
+#pragma unroll
+      for (int a = 0; a < AP; ++a) {
+        if (a < A) {
+          VT acc = h0 > 0 ? Op::ld_rw(dys.p[a] + ycol + l) : Op::zero();
+#pragma unroll
+          for (int h = 0; h < HP; ++h) {
+            if (h < hp) {
+              acc = Op::fma(__ldg(wrow + (h0 + h) * BA + a), d[h], acc);
+              part[a][h] = Op::dot(d[h], y[a], part[a][h]);
+            }
+          }
+          if (live) Op::st(dys.p[a] + ycol + l, acc);
+        }
       }
     }
-    for (int c = B * L + lane; c < yw; c += 32) dy[c] = 0.f;
-  }
-
-  float* dwrow = dw + (size_t)node * H * BA;
-  for (int h = 0; h < H; ++h) {
-    for (int b = 0; b < B; ++b) {
-      for (int a = 0; a < A; ++a) {
-        const float* y = ys.p[a] + ybase + b * L;
-        float part = 0.f;
-        for (int l = lane; l < L; l += 32)
-          part = fmaf(__ldg(dzrow + h * L + l), __ldg(y + l), part);
+    for (int off = 1; off < T; off <<= 1) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part += __shfl_xor_sync(kFull, part, off);
-        if (lane == 0) dwrow[h * BA + b * A + a] = part;
-      }
+      for (int a = 0; a < AP; ++a)
+#pragma unroll
+        for (int h = 0; h < HP; ++h)
+          if (a < A && h < hp)
+            part[a][h] += __shfl_xor_sync(kFull, part[a][h], off);
+    }
+#pragma unroll
+    for (int h = 0; h < HP; ++h)
+#pragma unroll
+      for (int a = 0; a < AP; ++a)
+        if (live && h < hp && a < A && ((h * A + a) & (T - 1)) == j)
+          dwrow[(h0 + h) * BA + a] = part[a][h];
+  }
+  if (live && b == B - 1) {  // dy's tail columns, after the last base's
+    for (int c = B * L + V * j; c < yw; c += V * T) {
+#pragma unroll
+      for (int a = 0; a < AP; ++a)
+        if (a < A) Op::st(dys.p[a] + node * (size_t)yw + c, Op::zero());
     }
   }
 }
@@ -189,13 +269,52 @@ headmix_bwd_kernel(const float* __restrict__ w2d, InPtrs ys,
 // columns stay in one row and 16-byte aligned) and 16-byte aligned ys and
 // bias pointers; z is allocated by the caller, and its rows of H*L floats
 // keep that alignment.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 inline bool fwd_vector_ok(const void* const* ys, int A, const float* bias,
                           int L, int yw) {
-  bool ok = L % 4 == 0 && yw % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  for (int a = 0; a < A; ++a)
-    ok = ok && reinterpret_cast<uintptr_t>(ys[a]) % 16 == 0;
+  bool ok = L % 4 == 0 && yw % 4 == 0 && aligned16(bias);
+  for (int a = 0; a < A; ++a) ok = ok && aligned16(ys[a]);
   return ok;
+}
+
+// The backward's float4 variant: L and y_width multiples of 4 and 16-byte
+// aligned ys, dy and dz pointers (dz's rows of H*L floats keep it). dw is
+// written a float at a time and w2d read so: they may lie anywhere.
+inline bool bwd_vector_ok(const void* const* ys, const void* const* dys,
+                          int A, const float* dz, int L, int yw) {
+  bool ok = L % 4 == 0 && yw % 4 == 0 && aligned16(dz);
+  for (int a = 0; a < A; ++a) ok = ok && aligned16(ys[a]) && aligned16(dys[a]);
+  return ok;
+}
+
+// T = 1 << lg_t threads per (node, b): the chunks of V columns of a base
+// rounded up to a power of two, at most 32; each thread takes nc chunks.
+template <int V>
+void launch_bwd(const float* w2d, const InPtrs& in, const float* dz, int n,
+                int H, int B, int A, int L, int yw, float* dw,
+                const OutPtrs& out, cudaStream_t s) {
+  const int chunks = (L + V - 1) / V;
+  int lg_t = 0;
+  while ((1 << lg_t) < chunks && lg_t < 5) ++lg_t;
+  const int nc = (chunks + (1 << lg_t) - 1) >> lg_t;
+  const size_t total = ((size_t)n * B) << lg_t;
+  const unsigned threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (H <= 4 && A <= 4)
+    headmix_bwd_kernel<V, 4, 4><<<blocks, threads, 0, s>>>(
+        w2d, in, dz, n, H, B, A, L, yw, lg_t, nc, dw, out);
+  else if (H <= 4)
+    headmix_bwd_kernel<V, 4, 8><<<blocks, threads, 0, s>>>(
+        w2d, in, dz, n, H, B, A, L, yw, lg_t, nc, dw, out);
+  else if (A <= 4)
+    headmix_bwd_kernel<V, 8, 4><<<blocks, threads, 0, s>>>(
+        w2d, in, dz, n, H, B, A, L, yw, lg_t, nc, dw, out);
+  else
+    headmix_bwd_kernel<V, 8, 8><<<blocks, threads, 0, s>>>(
+        w2d, in, dz, n, H, B, A, L, yw, lg_t, nc, dw, out);
 }
 
 }  // namespace
@@ -237,7 +356,7 @@ int headmix_fwd_variant(const void* const* ys, int A, const float* bias,
 int headmix_bwd(const float* w2d, const void* const* ys, const float* dz,
                 int A, int n, int H, int B, int L, int yw, float* dw,
                 void* const* dys, void* stream) {
-  if (A < 1 || A > kMaxAggrs) return (int)cudaErrorInvalidValue;
+  if (A < 1 || A > kMaxAggrs || B < 1) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   InPtrs in{};
   OutPtrs out{};
@@ -245,11 +364,18 @@ int headmix_bwd(const float* w2d, const void* const* ys, const float* dz,
     in.p[a] = static_cast<const float*>(ys[a]);
     out.p[a] = static_cast<float*>(dys[a]);
   }
-  const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  headmix_bwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                       (cudaStream_t)stream>>>(w2d, in, dz, n, H, B, A, L, yw,
-                                               dw, out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bwd_vector_ok(ys, dys, A, dz, L, yw))
+    launch_bwd<4>(w2d, in, dz, n, H, B, A, L, yw, dw, out, s);
+  else
+    launch_bwd<1>(w2d, in, dz, n, H, B, A, L, yw, dw, out, s);
   return (int)cudaGetLastError();
+}
+
+// 1 if headmix_bwd takes the float4 variant for these arguments, else 0.
+int headmix_bwd_variant(const void* const* ys, const void* const* dys,
+                        const float* dz, int A, int L, int yw) {
+  return bwd_vector_ok(ys, dys, A, dz, L, yw) ? 1 : 0;
 }
 
 }  // extern "C"

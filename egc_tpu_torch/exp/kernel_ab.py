@@ -1,18 +1,22 @@
-"""Time builds of the head-mix forward and the three GATv2 kernels against
-each other on one card, at the shapes of their paths.
+"""Time builds of the head-mix kernels, ``gat_bwd_t`` and ``gat_bwd_f``
+and the three GATv2 kernels against each other on one card, at the shapes
+of their paths.
 
     python3 -m egc_tpu_torch.exp.kernel_ab --versions DIR [DIR ...] \\
         [--rounds 2] [--out results.json]
 
-Each DIR holds another build's ``headmix.cu`` and ``gatv2_attention.cu``
-(with the ``*.cuh`` headers they include), for example an earlier commit's
-``egc_tpu_torch/csrc/``; the package's own sources are the version
-``current``. Every version is built with the package's nvcc flags, its
-``ptxas`` register report kept, its output held against the plain PyTorch
-version, and timed in turns (current, the others, the others again,
-current: ``--rounds`` such passes) with CUDA events on the same inputs:
-the synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges), the head
-mix at H4 B4 A3 L32 beside ``torch.einsum("nhba,nabl->nhl")``, and
+Each DIR holds another build's ``headmix.cu``, ``gat_attention.cu`` and
+``gatv2_attention.cu`` (with the ``*.cuh`` headers they include), for
+example an earlier commit's ``egc_tpu_torch/csrc/``; the package's own
+sources are the version ``current``. Every version is built with the
+package's nvcc flags, its ``ptxas`` register report kept, its output held
+against the plain PyTorch version, and timed in turns (current, the
+others, the others again, current: ``--rounds`` such passes) with CUDA
+events on the same inputs: the synthetic arxiv-shaped graph (169,343
+nodes, 2,368,458 edges); the head mix at H4 B4 A3 L32, forward beside
+``torch.einsum("nhba,nabl->nhl")`` and backward beside the two einsum
+calls of its gradient (``"nhl,nabl->nhba"`` for dw, ``"nhba,nhl->nabl"``
+for dy); ``gat_bwd_t`` and ``gat_bwd_f`` at (H8, C19) and (H1, C152); and
 ``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at (H8, C14) and (H1,
 C112). Outputs are held at rtol = atol = 1e-5, except ``gatv2_bwd_f``'s
 d_att (a sum over every edge whose terms cancel), held after its rows are
@@ -37,8 +41,9 @@ from egc_tpu_torch.ops.cuda import _build
 from egc_tpu_torch.ops.cuda import attention as at
 from egc_tpu_torch.ops.cuda import headmix as hm
 
-KERNEL_SOURCES = ("headmix", "gatv2_attention")
+KERNEL_SOURCES = ("headmix", "gat_attention", "gatv2_attention")
 HEADMIX_SHAPE = dict(H=4, B=4, A=3, L=32)
+GAT_SHAPES = ((8, 19), (1, 152))
 GATV2_SHAPES = ((8, 14), (1, 112))
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -77,32 +82,67 @@ def headmix_fwd(lib, w2d, ys, bias, H, B, A, L):
     return z
 
 
-def _gatv2(lib, name, inputs, outs, att):
-    """Launch ``name`` of a GATv2 build: the tensors ``inputs``, then
-    (n, H, C, slope), then the tensors ``outs``."""
+def headmix_bwd(lib, w2d, ys, dz, H, B, A, L):
+    fn = lib.headmix_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([_P, ctypes.POINTER(_P), _P] + [_I] * 6
+                   + [_P, ctypes.POINTER(_P), _P])
+    n = w2d.shape[0]
+    dw = torch.empty(n, H * B * A, device=w2d.device)
+    dys = [torch.empty(n, B * L, device=w2d.device) for _ in range(A)]
+    err = fn(w2d.data_ptr(), (_P * hm.MAX_AGGRS)(*[y.data_ptr() for y in ys]),
+             dz.data_ptr(), A, n, H, B, L, B * L, dw.data_ptr(),
+             (_P * hm.MAX_AGGRS)(*[d.data_ptr() for d in dys]),
+             torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "headmix_bwd", lib)
+    return (dw, *dys)
+
+
+def _attention(lib, name, inputs, outs, heads, c):
+    """Launch ``name`` of a GAT or GATv2 build: the tensors ``inputs``,
+    then (n, H, C, slope), then the tensors ``outs``."""
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([_P] * len(inputs) + [_I] * 3 + [_F] + [_P] * len(outs)
                    + [_P])                                   # the stream
-    heads, c = att.shape
     err = fn(*[t.data_ptr() for t in inputs], inputs[0].shape[0], heads, c,
              at.SLOPE, *[t.data_ptr() for t in outs],
              torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name, lib)
 
 
+def gat_bwd_t(lib, wh, a_src, a_dst, m, g_o, g_d, colptr, receivers):
+    outs = (torch.empty_like(wh), torch.empty_like(a_src))
+    heads = a_src.shape[1]
+    _attention(lib, "gat_bwd_t", (wh, a_src, a_dst, m, g_o, g_d, colptr,
+                                  receivers), outs, heads,
+               wh.shape[1] // heads)
+    return outs
+
+
+def gat_bwd_f(lib, wh, a_src, a_dst, m, g_o, g_d, rowptr, senders):
+    d_adst = torch.empty_like(a_dst)
+    heads = a_src.shape[1]
+    _attention(lib, "gat_bwd_f", (wh, a_src, a_dst, m, g_o, g_d, rowptr,
+                                  senders), (d_adst,), heads,
+               wh.shape[1] // heads)
+    return (d_adst,)
+
+
 def gatv2_fwd(lib, hl, hr, att, rowptr, senders):
     n, heads = hl.shape[0], att.shape[0]
     outs = (torch.empty_like(hl), hl.new_empty(n, heads),
             hl.new_empty(n, heads))
-    _gatv2(lib, "gatv2_fwd", (hl, hr, att, rowptr, senders), outs, att)
+    _attention(lib, "gatv2_fwd", (hl, hr, att, rowptr, senders), outs,
+               *att.shape)
     return outs
 
 
 def gatv2_bwd_t(lib, hl, hr, att, m, g_o, g_d, colptr, receivers):
     d_hl = torch.empty_like(hl)
-    _gatv2(lib, "gatv2_bwd_t", (hl, hr, att, m, g_o, g_d, colptr, receivers),
-           (d_hl,), att)
+    _attention(lib, "gatv2_bwd_t",
+               (hl, hr, att, m, g_o, g_d, colptr, receivers), (d_hl,),
+               *att.shape)
     return (d_hl,)
 
 
@@ -112,8 +152,9 @@ def gatv2_bwd_f(lib, hl, hr, att, m, g_o, g_d, rowptr, senders):
     blocks.restype, blocks.argtypes = ctypes.c_int, [ctypes.c_int]
     d_hr = torch.empty_like(hl)
     part = hl.new_empty(blocks(hl.shape[0]), hl.shape[1])
-    _gatv2(lib, "gatv2_bwd_f", (hl, hr, att, m, g_o, g_d, rowptr, senders),
-           (d_hr, part), att)
+    _attention(lib, "gatv2_bwd_f",
+               (hl, hr, att, m, g_o, g_d, rowptr, senders), (d_hr, part),
+               *att.shape)
     return d_hr, part.sum(0).view(att.shape)
 
 
@@ -136,8 +177,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def _cases(dev):
     """case -> (kernel source, run(lib) -> outputs, the plain version's
-    outputs, the indices of the outputs held by relative L2, the library
-    call or None)."""
+    outputs, the indices of the outputs held by relative L2, (name, the
+    library call) or None)."""
     from egc_tpu_torch.data.synthetic import synthetic_full_graph
     from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
     raw = synthetic_full_graph(num_nodes=169_343, avg_degree=14,
@@ -156,10 +197,38 @@ def _cases(dev):
     bias = randn(H * L)
     y_st = torch.stack(ys, 1).reshape(n, A, B, L)
     w4 = w2d.reshape(n, H, B, A)
+    dz = randn(n, H * L)
+    dz4 = dz.reshape(n, H, L)
     cases["headmix_fwd H4 B4 A3 L32"] = (
         "headmix", lambda lib: (headmix_fwd(lib, w2d, ys, bias, H, B, A, L),),
         (hm.headmix_fwd_plain(w2d, ys, bias, **HEADMIX_SHAPE),), (),
-        lambda: torch.einsum("nhba,nabl->nhl", w4, y_st))
+        ("einsum", lambda: torch.einsum("nhba,nabl->nhl", w4, y_st)))
+    dw_ref, dys_ref = hm.headmix_bwd_plain(w2d, ys, dz, y_width=B * L,
+                                           **HEADMIX_SHAPE)
+
+    def einsum_pair():
+        torch.einsum("nhl,nabl->nhba", dz4, y_st)
+        torch.einsum("nhba,nhl->nabl", w4, dz4)
+
+    cases["headmix_bwd H4 B4 A3 L32"] = (
+        "headmix", lambda lib: headmix_bwd(lib, w2d, ys, dz, H, B, A, L),
+        (dw_ref, *dys_ref), (), ("einsum pair", einsum_pair))
+    for heads, c in GAT_SHAPES:
+        f = heads * c
+        wh, a_src, a_dst = randn(n, f), randn(n, heads), randn(n, heads)
+        g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
+        m = at.gat_fwd_plain(wh, a_src, a_dst, plan.rowptr,
+                             plan.fwd_senders)[2]
+        bwd_t = (wh, a_src, a_dst, m, g_o, g_d, plan.colptr,
+                 plan.bwd_receivers)
+        bwd_f = (wh, a_src, a_dst, m, g_o, g_d, plan.rowptr, plan.fwd_senders)
+        shape = f"H{heads} C{c}"
+        cases[f"gat_bwd_t {shape}"] = (
+            "gat_attention", lambda lib, a=bwd_t: gat_bwd_t(lib, *a),
+            at.gat_bwd_t_plain(*bwd_t), (), None)
+        cases[f"gat_bwd_f {shape}"] = (
+            "gat_attention", lambda lib, a=bwd_f: gat_bwd_f(lib, *a),
+            (at.gat_bwd_f_plain(*bwd_f),), (), None)
     for heads, c in GATV2_SHAPES:
         f = heads * c
         hl, hr = randn(n, f), randn(n, f)
@@ -240,8 +309,8 @@ def main(argv=None) -> int:
                                 ms=time_ms(lambda: run(lib))))
             print(json.dumps(results[-1]), flush=True)
         if library is not None:
-            results.append(dict(case=case, version="library einsum",
-                                ms=time_ms(library)))
+            results.append(dict(case=case, version=f"library {library[0]}",
+                                ms=time_ms(library[1])))
             print(json.dumps(results[-1]), flush=True)
     summary = {}
     for r in results:

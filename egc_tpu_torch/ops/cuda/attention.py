@@ -60,7 +60,7 @@ SLOPE = 0.2
 EMPTY_MAX = -1e30      # m of a receiver without in-edges
 MAX_HEADS = 32         # kMaxHeads in csrc/warp_rows.cuh
 MAX_WIDTH = 256        # H*C, as shape_ok in csrc/warp_rows.cuh allows
-MAX_CHANS = 16         # kMaxChans: the GATv2 kernels' channels per lane
+MAX_CHANS = 16         # kMaxChans in csrc/edge_groups.cuh
 
 launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0,
                             "gatv2_fwd": 0, "gatv2_bwd_t": 0,
@@ -352,12 +352,12 @@ def _check_v2(hl, hr, att, heads_arrays, ptr, idx):
 
 
 def edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
-    """``(P, LH, K)`` of the three GATv2 kernels (``edge_groups`` in
-    ``csrc/gatv2_attention.cu``): P lanes own one edge of a row (32 / P
-    edges per warp step), heads padded to a power of two get LH lanes each
-    (an aligned power-of-two run), and each lane holds K consecutive
-    channels of its head. LH is the least that keeps K <= ``MAX_CHANS``;
-    K is even when C is, so float2 loads never split a lane's run."""
+    """``(P, LH, K)`` of the edge-group kernels (``edge_groups`` in
+    ``csrc/edge_groups.cuh``): P lanes own one edge of a row (32 / P edges
+    per warp step), heads padded to a power of two get LH lanes each (an
+    aligned power-of-two run), and each lane holds K consecutive channels of
+    its head. LH is the least that keeps K <= ``MAX_CHANS``; K is even
+    when C is, so float2 loads never split a lane's run."""
     hp = 1 << (heads - 1).bit_length()
     lh = 1
     while -(-channels // lh) > MAX_CHANS:
@@ -368,17 +368,36 @@ def edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
     return hp * lh, lh, k
 
 
-def kernel_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
-    """``(P, LH, K)`` as the compiled kernels report it, to hold against
-    ``edge_geometry``."""
-    fn = _build.library("gatv2_attention").gatv2_edge_geometry
+def gat_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
+    """``(P, LH, K)`` of ``gat_bwd_t``: the GATv2 kernels' rule, since it
+    shares their header and cap (``edge_geometry``)."""
+    return edge_geometry(heads, channels)
+
+
+def _kernel_geometry(source: str, entry: str, heads: int, channels: int
+                     ) -> Tuple[int, int, int]:
+    fn = getattr(_build.library(source), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 3)()
     if fn(heads, channels, out) != 0:
-        raise ValueError(f"the GATv2 kernels refuse H={heads}, "
-                         f"C={channels}")
+        raise ValueError(f"{entry} refuses H={heads}, C={channels}")
     return tuple(out)
+
+
+def kernel_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
+    """``(P, LH, K)`` as the compiled GATv2 kernels report it, to hold
+    against ``edge_geometry``."""
+    return _kernel_geometry("gatv2_attention", "gatv2_edge_geometry", heads,
+                            channels)
+
+
+def kernel_gat_edge_geometry(heads: int, channels: int
+                             ) -> Tuple[int, int, int]:
+    """``(P, LH, K)`` as the compiled ``gat_bwd_t`` reports it, to hold
+    against ``gat_edge_geometry``."""
+    return _kernel_geometry("gat_attention", "gat_edge_geometry", heads,
+                            channels)
 
 
 def _launch_v2_fwd(hl, hr, att, rowptr, senders):

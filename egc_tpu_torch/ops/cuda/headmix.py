@@ -10,8 +10,9 @@ used (``y_width >= B*L``; dy's tail columns are 0). ``head_mix_fused``
 is an autograd function: on a CPU tensor it runs the plain versions, on a
 CUDA tensor kernel 3 forward and kernel 4 backward, or raises. dbias is
 ``dz.sum(0)`` in torch, as in the JAX package. ``launches`` counts kernel
-launches. Kernel 3 has a float4 and a scalar variant; ``fwd_variant`` is
-the rule by which ``headmix_fwd`` in ``csrc/headmix.cu`` picks one.
+launches. Kernels 3 and 4 each have a float4 and a scalar variant;
+``fwd_variant`` and ``bwd_variant`` are the rules by which ``headmix_fwd``
+and ``headmix_bwd`` in ``csrc/headmix.cu`` pick one.
 """
 
 from __future__ import annotations
@@ -94,24 +95,53 @@ def _ptr_array(tensors):
     return (ctypes.c_void_p * MAX_AGGRS)(*[t.data_ptr() for t in tensors])
 
 
+def _vector_ok(L: int, y_width: int, ptrs: Sequence[int]) -> str:
+    ok = L % 4 == 0 and y_width % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "vector" if ok else "scalar"
+
+
 def fwd_variant(L: int, y_width: int, ptrs: Sequence[int]) -> str:
     """``"vector"`` or ``"scalar"``: the kernel 3 variant for L, y_width and
     the data pointers of ys and the bias (0 for none). The float4 variant
     needs L and y_width multiples of 4 and 16-byte aligned pointers
     (``fwd_vector_ok`` in ``csrc/headmix.cu``)."""
-    ok = L % 4 == 0 and y_width % 4 == 0 and all(p % 16 == 0 for p in ptrs)
-    return "vector" if ok else "scalar"
+    return _vector_ok(L, y_width, ptrs)
+
+
+def bwd_variant(L: int, y_width: int, ptrs: Sequence[int]) -> str:
+    """The kernel 4 variant for L, y_width and the data pointers of ys, dy
+    and dz, by the same rule (``bwd_vector_ok`` in ``csrc/headmix.cu``);
+    w2d and dw, read and written a float at a time, do not count."""
+    return _vector_ok(L, y_width, ptrs)
+
+
+def _variant_fn(name, argtypes):
+    fn = getattr(_build.library("headmix"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
 
 
 def kernel_fwd_variant(ys, bias, L: int, y_width: int) -> str:
     """The variant the compiled kernel 3 reports for these CUDA tensors, to
     hold against ``fwd_variant``."""
-    fn = _build.library("headmix").headmix_fwd_variant
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn = _variant_fn("headmix_fwd_variant",
+                     [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
     vec = fn(_ptr_array(ys), len(ys),
              None if bias is None else bias.data_ptr(), L, y_width)
+    return "vector" if vec else "scalar"
+
+
+def kernel_bwd_variant(ys, dys, dz, L: int, y_width: int) -> str:
+    """The variant the compiled kernel 4 reports for these CUDA tensors, to
+    hold against ``bwd_variant``."""
+    fn = _variant_fn("headmix_bwd_variant",
+                     [ctypes.POINTER(ctypes.c_void_p),
+                      ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+                     + [ctypes.c_int] * 3)
+    vec = fn(_ptr_array(ys), _ptr_array(dys), dz.data_ptr(), len(ys), L,
+             y_width)
     return "vector" if vec else "scalar"
 
 

@@ -305,3 +305,170 @@ def test_gat_launchers_refuse_cpu_tensors():
         with pytest.raises(RuntimeError, match="CUDA tensor"):
             tat._launch_bwd(name, torch.zeros(4, 6), z, z, z,
                             torch.zeros(4, 6), z, ptr, idx)
+
+
+def test_gat_bwd_t_geometry_covers_every_column():
+    """For every (H, C) ``gat_bwd_t`` takes (H <= 32, H*C <= 256), its lane
+    geometry (``gat_edge_geometry``, at most ``MAX_CHANS`` channels
+    per lane): P divides the warp, each column of a row is owned by
+    exactly one lane of an edge group, and each head's lanes are an
+    aligned power-of-two run holding at most ``MAX_CHANS`` columns
+    each, an even number when C is even (float2 loads). The arxiv shapes
+    get 16 lanes per edge, 2 edges per warp step."""
+    shapes = 0
+    for heads in range(1, tat.MAX_HEADS + 1):
+        for c in range(1, tat.MAX_WIDTH // heads + 1):
+            p, lh, k = tat.gat_edge_geometry(heads, c)
+            assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
+            assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
+            owner = {}
+            for j in range(p):                 # the kernel's formulas
+                h, c0 = j // lh, (j % lh) * k
+                nk = max(0, min(k, c - c0)) if h < heads else 0
+                for col in range(h * c + c0, h * c + c0 + nk):
+                    assert col not in owner, (heads, c, col)
+                    owner[col] = j
+            assert sorted(owner) == list(range(heads * c)), (heads, c)
+            for h in range(heads):
+                lanes = {owner[h * c + cc] for cc in range(c)}
+                run = range(h * lh, (h + 1) * lh)
+                assert lanes <= set(run) and run.start % lh == 0
+                assert owner[h * c] == h * lh    # it writes d_asrc[s, h]
+            shapes += 1
+    assert shapes > 1000
+    assert tat.gat_edge_geometry(8, 19) == (16, 2, 10)
+    assert tat.gat_edge_geometry(1, 152) == (16, 16, 10)
+
+
+def hub_sender_graph(n, seed):
+    """Random graph with two hub senders (nodes 0 and 1, > 64 out-edges),
+    senders with exactly 1, 2 and 3 out-edges, silent senders and isolated
+    receivers; returns (s, r) coalesced."""
+    rng = np.random.default_rng(seed)
+    s = [rng.integers(0, n - 20, 4 * n)]
+    r = [rng.integers(0, n - 10, 4 * n)]    # the last 10 receive nothing
+    few = [(0, 80), (1, 70)] + [
+        (node, 1 + i % 3) for i, node in enumerate(range(n - 20, n - 14))]
+    for node, k in few:                     # n-14 .. n-1 send nothing
+        s.append(np.full(k, node))
+        r.append(rng.choice(n - 10, k, replace=False))
+    s, r, _ = coalesce_np(np.concatenate(s).astype(np.int32),
+                          np.concatenate(r).astype(np.int32), n)
+    deg = np.bincount(s, minlength=n)
+    assert deg[:2].min() > 64 and all(deg[node] == k for node, k in few[2:])
+    assert (deg[n - 14:] == 0).all()
+    return s, r
+
+
+def grouped_gat_bwd_t(wh, a_src, a_dst, m, g_o, g_d, colptr, receivers,
+                      groups):
+    """A pure-torch emulation of the ``gat_bwd_t`` kernel's order: out-edge
+    start + g + t G of a sender goes to group g, each group sums its own
+    d_wh and d_asrc over its edges in order, and the groups meet by xor
+    partner at offsets 1, 2, ..., G / 2 (the kernel's lane offsets P, 2P,
+    ..., 16), group 0's sums being the sender's. Returns ``(d_wh [N, H*C],
+    d_asrc [N, H])``."""
+    n, hc = wh.shape
+    heads = a_src.shape[1]
+    c = hc // heads
+    deg = colptr[1:] - colptr[:-1]
+    rows = torch.arange(n)
+    acc = torch.zeros(n, groups, heads, c)
+    hsum = torch.zeros(n, groups, heads)
+    wh3, go3 = wh.view(n, heads, c), g_o.view(n, heads, c)
+    for g in range(groups):
+        for t in range(-(-int(deg.max()) // groups)):
+            pos = g + t * groups
+            live = rows[deg > pos]
+            r = receivers[colptr[live] + pos].long()
+            z = a_src[live] + a_dst[r]
+            a = torch.exp(tat._leaky(z) - m[r])
+            q = (go3[r] * wh3[live]).sum(-1)
+            de = a * (q + g_d[r])
+            hsum[live, g] += torch.where(z >= 0, de, tat.SLOPE * de)
+            acc[live, g] += a[..., None] * go3[r]
+    off = 1
+    while off < groups:
+        partner = torch.arange(groups) ^ off
+        acc = acc + acc[:, partner]
+        hsum = hsum + hsum[:, partner]
+        off *= 2
+    assert torch.equal(hsum, hsum[:, :1].expand_as(hsum))
+    return acc[:, 0].reshape(n, hc), hsum[:, 0]
+
+
+def jax_gat_bwd_t(jplan, heads, c, wh, a_src, a_dst, m, g_o, g_d):
+    """``(d_wh [n, H, C], d_asrc [n, H])`` from the JAX
+    ``_edge_pass(_bwd_t_kernel)`` in interpret mode, fed the packing
+    ``gat_attention``'s backward builds with the denominator cotangent as
+    the fourth coefficient field (the mode for C == cp): ``src_pack`` =
+    [wh | a_src] and ``coeff`` = [g_o | a_dst | m | g_d / cp], channels
+    padded to cp and heads interleaved (column c' H + h); d_asrc is the
+    sum of the dz copy lanes, as the consumer's tile VJP takes it."""
+    n = wh.shape[0]
+    npad = jplan.n_pad
+    cp = 1
+    while cp < c or (heads * cp) % 128:
+        cp *= 2
+    hcp = heads * cp
+
+    def interleave(x):          # [n, H, C] -> [npad, cp * H]
+        xt = np.zeros((npad, cp, heads), np.float32)
+        xt[:n, :c] = x.transpose(0, 2, 1)
+        return xt.reshape(npad, hcp)
+
+    def tiled(x):               # [n, H] -> [npad, cp * H]
+        xp = np.zeros((npad, heads), np.float32)
+        xp[:n] = x
+        return np.tile(xp, (1, cp))
+
+    src_pack = jnp.asarray(np.concatenate([interleave(wh), tiled(a_src)], 1))
+    coeff = jnp.asarray(np.concatenate(
+        [interleave(g_o), tiled(a_dst), tiled(m), tiled(g_d / cp)], 1))
+    d_src = np.asarray(jattn._edge_pass(
+        jattn._bwd_t_kernel, coeff, src_pack, jplan.bwd_attn, 2 * hcp,
+        heads=heads, cp=cp, slope=tat.SLOPE))
+    d_wh = d_src[:, :hcp].reshape(npad, cp, heads).transpose(0, 2, 1)
+    d_asrc = d_src[:, hcp:].reshape(npad, cp, heads).sum(1)
+    return d_wh[:n, :, :c], d_asrc[:n]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("heads,c", [(8, 19), (1, 37), (4, 6)])
+def test_grouped_gat_bwd_t_matches_plain_and_jax(heads, c, groups):
+    """The ``gat_bwd_t`` kernel's order (a sender's out-edges dealt over G
+    edge groups, merged in the fixed xor order) equals ``gat_bwd_t_plain``
+    and the JAX ``_edge_pass(_bwd_t_kernel)`` in interpret mode at rtol =
+    atol = 1e-5 (d_asrc also at relative L2 <= 1e-4), on a graph with hub
+    senders, senders with 1-3 out-edges and silent senders, whose rows
+    are exact zeros."""
+    n = 160
+    s, r = hub_sender_graph(n, 21)
+    rng = np.random.default_rng(22)
+    wh = rng.normal(size=(n, heads, c)).astype(np.float32)
+    a_src = rng.normal(size=(n, heads)).astype(np.float32)
+    a_dst = rng.normal(size=(n, heads)).astype(np.float32)
+    g_o = (rng.normal(size=(n, heads, c)) / np.sqrt(c)).astype(np.float32)
+    g_d = rng.normal(size=(n, heads)).astype(np.float32)
+
+    tplan = build_kernel_plan(s, r, n)
+    t = [torch.as_tensor(x) for x in (wh.reshape(n, -1), a_src, a_dst)]
+    m = tat.gat_fwd_plain(*t, tplan.rowptr, tplan.fwd_senders)[2]
+    args = (*t, m, torch.as_tensor(g_o.reshape(n, -1)),
+            torch.as_tensor(g_d), tplan.colptr, tplan.bwd_receivers)
+    d_wh, d_asrc = grouped_gat_bwd_t(*args, groups)
+    ref_wh, ref_asrc = tat.gat_bwd_t_plain(*args)
+    torch.testing.assert_close(d_wh, ref_wh, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d_asrc, ref_asrc, rtol=1e-5, atol=1e-5)
+    assert rel_l2(d_asrc.numpy(), ref_asrc.numpy()) <= 1e-4
+    silent = torch.as_tensor(np.bincount(s, minlength=n) == 0)
+    assert silent.sum() >= 14
+    assert torch.all(d_wh[silent] == 0) and torch.all(d_asrc[silent] == 0)
+    assert d_wh[:2].abs().min(dim=1).values.min() > 0     # the hubs' rows
+
+    j_wh, j_asrc = jax_gat_bwd_t(jax_mini_plan(s, r, n), heads, c, wh, a_src,
+                                 a_dst, m.numpy(), g_o, g_d)
+    np.testing.assert_allclose(d_wh.numpy(), j_wh.reshape(n, -1), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(d_asrc.numpy(), j_asrc, rtol=1e-5, atol=1e-5)
+    assert rel_l2(d_asrc.numpy(), j_asrc) <= 1e-4
