@@ -23,10 +23,11 @@ Phases, each of which raises (exit code 1) on any failed check:
    and scalar variants forward and backward (each kernel's pick held
    against ``headmix.fwd_variant`` / ``bwd_variant``; A = 1 and 6, L = 34,
    H8 L44, y_width > B*L, H = 12), GAT and GATv2 (H, C) = (8, 5),
-   (1, 37), (4, 37), (3, 37) and (32, 8), and the lane geometry of
-   ``gat_bwd_t`` and of the GATv2 kernels against
+   (1, 37), (4, 37), (3, 37) and (32, 8) with receivers of G - 1 and
+   G + 1 in-edges (G edge groups per warp step), and the lane geometry of
+   the GAT and of the GATv2 kernels against
    ``attention.gat_edge_geometry`` / ``edge_geometry`` at every shape they
-   take. Kernel, plain and library times are medians of CUDA-event timed
+   take. ``gat_fwd``'s m must equal the plain version's bit for bit. Kernel, plain and library times are medians of CUDA-event timed
    launches; each kernel's bound counts its compulsory bytes, and its
    floor, for a gather over random endpoints, the rows it gathers per edge
    (``floor_ms``).
@@ -549,6 +550,8 @@ def _gat_kernel_errs(kernel_args, label, empty=None, silent=None) -> dict:
             got, ref = got[:1], ref[:1]
         errs[name] = max(_close(f"{name}[{label}] out {i}", a, b)
                          for i, (a, b) in enumerate(zip(got, ref)))
+        if name == "gat_fwd":   # the stationary max is order-free
+            _close(f"{name}[{label}] m", got[2], ref[2], exact=True)
         fwd = name.endswith("_fwd")
         rows = silent if name.endswith("_bwd_t") else empty
         if rows is not None:
@@ -683,28 +686,38 @@ def kernels_gat_main_shapes(data) -> list:
 
 
 def _small_attention_graph(dev):
-    """A 1,000-node graph with 40 receivers without in-edges, 40 senders
-    without out-edges, three hub senders with 70, 100 and 150 more
+    """A 1,000-node graph with at least 40 receivers without in-edges and 40
+    senders without out-edges, three hub senders with 70, 100 and 150 more
     out-edges and three hub receivers with as many more in-edges, ten
     senders with exactly 1, 2 or 3 out-edges and ten receivers with exactly
-    1, 2 or 3 in-edges (fewer than a warp's edge groups); and masks of the
-    empty and the silent rows."""
+    1, 2 or 3 in-edges (fewer than a warp's edge groups), receivers with
+    exactly G - 1 and G + 1 in-edges for every count G of edge groups per
+    warp step that the attention kernels take at the checked shapes (a
+    group runs past the row's end); and masks of the empty and the silent
+    rows."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.structure import Graph
     from egc_tpu_torch.graph.transforms import coalesce_np
+    from egc_tpu_torch.ops.cuda import attention as at
     from egc_tpu_torch.ops.dispatch import build_kernel_plan
 
     rng = np.random.default_rng(1)
     n = 1000
     s = [rng.integers(0, n - 50, 6000)]      # nodes n-50 .. n-1 added below
-    r = [rng.integers(0, n - 50, 6000)]
+    r = [rng.integers(0, n - 60, 6000)]      # and receivers n-60 .. n-51
     few = [(node, 1 + i % 3) for i, node in enumerate(range(n - 50, n - 40))]
+    groups = {32 // at.edge_geometry(h, c)[0]
+              for h, c in GAT_SMALL_SHAPES + GAT_SHAPES + GATV2_SMALL_SHAPES
+              + GATV2_SHAPES}
+    near = sorted({k for g in groups for k in (g - 1, g + 1) if k > 0})
+    check(len(near) <= 10, f"small graph: {near} needs more nodes")
     few_out = [(0, 70), (1, 100), (2, 150)] + few
-    few_in = [(3, 70), (4, 100), (5, 150)] + few
+    few_in = [(3, 70), (4, 100), (5, 150)] + few + [
+        (n - 60 + i, k) for i, k in enumerate(near)]
     for node, k in few_out:                  # n-40 .. n-1 send nothing
         s.append(np.full(k, node))
-        r.append(rng.choice(n - 50, k, replace=False))
+        r.append(rng.choice(n - 60, k, replace=False))
     for node, k in few_in:                   # n-40 .. n-1 receive nothing
         r.append(np.full(k, node))
         s.append(rng.choice(n - 50, k, replace=False))
@@ -715,7 +728,7 @@ def _small_attention_graph(dev):
                             (in_deg, few_in, "receivers")):
         check(min(deg[node] for node, _ in hubs[:3]) > 64
               and all(deg[node] == k for node, k in hubs[3:]),
-              f"small graph: hub or 1-3-edge {side} missing")
+              f"small graph: hub or few-edge {side} missing")
     g = Graph.from_coo(np.zeros((n, 1), np.float32), s, r)
     g = g.replace(kernel_plan=build_kernel_plan(s, r, n)).to(dev)
     empty = torch.as_tensor(in_deg == 0, device=dev)
@@ -728,17 +741,18 @@ GAT_SMALL_SHAPES = ((8, 5), (1, 37), (4, 37), (3, 37), (32, 8))
 
 def kernels_gat_small(dev) -> None:
     """Kernels 5-7 with empty receivers, senders without out-edges, hub
-    senders and receivers and senders and receivers with 1-3 edges, at
-    C = 5, 37 and 8 (H = 3 and 32 among them) besides the path's shapes;
-    and the lane geometry of ``gat_bwd_t`` as the kernel reports it against
-    ``attention.gat_edge_geometry`` at every shape it takes."""
+    senders and receivers, senders and receivers with 1-3 edges and
+    receivers with G +- 1, at C = 5, 37 and 8 (H = 3 and 32 among them)
+    besides the path's shapes; and the lane geometry of the three kernels
+    as they report it against ``attention.gat_edge_geometry`` at every
+    shape they take."""
     import torch
     from egc_tpu_torch.ops.cuda import attention as at
     shapes = [(h, c) for h in range(1, at.MAX_HEADS + 1)
               for c in range(1, at.MAX_WIDTH // h + 1)]
     bad = [(h, c) for h, c in shapes
            if at.kernel_gat_edge_geometry(h, c) != at.gat_edge_geometry(h, c)]
-    check(not bad, f"the geometry of gat_bwd_t differs from "
+    check(not bad, f"the geometry of the GAT kernels differs from "
                    f"gat_edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -750,9 +764,9 @@ def kernels_gat_small(dev) -> None:
         _check_gat_autograd(g, ins, heads, c, gen, label)
     torch.cuda.synchronize()
     log(f"[kernels] GAT small-size checks passed (empty receivers, senders "
-        f"without out-edges, hubs, 1-3-edge senders and receivers, (H, C) = "
-        f"{GAT_SMALL_SHAPES + GAT_SHAPES}); the geometry of gat_bwd_t agrees "
-        f"at {len(shapes)} shapes")
+        f"without out-edges, hubs, 1-3-edge senders and receivers, receivers "
+        f"of G +- 1 edges, (H, C) = {GAT_SMALL_SHAPES + GAT_SHAPES}); the "
+        f"geometry of the GAT kernels agrees at {len(shapes)} shapes")
 
 
 def _gatv2_inputs(n, heads, c, gen, dev):

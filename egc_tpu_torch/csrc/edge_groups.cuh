@@ -1,6 +1,6 @@
 // The edge-group lane geometry of the attention kernels that walk a CSR or
-// CSC row several edges at a time (gatv2_attention.cu, and gat_bwd_t in
-// gat_attention.cu), and the device helpers that go with it.
+// CSC row several edges at a time (gatv2_attention.cu, gat_attention.cu),
+// and the device helpers that go with it.
 //
 // A group of P lanes owns one edge, so a warp walks G = 32 / P edges per
 // step. Heads are padded to a power of two and get LH lanes each (an
@@ -112,6 +112,43 @@ __device__ __forceinline__ void sum_groups(float (&v)[KT], int P) {
   for (int off = P; off < 32; off <<= 1) {
 #pragma unroll
     for (int k = 0; k < KT; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
+  }
+}
+
+// An online softmax state (max m, denominator d, the lane's K columns of
+// o), from m = kEmptyMax, d = 0, o = 0: add an edge of logit e and value
+// row v.
+template <int KT>
+__device__ __forceinline__ void online_add(float& m, float& d,
+                                           float (&o)[KT], float e,
+                                           const float (&v)[KT]) {
+  const float m_new = fmaxf(m, e);
+  const float c = expf(m - m_new);
+  const float p = expf(e - m_new);
+  d = fmaf(d, c, p);
+  m = m_new;
+#pragma unroll
+  for (int k = 0; k < KT; ++k) o[k] = fmaf(p, v[k], o[k] * c);
+}
+
+// The G groups' online states merge as flash attention's blocks do, in a
+// fixed order: m* = max(ma, mb), then d and o rescaled by exp(mi - m*) and
+// summed; every group ends with the total. kEmptyMax rather than -inf
+// keeps every exponent finite, so two empty states merge to exact zeros.
+template <int KT>
+__device__ __forceinline__ void merge_groups(float& m, float& d,
+                                             float (&o)[KT], int P) {
+  for (int off = P; off < 32; off <<= 1) {
+    const float m_b = __shfl_xor_sync(kFull, m, off);
+    const float d_b = __shfl_xor_sync(kFull, d, off);
+    const float m_new = fmaxf(m, m_b);
+    const float ca = expf(m - m_new);
+    const float cb = expf(m_b - m_new);
+    d = d * ca + d_b * cb;
+#pragma unroll
+    for (int k = 0; k < KT; ++k)
+      o[k] = o[k] * ca + __shfl_xor_sync(kFull, o[k], off) * cb;
+    m = m_new;
   }
 }
 

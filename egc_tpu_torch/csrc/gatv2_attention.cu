@@ -61,9 +61,10 @@
 // - gatv2_fwd: each group keeps its own online-softmax state per head (m,
 //   d and its K columns of o, from m = -1e30, d = 0, o = 0), so each
 //   in-edge's row is gathered once: per edge m' = max(m, e),
-//   c = exp(m - m'), p = exp(e - m'), d = d c + p, o = o c + p hl. The
-//   groups' states merge as flash attention's blocks do: m* = max(ma, mb),
-//   then d and o rescaled by exp(mi - m*) and summed. -1e30 rather than
+//   c = exp(m - m'), p = exp(e - m'), d = d c + p, o = o c + p hl
+//   (online_add). The groups' states merge as flash attention's blocks do
+//   (merge_groups): m* = max(ma, mb), then d and o rescaled by
+//   exp(mi - m*) and summed. -1e30 rather than
 //   -inf keeps every exponent finite: two empty states merge to
 //   exp(0) x 0, exact zeros, so a receiver with fewer in-edges than G, or
 //   none, stays exact, and an empty receiver writes m = -1e30.
@@ -128,15 +129,7 @@ gatv2_fwd_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
     for (int k = 0; k < KT; ++k)
       e = fmaf(attv[k], leaky(cur[k] + hr_own[k], slope), e);
     e = sum_head(e, LH);
-    if (s_cur >= 0) {
-      const float m_new = fmaxf(m_g, e);
-      const float c = expf(m_g - m_new);
-      const float p = expf(e - m_new);
-      d_g = fmaf(d_g, c, p);
-      m_g = m_new;
-#pragma unroll
-      for (int k = 0; k < KT; ++k) acc[k] = fmaf(p, cur[k], acc[k] * c);
-    }
+    if (s_cur >= 0) online_add<KT>(m_g, d_g, acc, e, cur);
 #pragma unroll
     for (int k = 0; k < KT; ++k) cur[k] = nxt[k];
     s_cur = s_next;
@@ -144,18 +137,7 @@ gatv2_fwd_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
   }
 
   // the G groups' states merge in a fixed order; group 0 writes the row
-  for (int off = P; off < 32; off <<= 1) {
-    const float m_b = __shfl_xor_sync(kFull, m_g, off);
-    const float d_b = __shfl_xor_sync(kFull, d_g, off);
-    const float m_new = fmaxf(m_g, m_b);
-    const float ca = expf(m_g - m_new);
-    const float cb = expf(m_b - m_new);
-    d_g = d_g * ca + d_b * cb;
-#pragma unroll
-    for (int k = 0; k < KT; ++k)
-      acc[k] = acc[k] * ca + __shfl_xor_sync(kFull, acc[k], off) * cb;
-    m_g = m_new;
-  }
+  merge_groups<KT>(m_g, d_g, acc, P);
   if (lc.grp == 0 && lc.nk > 0) {
     store_cols<KT, V>(o + (size_t)row * F + lc.col, lc.nk, acc);
     if (lc.c0 == 0) {  // the first lane of head h

@@ -1,6 +1,6 @@
-"""Time builds of the head-mix kernels, ``gat_bwd_t`` and ``gat_bwd_f``
-and the three GATv2 kernels against each other on one card, at the shapes
-of their paths.
+"""Time builds of the head-mix kernels, the three GAT kernels and the
+three GATv2 kernels against each other on one card, at the shapes of their
+paths.
 
     python3 -m egc_tpu_torch.exp.kernel_ab --versions DIR [DIR ...] \\
         [--rounds 2] [--out results.json]
@@ -16,9 +16,9 @@ events on the same inputs: the synthetic arxiv-shaped graph (169,343
 nodes, 2,368,458 edges); the head mix at H4 B4 A3 L32, forward beside
 ``torch.einsum("nhba,nabl->nhl")`` and backward beside the two einsum
 calls of its gradient (``"nhl,nabl->nhba"`` for dw, ``"nhba,nhl->nabl"``
-for dy); ``gat_bwd_t`` and ``gat_bwd_f`` at (H8, C19) and (H1, C152); and
-``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at (H8, C14) and (H1,
-C112). Outputs are held at rtol = atol = 1e-5, except ``gatv2_bwd_f``'s
+for dy); ``gat_fwd``, ``gat_bwd_t`` and ``gat_bwd_f`` at (H8, C19) and (H1,
+C152); and ``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at (H8, C14)
+and (H1, C112). Outputs are held at rtol = atol = 1e-5, except ``gatv2_bwd_f``'s
 d_att (a sum over every edge whose terms cancel), held after its rows are
 summed at relative L2 <= 1e-4; two launches of a version must agree
 bitwise. Prints one JSON line per measurement and the card's
@@ -109,6 +109,15 @@ def _attention(lib, name, inputs, outs, heads, c):
              at.SLOPE, *[t.data_ptr() for t in outs],
              torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name, lib)
+
+
+def gat_fwd(lib, wh, a_src, a_dst, rowptr, senders):
+    outs = (torch.empty_like(wh), torch.empty_like(a_src),
+            torch.empty_like(a_src))
+    heads = a_src.shape[1]
+    _attention(lib, "gat_fwd", (wh, a_src, a_dst, rowptr, senders), outs,
+               heads, wh.shape[1] // heads)
+    return outs
 
 
 def gat_bwd_t(lib, wh, a_src, a_dst, m, g_o, g_d, colptr, receivers):
@@ -217,12 +226,16 @@ def _cases(dev):
         f = heads * c
         wh, a_src, a_dst = randn(n, f), randn(n, heads), randn(n, heads)
         g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
-        m = at.gat_fwd_plain(wh, a_src, a_dst, plan.rowptr,
-                             plan.fwd_senders)[2]
+        fwd = (wh, a_src, a_dst, plan.rowptr, plan.fwd_senders)
+        ref_fwd = at.gat_fwd_plain(*fwd)
+        m = ref_fwd[2]
         bwd_t = (wh, a_src, a_dst, m, g_o, g_d, plan.colptr,
                  plan.bwd_receivers)
         bwd_f = (wh, a_src, a_dst, m, g_o, g_d, plan.rowptr, plan.fwd_senders)
         shape = f"H{heads} C{c}"
+        cases[f"gat_fwd {shape}"] = (
+            "gat_attention", lambda lib, a=fwd: gat_fwd(lib, *a), ref_fwd,
+            (), None)
         cases[f"gat_bwd_t {shape}"] = (
             "gat_attention", lambda lib, a=bwd_t: gat_bwd_t(lib, *a),
             at.gat_bwd_t_plain(*bwd_t), (), None)

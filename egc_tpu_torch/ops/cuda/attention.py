@@ -369,8 +369,8 @@ def edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
 
 
 def gat_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
-    """``(P, LH, K)`` of ``gat_bwd_t``: the GATv2 kernels' rule, since it
-    shares their header and cap (``edge_geometry``)."""
+    """``(P, LH, K)`` of the three GAT kernels: the GATv2 kernels' rule,
+    since they share its header and cap (``edge_geometry``)."""
     return edge_geometry(heads, channels)
 
 
@@ -394,7 +394,7 @@ def kernel_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
 
 def kernel_gat_edge_geometry(heads: int, channels: int
                              ) -> Tuple[int, int, int]:
-    """``(P, LH, K)`` as the compiled ``gat_bwd_t`` reports it, to hold
+    """``(P, LH, K)`` as the compiled GAT kernels report it, to hold
     against ``gat_edge_geometry``."""
     return _kernel_geometry("gat_attention", "gat_edge_geometry", heads,
                             channels)

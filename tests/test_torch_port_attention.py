@@ -81,10 +81,11 @@ def jax_mini_plan(s, r, n):
                            deg=jnp.asarray(deg), n_pad=npad)
 
 
-def jax_gat_attention(plan, heads, c):
+def jax_gat_attention(plan, heads, c, with_m=False):
     """(wh [N, H, C], a_src [N, H], a_dst [N, H]) -> (o [N, H, C], d [N, H])
     through the JAX ``gat_attention``, packing its TPU layout as
-    ``_fused_gat_softmax_sum`` does."""
+    ``_fused_gat_softmax_sum`` does; with ``with_m`` also its stationary
+    max m [N, H] (-3e38 for an empty receiver)."""
     cp = 1
     while cp < c or (heads * cp) % 128:
         cp *= 2
@@ -101,6 +102,8 @@ def jax_gat_attention(plan, heads, c):
         o, md = jattn.gat_attention(src_pack, adst, plan, heads=heads,
                                     cp=cp, dchan=c if cp > c else None)
         o = o.reshape(npad, cp, heads).transpose(0, 2, 1)[:, :, :c]
+        if with_m:
+            return o, md[:, 64:64 + heads], md[:, :heads]
         return o, md[:, 64:64 + heads]
 
     return f, cp
@@ -308,8 +311,8 @@ def test_gat_launchers_refuse_cpu_tensors():
 
 
 def test_gat_bwd_t_geometry_covers_every_column():
-    """For every (H, C) ``gat_bwd_t`` takes (H <= 32, H*C <= 256), its lane
-    geometry (``gat_edge_geometry``, at most ``MAX_CHANS`` channels
+    """For every (H, C) the GAT kernels take (H <= 32, H*C <= 256), their
+    lane geometry (``gat_edge_geometry``, at most ``MAX_CHANS`` channels
     per lane): P divides the warp, each column of a row is owned by
     exactly one lane of an edge group, and each head's lanes are an
     aligned power-of-two run holding at most ``MAX_CHANS`` columns
@@ -333,7 +336,7 @@ def test_gat_bwd_t_geometry_covers_every_column():
                 lanes = {owner[h * c + cc] for cc in range(c)}
                 run = range(h * lh, (h + 1) * lh)
                 assert lanes <= set(run) and run.start % lh == 0
-                assert owner[h * c] == h * lh    # it writes d_asrc[s, h]
+                assert owner[h * c] == h * lh    # it writes d_asrc, d_adst
             shapes += 1
     assert shapes > 1000
     assert tat.gat_edge_geometry(8, 19) == (16, 2, 10)
@@ -360,6 +363,29 @@ def hub_sender_graph(n, seed):
     return s, r
 
 
+def _deal_edges(ptr, idx, groups):
+    """The kernels' order over each row of a CSR or CSC ``(ptr, idx)``:
+    yields ``(g, live, nb)`` for t = 0, 1, ...: group g takes edge
+    start + g + t G of the rows ``live`` that have one, to the neighbours
+    ``nb``."""
+    deg = ptr[1:] - ptr[:-1]
+    rows = torch.arange(deg.shape[0])
+    for t in range(-(-int(deg.max()) // groups)):
+        for g in range(groups):
+            pos = g + t * groups
+            live = rows[deg > pos]
+            yield g, live, idx[ptr[live] + pos].long()
+
+
+def _xor_offsets(groups):
+    """The groups' xor partners at offsets 1, 2, ..., G / 2 (the kernels'
+    lane offsets P, 2P, ..., 16), in that order."""
+    off = 1
+    while off < groups:
+        yield torch.arange(groups) ^ off
+        off *= 2
+
+
 def grouped_gat_bwd_t(wh, a_src, a_dst, m, g_o, g_d, colptr, receivers,
                       groups):
     """A pure-torch emulation of the ``gat_bwd_t`` kernel's order: out-edge
@@ -371,42 +397,31 @@ def grouped_gat_bwd_t(wh, a_src, a_dst, m, g_o, g_d, colptr, receivers,
     n, hc = wh.shape
     heads = a_src.shape[1]
     c = hc // heads
-    deg = colptr[1:] - colptr[:-1]
-    rows = torch.arange(n)
     acc = torch.zeros(n, groups, heads, c)
     hsum = torch.zeros(n, groups, heads)
     wh3, go3 = wh.view(n, heads, c), g_o.view(n, heads, c)
-    for g in range(groups):
-        for t in range(-(-int(deg.max()) // groups)):
-            pos = g + t * groups
-            live = rows[deg > pos]
-            r = receivers[colptr[live] + pos].long()
-            z = a_src[live] + a_dst[r]
-            a = torch.exp(tat._leaky(z) - m[r])
-            q = (go3[r] * wh3[live]).sum(-1)
-            de = a * (q + g_d[r])
-            hsum[live, g] += torch.where(z >= 0, de, tat.SLOPE * de)
-            acc[live, g] += a[..., None] * go3[r]
-    off = 1
-    while off < groups:
-        partner = torch.arange(groups) ^ off
+    for g, live, r in _deal_edges(colptr, receivers, groups):
+        z = a_src[live] + a_dst[r]
+        a = torch.exp(tat._leaky(z) - m[r])
+        q = (go3[r] * wh3[live]).sum(-1)
+        de = a * (q + g_d[r])
+        hsum[live, g] += torch.where(z >= 0, de, tat.SLOPE * de)
+        acc[live, g] += a[..., None] * go3[r]
+    for partner in _xor_offsets(groups):
         acc = acc + acc[:, partner]
         hsum = hsum + hsum[:, partner]
-        off *= 2
     assert torch.equal(hsum, hsum[:, :1].expand_as(hsum))
     return acc[:, 0].reshape(n, hc), hsum[:, 0]
 
 
-def jax_gat_bwd_t(jplan, heads, c, wh, a_src, a_dst, m, g_o, g_d):
-    """``(d_wh [n, H, C], d_asrc [n, H])`` from the JAX
-    ``_edge_pass(_bwd_t_kernel)`` in interpret mode, fed the packing
-    ``gat_attention``'s backward builds with the denominator cotangent as
-    the fourth coefficient field (the mode for C == cp): ``src_pack`` =
-    [wh | a_src] and ``coeff`` = [g_o | a_dst | m | g_d / cp], channels
-    padded to cp and heads interleaved (column c' H + h); d_asrc is the
-    sum of the dz copy lanes, as the consumer's tile VJP takes it."""
+def jax_gat_backward_packing(npad, heads, c, wh, a_src, a_dst, m, g_o,
+                             g_d):
+    """The packing ``gat_attention``'s backward builds for ``_edge_pass``
+    with the denominator cotangent as the fourth coefficient field (the
+    mode for C == cp): ``src_pack`` = [wh | a_src] and ``coeff`` =
+    [g_o | a_dst | m | g_d / cp], channels padded to cp and heads
+    interleaved (column c' H + h); returns ``(src_pack, coeff, cp)``."""
     n = wh.shape[0]
-    npad = jplan.n_pad
     cp = 1
     while cp < c or (heads * cp) % 128:
         cp *= 2
@@ -425,6 +440,18 @@ def jax_gat_bwd_t(jplan, heads, c, wh, a_src, a_dst, m, g_o, g_d):
     src_pack = jnp.asarray(np.concatenate([interleave(wh), tiled(a_src)], 1))
     coeff = jnp.asarray(np.concatenate(
         [interleave(g_o), tiled(a_dst), tiled(m), tiled(g_d / cp)], 1))
+    return src_pack, coeff, cp
+
+
+def jax_gat_bwd_t(jplan, heads, c, wh, a_src, a_dst, m, g_o, g_d):
+    """``(d_wh [n, H, C], d_asrc [n, H])`` from the JAX
+    ``_edge_pass(_bwd_t_kernel)`` in interpret mode, fed
+    ``jax_gat_backward_packing``; d_asrc is the sum of the dz copy lanes,
+    as the consumer's tile VJP takes it."""
+    n, npad = wh.shape[0], jplan.n_pad
+    src_pack, coeff, cp = jax_gat_backward_packing(
+        npad, heads, c, wh, a_src, a_dst, m, g_o, g_d)
+    hcp = heads * cp
     d_src = np.asarray(jattn._edge_pass(
         jattn._bwd_t_kernel, coeff, src_pack, jplan.bwd_attn, 2 * hcp,
         heads=heads, cp=cp, slope=tat.SLOPE))
@@ -472,3 +499,160 @@ def test_grouped_gat_bwd_t_matches_plain_and_jax(heads, c, groups):
                                atol=1e-5)
     np.testing.assert_allclose(d_asrc.numpy(), j_asrc, rtol=1e-5, atol=1e-5)
     assert rel_l2(d_asrc.numpy(), j_asrc) <= 1e-4
+
+
+def hub_receiver_graph(n, seed):
+    """The receiver-side twin of ``hub_sender_graph`` (its edges reversed):
+    two hub receivers (nodes 0 and 1, > 64 in-edges), receivers with
+    exactly 1, 2 and 3 in-edges, receivers without in-edges (n-14 .. n-1)
+    and silent senders; returns (s, r) coalesced."""
+    s, r = hub_sender_graph(n, seed)
+    s, r, _ = coalesce_np(r, s, n)
+    deg = np.bincount(r, minlength=n)
+    assert deg[:2].min() > 64 and set(deg[n - 20:n - 14]) == {1, 2, 3}
+    assert (deg[n - 14:] == 0).all()
+    return s, r
+
+
+def grouped_gat_fwd(wh, a_src, a_dst, rowptr, senders, groups):
+    """A pure-torch emulation of the ``gat_fwd`` kernel's order: in-edge
+    start + g + t G of a receiver goes to group g, each group keeps its own
+    online softmax state per head (m from -1e30, d, o) over its edges in
+    order, and the groups merge by the flash rescale with their xor
+    partner at offsets 1, 2, ..., G / 2 (the kernel's lane offsets P, 2P,
+    ..., 16), group 0's state being the receiver's. Returns ``(o [N, H*C],
+    d [N, H], m [N, H])``."""
+    n, hc = wh.shape
+    heads = a_src.shape[1]
+    wh3 = wh.view(n, heads, hc // heads)
+    m = torch.full((n, groups, heads), tat.EMPTY_MAX)
+    d = torch.zeros(n, groups, heads)
+    acc = torch.zeros(n, groups, heads, hc // heads)
+    for g, live, s in _deal_edges(rowptr, senders, groups):
+        e = tat._leaky(a_src[s] + a_dst[live])
+        m_new = torch.maximum(m[live, g], e)
+        c = torch.exp(m[live, g] - m_new)
+        p = torch.exp(e - m_new)
+        d[live, g] = d[live, g] * c + p
+        acc[live, g] = acc[live, g] * c[..., None] + p[..., None] * wh3[s]
+        m[live, g] = m_new
+    for partner in _xor_offsets(groups):
+        m_new = torch.maximum(m, m[:, partner])
+        ca, cb = torch.exp(m - m_new), torch.exp(m[:, partner] - m_new)
+        d = d * ca + d[:, partner] * cb
+        acc = acc * ca[..., None] + acc[:, partner] * cb[..., None]
+        m = m_new
+    return acc[:, 0].reshape(n, hc), d[:, 0], m[:, 0]
+
+
+def grouped_gat_bwd_f(wh, a_src, a_dst, m, g_o, g_d, rowptr, senders,
+                      groups):
+    """A pure-torch emulation of the ``gat_bwd_f`` kernel's order: in-edge
+    start + g + t G of a receiver goes to group g, each group sums its dz
+    over its edges in order, and the groups meet by xor partner at offsets
+    1, 2, ..., G / 2, group 0's sum being the receiver's. Returns
+    ``d_adst [N, H]``."""
+    n, hc = wh.shape
+    heads = a_src.shape[1]
+    wh3, go3 = wh.view(n, heads, -1), g_o.view(n, heads, -1)
+    hsum = torch.zeros(n, groups, heads)
+    for g, live, s in _deal_edges(rowptr, senders, groups):
+        z = a_src[s] + a_dst[live]
+        a = torch.exp(tat._leaky(z) - m[live])
+        de = a * ((go3[live] * wh3[s]).sum(-1) + g_d[live])
+        hsum[live, g] += torch.where(z >= 0, de, tat.SLOPE * de)
+    for partner in _xor_offsets(groups):
+        hsum = hsum + hsum[:, partner]
+    assert torch.equal(hsum, hsum[:, :1].expand_as(hsum))
+    return hsum[:, 0]
+
+
+def _gat_case(n, heads, c, seed):
+    """wh [n, H, C], a_src, a_dst, g_o (scaled so q is O(1)), g_d as
+    numpy."""
+    rng = np.random.default_rng(seed)
+    wh = rng.normal(size=(n, heads, c)).astype(np.float32)
+    a_src = rng.normal(size=(n, heads)).astype(np.float32)
+    a_dst = rng.normal(size=(n, heads)).astype(np.float32)
+    g_o = (rng.normal(size=(n, heads, c)) / np.sqrt(c)).astype(np.float32)
+    g_d = rng.normal(size=(n, heads)).astype(np.float32)
+    return wh, a_src, a_dst, g_o, g_d
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("heads,c", [(8, 19), (1, 37), (4, 6)])
+def test_grouped_gat_fwd_matches_plain_and_jax(heads, c, groups):
+    """The ``gat_fwd`` kernel's order (a receiver's in-edges dealt over G
+    edge groups, each with its own online max, merged by the flash rescale
+    in the fixed xor order) equals ``gat_fwd_plain`` and the JAX
+    ``gat_fwd`` (with its max pass) in interpret mode at rtol = atol =
+    1e-5, on a graph with hub receivers, receivers with 1-3 in-edges and
+    receivers without any; m equals the plain version's and the JAX max
+    pass's bit for bit, and an empty receiver gets o = 0, d = 0 and
+    m = -1e30 exactly."""
+    n = 160
+    s, r = hub_receiver_graph(n, 23)
+    wh, a_src, a_dst, _, _ = _gat_case(n, heads, c, 24)
+    tplan = build_kernel_plan(s, r, n)
+    args = (torch.as_tensor(wh.reshape(n, -1)), torch.as_tensor(a_src),
+            torch.as_tensor(a_dst), tplan.rowptr, tplan.fwd_senders)
+    o, d, m = grouped_gat_fwd(*args, groups)
+    ref_o, ref_d, ref_m = tat.gat_fwd_plain(*args)
+    torch.testing.assert_close(o, ref_o, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d, ref_d, rtol=1e-5, atol=1e-5)
+    assert torch.equal(m, ref_m)
+    empty = torch.as_tensor(np.bincount(r, minlength=n) == 0)
+    assert empty.sum() >= 14
+    assert torch.all(o[empty] == 0) and torch.all(d[empty] == 0)
+    assert torch.all(m[empty] == tat.EMPTY_MAX)
+    assert o[:2].abs().min(dim=1).values.min() > 0        # the hubs' rows
+
+    jplan = jax_mini_plan(s, r, n)
+    f, _ = jax_gat_attention(jplan, heads, c, with_m=True)
+
+    def pad(x):
+        return jnp.zeros((jplan.n_pad,) + x.shape[1:]).at[:n].set(x)
+
+    j_o, j_d, j_m = (np.asarray(x)[:n]
+                     for x in f(pad(wh), pad(a_src), pad(a_dst)))
+    np.testing.assert_allclose(o.numpy(), j_o.reshape(n, -1), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(d.numpy(), j_d, rtol=1e-5, atol=1e-5)
+    has = ~empty.numpy()      # the JAX m of an empty receiver is -3e38
+    np.testing.assert_array_equal(m.numpy()[has], j_m[has])
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("heads,c", [(8, 19), (1, 37), (4, 6)])
+def test_grouped_gat_bwd_f_matches_plain_and_jax(heads, c, groups):
+    """The ``gat_bwd_f`` kernel's order (a receiver's in-edges dealt over G
+    edge groups, merged in the fixed xor order) equals ``gat_bwd_f_plain``
+    and the JAX ``_edge_pass(_bwd_f_kernel)`` in interpret mode at rtol =
+    atol = 1e-5 and relative L2 <= 1e-4, on a graph with hub receivers,
+    receivers with 1-3 in-edges and receivers without any, whose rows are
+    exact zeros."""
+    n = 160
+    s, r = hub_receiver_graph(n, 25)
+    wh, a_src, a_dst, g_o, g_d = _gat_case(n, heads, c, 26)
+    tplan = build_kernel_plan(s, r, n)
+    t = [torch.as_tensor(x) for x in (wh.reshape(n, -1), a_src, a_dst)]
+    m = tat.gat_fwd_plain(*t, tplan.rowptr, tplan.fwd_senders)[2]
+    args = (*t, m, torch.as_tensor(g_o.reshape(n, -1)),
+            torch.as_tensor(g_d), tplan.rowptr, tplan.fwd_senders)
+    d_adst = grouped_gat_bwd_f(*args, groups)
+    ref = tat.gat_bwd_f_plain(*args)
+    torch.testing.assert_close(d_adst, ref, rtol=1e-5, atol=1e-5)
+    assert rel_l2(d_adst.numpy(), ref.numpy()) <= 1e-4
+    empty = torch.as_tensor(np.bincount(r, minlength=n) == 0)
+    assert empty.sum() >= 14 and torch.all(d_adst[empty] == 0)
+    assert d_adst[:2].abs().min() > 0                     # the hubs' rows
+
+    jplan = jax_mini_plan(s, r, n)
+    src_pack, coeff, cp = jax_gat_backward_packing(
+        jplan.n_pad, heads, c, wh, a_src, a_dst, m.numpy(), g_o, g_d)
+    dz = np.asarray(jattn._edge_pass(
+        jattn._bwd_f_kernel, src_pack, coeff, jplan.fwd_attn, heads * cp,
+        heads=heads, cp=cp, slope=tat.SLOPE))
+    j_adst = dz.reshape(-1, cp, heads).sum(1)[:n]
+    np.testing.assert_allclose(d_adst.numpy(), j_adst, rtol=1e-5, atol=1e-5)
+    assert rel_l2(d_adst.numpy(), j_adst) <= 1e-4
