@@ -27,9 +27,14 @@ Phases, each of which raises (exit code 1) on any failed check:
    G + 1 in-edges (G edge groups per warp step), and the lane geometry of
    the GAT and of the GATv2 kernels against
    ``attention.gat_edge_geometry`` / ``edge_geometry`` at every shape they
-   take. ``gat_fwd``'s m must equal the plain version's bit for bit. Kernel, plain and library times are medians of CUDA-event timed
-   launches; each kernel's bound counts its compulsory bytes, and its
-   floor, for a gather over random endpoints, the rows it gathers per edge
+   take (``attention.accepted_shapes``, 1,792). ``gat_fwd``'s m must
+   equal the plain version's bit for bit. The six attention kernels again
+   at the ogbg-code2 widths, GAT (H8, C38) and (H1, C304), GATv2 (H8, C37)
+   and (H1, C296) (32 lanes, one edge per warp step), on a code2 batch
+   (14,256 node rows, ~9 k edges) and on the small graph. Kernel, plain
+   and library times are medians of CUDA-event timed launches; each
+   kernel's bound counts its compulsory bytes, and its floor, for a
+   gather over random endpoints, the rows it gathers per edge
    (``floor_ms``).
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
@@ -40,12 +45,29 @@ Phases, each of which raises (exit code 1) on any failed check:
    and 10 timed dropout-0.2 steps with the launch counters reset just
    before and read just after: each kernel of the path launches 3 times
    per step and every other kernel never; then a torch.profiler table of
-   two more steps (device time by kernel).
+   two more steps (device time by kernel). Then the two batched ogbg-code2
+   paths through ``train_batched`` on ``synthetic_code(900)`` at the real
+   vocabulary (5000) and attribute count (10,030), batch 128, with the
+   loader's prefetch: "code_gat" (CodeNet GAT h304 H8, 4 layers, the last
+   single-head) and "code_gatv2" (GATv2 h296 H8): one step on the card
+   against the CPU step, then 15 steps (3 epochs) with the launch counters
+   (each kernel of the path 4 times per step, every other kernel never),
+   a val pass (sequence F1), and a profiler table of two steps with the
+   window split into batch fetch, step enqueue, wait and device busy,
+   beside the build time of the window's two batches on the prefetch
+   threads. Every card-vs-CPU step gradient must agree to relative L2 1e-3;
+   on a code2 path the CPU step that agrees is one that replays the card
+   step's branch at every ReLU and leaky_relu (one ReLU that flips under
+   the card's rounding moves a code2 gradient by ~1e-3, PERF.md §6); the
+   plain CPU step's gap is printed beside it.
 
 Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
 the result line ``{"ok": true, "device": {...}}``. A kernel row's times
-and bound for the GAT and GATv2 kernels are per launch on their path: two
-launches at the first shape and one at the second per step. Without a
+and bound for the GAT and GATv2 kernels are per launch on their arxiv
+path (two launches at the first shape and one at the second per step);
+``wide`` gives times and bound at the code2 widths (a code2 batch fits in
+L2, so its gathered floor is null), ``launches_by_path`` the launches
+of each path's timed steps and ``launches`` their sum. Without a
 CUDA device, or outside the repository, it exits nonzero and prints no
 result. ``--out`` writes every measured number to a JSON file.
 """
@@ -53,8 +75,10 @@ result. ``--out`` writes every measured number to a JSON file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -70,12 +94,27 @@ GAT_SHAPES = ((8, 19), (1, 152))   # layers 0-1 and layer 2 of h152 H8
 GATV2_NET = dict(kind="gatv2", hidden=112, heads=8, lr=0.0087876393444041,
                  wd=0.001)
 GATV2_SHAPES = ((8, 14), (1, 112))  # layers 0-1 and layer 2 of h112 H8
+# ogbg-code2 (egc_tpu/exp/pretrained.py:73-74): CodeNet GAT h304 H8 and
+# GATv2 h296 H8, 4 layers, the last single-head; the real vocabulary (5000)
+# and node attributes (10,030), batch 128, Adam lr 1e-3 (CodeConfig)
+CODE_GAT_NET = dict(kind="gat", hidden=304, heads=8)
+CODE_GATV2_NET = dict(kind="gatv2", hidden=296, heads=8)
+CODE_GAT_SHAPES = ((8, 38), (1, 304))      # layers 0-2 and layer 3
+CODE_GATV2_SHAPES = ((8, 37), (1, 296))
+CODE_DATA = dict(num_layers=4, vocab_size=5000, num_nodeattributes=10030,
+                 num_graphs=900)
+CODE_HP = {"lr": 1e-3, "batch_size": 128}
+CODE_STEPS = 15   # 3 epochs of the 5 train batches of synthetic_code(900)
 PATH_KERNELS = {
     "main": ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
              "headmix_bwd"),
     "gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
     "gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
+    "code_gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
+    "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
 }
+PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
+               "code_gatv2": 4}   # launches of each path kernel per step
 # tolerances, with why:
 SUM_RTOL = SUM_ATOL = 1e-5     # f32 sums of <= ~40 terms in another order
 GRAD_REL_L2 = 1e-4             # autograd vs kernel backward; var/std
@@ -83,7 +122,17 @@ GRAD_REL_L2 = 1e-4             # autograd vs kernel backward; var/std
 STEP_LOSS_RTOL = 1e-5          # card vs CPU step: cuBLAS vs CPU matmul
 STEP_GRAD_REL_L2 = 1e-3        # card vs CPU at full size: max and ReLU
 #   selections that flip under another rounding move whole cotangents; the
-#   step prints the spread that 1e-7 input noise gives on the CPU alone
+#   step prints the spread that 1e-7 input noise gives on the CPU alone.
+#   A code2 step has ~1e7 kinks (a ReLU after each BN; a leaky_relu per
+#   edge and head, in GATv2 per edge and channel) and on a batch of ~9 k
+#   nodes one branch that flips under another rounding moves a weight
+#   gradient by ~1e-3: code_gatv2's card and CPU steps part at a few kinks
+#   (printed per layer) and its layer-2 lin_l.weight gradients by 2.9e-3
+#   (PERF.md §6).
+#   So on a code2 path the gradients are held against a CPU step that
+#   replays the card step's branch at every kink (``_same_branches``); the
+#   plain CPU step's gap is printed beside it.
+CODE_NOISE_SEEDS = (1, 2, 3, 4, 5)
 
 
 class CheckFailed(AssertionError):
@@ -633,6 +682,57 @@ def _check_gat_autograd(g, ins, heads, c, gen, label) -> float:
     return worst
 
 
+def _gat_cost(n, e, heads, f) -> dict:
+    """Per GAT kernel: (compulsory bytes, bytes gathered per edge,
+    operations) over n rows and e edges at H = ``heads``, F = H*C = f."""
+    nh = 4 * n * heads
+    ptr_idx = 4 * (n + 1 + e)
+    return {
+        "gat_fwd": (4 * 2 * n * f + 4 * nh + ptr_idx, 4 * f,       # wh[s]
+                    e * (2.0 * f + 6 * heads)),
+        "gat_bwd_t": (4 * 3 * n * f + 5 * nh + ptr_idx, 4 * f,     # g_o[r]
+                      e * (4.0 * f + 10 * heads)),
+        "gat_bwd_f": (4 * 2 * n * f + 5 * nh + ptr_idx, 4 * f,     # wh[s]
+                      e * (2.0 * f + 10 * heads)),
+    }
+
+
+def _gatv2_cost(n, e, heads, f) -> dict:
+    """``_gat_cost`` for the three GATv2 kernels."""
+    nh = 4 * n * heads
+    ptr_idx = 4 * (n + 1 + e)
+    return {
+        "gatv2_fwd": (4 * 3 * n * f + 2 * nh + ptr_idx + 4 * f,
+                      4 * f, e * (7.0 * f + 6 * heads)),           # hl[s]
+        "gatv2_bwd_t": (4 * 4 * n * f + 2 * nh + ptr_idx + 4 * f,
+                        8 * f,                            # hr[r], g_o[r]
+                        e * (10.0 * f + 4 * heads)),
+        "gatv2_bwd_f": (4 * 4 * n * f + 2 * nh + ptr_idx + 8 * f,
+                        4 * f, e * (10.0 * f + 4 * heads)),        # hl[s]
+    }
+
+
+def _shape_entries(kernel_args, cost, errs, n, e, heads, c,
+                   gathered: bool = True) -> dict:
+    """Each attention kernel at one shape over n rows and e edges: its
+    error, kernel and plain times, bound and (``gathered``: the rows exceed
+    L2) gathered floor, by name."""
+    from egc_tpu_torch.ops.cuda import attention as at
+    out = {}
+    for name, args in kernel_args.items():
+        kern, plain = getattr(at, name), getattr(at, name + "_plain")
+        nbytes, row_bytes, ops = cost[name]
+        b_ms, b_by = bound_ms(nbytes, ops)
+        out[name] = dict(
+            heads=heads, channels=c, max_abs_err=errs[name],
+            ms=time_ms(lambda: kern(*args)),
+            plain_ms=time_ms(lambda: plain(*args)),
+            bound_ms=b_ms, bound_by=b_by)
+        if gathered:
+            out[name]["floor_ms"] = floor_ms(nbytes, row_bytes, n, e, ops)
+    return out
+
+
 def kernels_gat_main_shapes(data) -> list:
     """Kernels 5-7 against their plain versions at the GAT path's shapes,
     (H8, C19) and (H1, C152); the rows report per-launch figures of the
@@ -654,26 +754,10 @@ def kernels_gat_main_shapes(data) -> list:
         worst = _check_gat_autograd(g, ins, heads, c, gen, f"H{heads} C{c}")
         log(f"[kernels] H{heads} C{c}: gat_attention and GATConv grads vs "
             f"the plain path: worst rel L2 {worst:.3e}")
-        nh = 4 * n * heads
-        ptr_idx = 4 * (n + 1 + e)
-        cost = {   # (compulsory bytes, bytes gathered per edge, operations)
-            "gat_fwd": (4 * 2 * n * f + 4 * nh + ptr_idx, 4 * f,   # wh[s]
-                        e * (2.0 * f + 6 * heads)),
-            "gat_bwd_t": (4 * 3 * n * f + 5 * nh + ptr_idx, 4 * f,  # g_o[r]
-                          e * (4.0 * f + 10 * heads)),
-            "gat_bwd_f": (4 * 2 * n * f + 5 * nh + ptr_idx, 4 * f,  # wh[s]
-                          e * (2.0 * f + 10 * heads)),
-        }
-        for name, args in kernel_args.items():
-            kern, plain = getattr(at, name), getattr(at, name + "_plain")
-            nbytes, row_bytes, ops = cost[name]
-            b_ms, b_by = bound_ms(nbytes, ops)
-            per_shape.setdefault(name, []).append(dict(
-                heads=heads, channels=c, max_abs_err=errs[name],
-                ms=time_ms(lambda: kern(*args)),
-                plain_ms=time_ms(lambda: plain(*args)),
-                bound_ms=b_ms, bound_by=b_by,
-                floor_ms=floor_ms(nbytes, row_bytes, n, e, ops)))
+        for name, entry in _shape_entries(
+                kernel_args, _gat_cost(n, e, heads, f), errs, n, e, heads,
+                c).items():
+            per_shape.setdefault(name, []).append(entry)
         del ins, kernel_args
         torch.cuda.empty_cache()
     replaces = {"gat_fwd": "egc_tpu/ops/pallas/attention.py:160",
@@ -708,8 +792,8 @@ def _small_attention_graph(dev):
     r = [rng.integers(0, n - 60, 6000)]      # and receivers n-60 .. n-51
     few = [(node, 1 + i % 3) for i, node in enumerate(range(n - 50, n - 40))]
     groups = {32 // at.edge_geometry(h, c)[0]
-              for h, c in GAT_SMALL_SHAPES + GAT_SHAPES + GATV2_SMALL_SHAPES
-              + GATV2_SHAPES}
+              for h, c in GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES
+              + GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES}
     near = sorted({k for g in groups for k in (g - 1, g + 1) if k > 0})
     check(len(near) <= 10, f"small graph: {near} needs more nodes")
     few_out = [(0, 70), (1, 100), (2, 150)] + few
@@ -743,20 +827,20 @@ def kernels_gat_small(dev) -> None:
     """Kernels 5-7 with empty receivers, senders without out-edges, hub
     senders and receivers, senders and receivers with 1-3 edges and
     receivers with G +- 1, at C = 5, 37 and 8 (H = 3 and 32 among them)
-    besides the path's shapes; and the lane geometry of the three kernels
-    as they report it against ``attention.gat_edge_geometry`` at every
-    shape they take."""
+    besides the arxiv and code2 paths' shapes; and the lane geometry of
+    the three kernels as they report it against
+    ``attention.gat_edge_geometry`` at every shape they take
+    (``attention.accepted_shapes``, 1,792)."""
     import torch
     from egc_tpu_torch.ops.cuda import attention as at
-    shapes = [(h, c) for h in range(1, at.MAX_HEADS + 1)
-              for c in range(1, at.MAX_WIDTH // h + 1)]
+    shapes = at.accepted_shapes()
     bad = [(h, c) for h, c in shapes
            if at.kernel_gat_edge_geometry(h, c) != at.gat_edge_geometry(h, c)]
     check(not bad, f"the geometry of the GAT kernels differs from "
                    f"gat_edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    for heads, c in GAT_SMALL_SHAPES + GAT_SHAPES:
+    for heads, c in GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES:
         ins = _gat_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gat_kernel_args(g.kernel_plan, ins), label, empty,
@@ -765,8 +849,9 @@ def kernels_gat_small(dev) -> None:
     torch.cuda.synchronize()
     log(f"[kernels] GAT small-size checks passed (empty receivers, senders "
         f"without out-edges, hubs, 1-3-edge senders and receivers, receivers "
-        f"of G +- 1 edges, (H, C) = {GAT_SMALL_SHAPES + GAT_SHAPES}); the "
-        f"geometry of the GAT kernels agrees at {len(shapes)} shapes")
+        f"of G +- 1 edges, (H, C) = "
+        f"{GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES}); the geometry "
+        f"of the GAT kernels agrees at {len(shapes)} shapes")
 
 
 def _gatv2_inputs(n, heads, c, gen, dev):
@@ -876,27 +961,10 @@ def kernels_gatv2_main_shapes(data) -> list:
         log(f"[kernels] {label}: gatv2_bwd_f d_att rel L2 "
             f"{errs['gatv2_bwd_f d_att rel L2']:.3e}; gatv2_attention and "
             f"GATv2Conv grads vs the plain path: worst rel L2 {worst:.3e}")
-        nh = 4 * n * heads
-        ptr_idx = 4 * (n + 1 + e)
-        cost = {   # (compulsory bytes, bytes gathered per edge, operations)
-            "gatv2_fwd": (4 * 3 * n * f + 2 * nh + ptr_idx + 4 * f,
-                          4 * f, e * (7.0 * f + 6 * heads)),       # hl[s]
-            "gatv2_bwd_t": (4 * 4 * n * f + 2 * nh + ptr_idx + 4 * f,
-                            8 * f,                        # hr[r], g_o[r]
-                            e * (10.0 * f + 4 * heads)),
-            "gatv2_bwd_f": (4 * 4 * n * f + 2 * nh + ptr_idx + 8 * f,
-                            4 * f, e * (10.0 * f + 4 * heads)),    # hl[s]
-        }
-        for name, args in kernel_args.items():
-            kern, plain = getattr(at, name), getattr(at, name + "_plain")
-            nbytes, row_bytes, ops = cost[name]
-            b_ms, b_by = bound_ms(nbytes, ops)
-            per_shape.setdefault(name, []).append(dict(
-                heads=heads, channels=c, max_abs_err=errs[name],
-                ms=time_ms(lambda: kern(*args)),
-                plain_ms=time_ms(lambda: plain(*args)),
-                bound_ms=b_ms, bound_by=b_by,
-                floor_ms=floor_ms(nbytes, row_bytes, n, e, ops)))
+        for name, entry in _shape_entries(
+                kernel_args, _gatv2_cost(n, e, heads, f), errs, n, e,
+                heads, c).items():
+            per_shape.setdefault(name, []).append(entry)
         per_shape["gatv2_bwd_f"][-1]["d_att_rel_l2"] = \
             errs["gatv2_bwd_f d_att rel L2"]
         del ins, kernel_args
@@ -942,21 +1010,20 @@ GATV2_SMALL_SHAPES = ((8, 5), (1, 37), (4, 37), (3, 37), (32, 8))
 def kernels_gatv2_small(dev) -> None:
     """The GATv2 kernels with empty receivers, senders without out-edges,
     hub senders and receivers, and senders and receivers with 1-3 edges, at
-    C = 5, 37 and 8 (H = 3 and 32 among them) besides the path's shapes;
-    and the lane geometry of ``gatv2_fwd``, ``gatv2_bwd_t`` and
-    ``gatv2_bwd_f`` as the kernels report it against the launcher's rule
-    for every shape they take."""
+    C = 5, 37 and 8 (H = 3 and 32 among them) besides the arxiv and code2
+    paths' shapes; and the lane geometry of ``gatv2_fwd``, ``gatv2_bwd_t``
+    and ``gatv2_bwd_f`` as the kernels report it against the launcher's
+    rule for every shape they take (``attention.accepted_shapes``)."""
     import torch
     from egc_tpu_torch.ops.cuda import attention as at
-    shapes = [(h, c) for h in range(1, at.MAX_HEADS + 1)
-              for c in range(1, at.MAX_WIDTH // h + 1)]
+    shapes = at.accepted_shapes()
     bad = [(h, c) for h, c in shapes
            if at.kernel_edge_geometry(h, c) != at.edge_geometry(h, c)]
     check(not bad, f"the geometry of gatv2_fwd, gatv2_bwd_t and gatv2_bwd_f "
                    f"differs from edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    for heads, c in GATV2_SMALL_SHAPES + GATV2_SHAPES:
+    for heads, c in GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES:
         ins = _gatv2_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gatv2_kernel_args(g.kernel_plan, ins), label,
@@ -965,9 +1032,69 @@ def kernels_gatv2_small(dev) -> None:
     torch.cuda.synchronize()
     log(f"[kernels] GATv2 small-size checks passed (empty receivers, senders "
         f"without out-edges, hub senders and receivers, 1-3-edge senders and "
-        f"receivers, (H, C) = {GATV2_SMALL_SHAPES + GATV2_SHAPES}); the "
+        f"receivers, (H, C) = "
+        f"{GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES}); the "
         f"geometry of gatv2_fwd, gatv2_bwd_t and gatv2_bwd_f agrees at "
         f"{len(shapes)} shapes")
+
+
+def code_batch(dev):
+    """The first train batch of the code2 paths' loader (its kernel plan
+    built on the host, as on the path): 14,256 node rows, ~9 k edges."""
+    from egc_tpu_torch.exp.batched import CodeConfig
+    cfg = CodeConfig("gat", CODE_GAT_NET["hidden"], **CODE_DATA)
+    g, _ = next(iter(cfg.data(CODE_HP, dev)["train"]))
+    check(g.kernel_plan is not None, "a CUDA batch without a kernel plan")
+    return g
+
+
+def kernels_code_shapes(g) -> dict:
+    """All six attention kernels against their plain versions at the four
+    ogbg-code2 widths, (H8, C38) and (H1, C304) for GAT, (H8, C37) and (H1,
+    C296) for GATv2 (32 lanes, one edge per warp step, K = 10), on a code2
+    batch ``g``: values, two launches bitwise, ``gat_fwd``'s m bitwise,
+    gradients through the autograd functions and the whole convs, the
+    kernels' geometry; timed. Returns the per-shape entries by kernel."""
+    import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+    plan, dev = g.kernel_plan, g.nodes.device
+    n, e = plan.num_nodes, plan.num_edges
+    gen = torch.Generator(device=dev).manual_seed(8)
+    wide = {}
+    for shapes, inputs, kargs, autograd, cost, geometry in (
+            (CODE_GAT_SHAPES, _gat_inputs, _gat_kernel_args,
+             _check_gat_autograd, _gat_cost, at.kernel_gat_edge_geometry),
+            (CODE_GATV2_SHAPES, _gatv2_inputs, _gatv2_kernel_args,
+             _check_gatv2_autograd, _gatv2_cost, at.kernel_edge_geometry)):
+        for heads, c in shapes:
+            label = f"code2 H{heads} C{c}"
+            got = geometry(heads, c)
+            check(got == at.edge_geometry(heads, c) and got[0] == 32
+                  and got[2] == 10, f"{label}: kernel geometry {got}")
+            ins = inputs(n, heads, c, gen, dev)
+            kernel_args = kargs(plan, ins)
+            errs = _gat_kernel_errs(kernel_args, label)
+            _check_repeat_bitwise(kernel_args, label)
+            worst = autograd(g, ins, heads, c, gen, label)
+            # a code2 batch's gathered rows (14,256 x <= 304 f32, 17 MB)
+            # fit in the 50 MB L2: no gathered floor, the compulsory bound
+            for name, entry in _shape_entries(
+                    kernel_args, cost(n, e, heads, heads * c), errs, n, e,
+                    heads, c, gathered=False).items():
+                if name == "gatv2_bwd_f":
+                    entry["d_att_rel_l2"] = errs["gatv2_bwd_f d_att rel L2"]
+                wide.setdefault(name, []).append(entry)
+            log(f"[kernels] {label}: held on {n} rows, {e} edges; autograd "
+                f"and conv grads vs the plain path: worst rel L2 "
+                f"{worst:.3e}")
+    for name, entries in wide.items():
+        for sh in entries:
+            log(f"[kernels] {name} code2 H{sh['heads']} C{sh['channels']}: "
+                f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}, bound "
+                f"{sh['bound_ms']:.4f} by {sh['bound_by']}), max abs err "
+                f"{sh['max_abs_err']:.3e}")
+    torch.cuda.synchronize()
+    return wide
 
 
 # ---------------------------------------------------------------------------
@@ -983,13 +1110,73 @@ def _grad_rels(model, ref_model) -> list:
     scale = max(float(q.grad.abs().max()) for q in ref.values())
     rels = []
     for name, p in model.named_parameters():
-        if name.startswith("convs.") and name.count(".") == 2 \
-                and name.endswith(".bias"):
+        if re.fullmatch(r"convs\.\d+\.bias|graph_layers\.\d+\.0\.bias",
+                        name):
             check(float(p.grad.abs().max()) <= 1e-4 * scale,
                   f"{name}: gradient is not noise-sized")
             continue
         rels.append((rel_l2(p.grad, ref[name].grad), name))
     return sorted(rels, reverse=True)
+
+
+def _step_vs_cpu(path, loss_card, model_card, loss_cpu, model_cpu,
+                 noise_models, cpu_s, same=None) -> dict:
+    """One step on the card against the same step of the port on the CPU
+    (loss and every gradient); beside it, how far the CPU step moves when
+    its inputs carry 1e-7 relative noise (``noise_models``, one per noise
+    seed; printed, not gated). Every gradient must agree within
+    ``STEP_GRAD_REL_L2``. ``same``: ``(loss, model)`` of the CPU step that
+    took the card step's branch at every kink; the gradients are then held
+    against it instead, and the plain CPU step's are printed."""
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    check(loss_rel <= STEP_LOSS_RTOL,
+          f"[{path}] step loss {loss_card} vs CPU {loss_cpu}")
+    rels = _grad_rels(model_card, model_cpu)
+    noise = [dict((name, r) for r, name in _grad_rels(m, model_cpu))
+             for m in noise_models]
+    noise_worst = max((n[name], name) for n in noise for _, name in rels)
+    over_flat = [(r, name) for r, name in rels if r > STEP_GRAD_REL_L2]
+    step_cmp = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+                "grad_rel_l2_worst": rels[0], "grad_rel_l2_median":
+                statistics.median(r for r, _ in rels),
+                "grad_rel_l2": {name: r for r, name in rels},
+                "noise_grad_rel_l2_worst": noise_worst,
+                "noise_grad_rel_l2_worst_by_seed": [
+                    max((r, name) for name, r in n.items()) for n in noise],
+                "noise_grad_rel_l2_median": statistics.median(
+                    r for n in noise for r in n.values()),
+                "flat_gate_met": not over_flat, "cpu_step_seconds": cpu_s}
+    log(f"[{path}] card vs CPU step: loss {loss_card:.7f} vs "
+        f"{loss_cpu:.7f} (rel {loss_rel:.2e}); grad rel L2 worst "
+        f"{rels[0]}, median {step_cmp['grad_rel_l2_median']:.2e}; CPU "
+        f"step with 1e-7 input noise vs CPU ({len(noise)} seeds): worst "
+        f"{noise_worst} (by seed "
+        f"{[f'{w[0]:.2e}' for w in step_cmp['noise_grad_rel_l2_worst_by_seed']]}"
+        f"), median {step_cmp['noise_grad_rel_l2_median']:.2e}; every "
+        f"gradient within {STEP_GRAD_REL_L2:.0e}: {not over_flat}; CPU step "
+        f"took {cpu_s:.1f} s")
+    for r, name in over_flat:
+        log(f"[{path}]   {name}: card vs CPU {r:.3e}; CPU noise "
+            f"{[f'{n[name]:.2e}' for n in noise]}")
+    if same is not None:
+        loss_same, model_same = same
+        same_loss_rel = abs(loss_card - loss_same) / abs(loss_same)
+        rels = _grad_rels(model_card, model_same)
+        step_cmp.update(same_branch_loss_rel=same_loss_rel,
+                        same_branch_grad_rel_l2_worst=rels[0],
+                        same_branch_grad_rel_l2={name: r for r, name in rels})
+        log(f"[{path}] card vs the CPU step on the card's branches: loss "
+            f"rel {same_loss_rel:.2e}, grad rel L2 worst {rels[0]}, median "
+            f"{statistics.median(r for r, _ in rels):.2e}")
+        check(same_loss_rel <= STEP_LOSS_RTOL,
+              f"[{path}] step loss {loss_card} vs same-branch CPU "
+              f"{loss_same}")
+    for r, name in rels:
+        check(r <= STEP_GRAD_REL_L2,
+              f"[{path}] {name}: grad rel L2 {r} vs "
+              f"{'the same-branch ' if same else ''}CPU step, beyond "
+              f"{STEP_GRAD_REL_L2}")
+    return step_cmp
 
 
 def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
@@ -1014,27 +1201,8 @@ def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
         data={**d_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))},
         **net)
     gpu = train_full_graph(raw, steps=1, dropout=0.0, data=data, **net)
-    loss_rel = abs(gpu.losses[0] - cpu.losses[0]) / abs(cpu.losses[0])
-    check(loss_rel <= STEP_LOSS_RTOL,
-          f"[{path}] step loss {gpu.losses[0]} vs CPU {cpu.losses[0]}")
-    rels = _grad_rels(gpu.model, cpu.model)
-    for r, name in rels:
-        check(r <= STEP_GRAD_REL_L2,
-              f"[{path}] {name}: grad rel L2 {r} vs CPU")
-    noise_rels = _grad_rels(pert.model, cpu.model)
-    step_cmp = {"loss_card": gpu.losses[0], "loss_cpu": cpu.losses[0],
-                "grad_rel_l2_worst": rels[0], "grad_rel_l2_median":
-                statistics.median(r for r, _ in rels),
-                "noise_grad_rel_l2_worst": noise_rels[0],
-                "noise_grad_rel_l2_median":
-                statistics.median(r for r, _ in noise_rels),
-                "cpu_step_seconds": cpu_s}
-    log(f"[{path}] card vs CPU step: loss {gpu.losses[0]:.7f} vs "
-        f"{cpu.losses[0]:.7f} (rel {loss_rel:.2e}); grad rel L2 worst "
-        f"{rels[0]}, median {step_cmp['grad_rel_l2_median']:.2e}; CPU "
-        f"step with 1e-7 input noise vs CPU: worst {noise_rels[0]}, median "
-        f"{step_cmp['noise_grad_rel_l2_median']:.2e}; CPU step took "
-        f"{cpu_s:.1f} s")
+    step_cmp = _step_vs_cpu(path, gpu.losses[0], gpu.model, cpu.losses[0],
+                            cpu.model, [pert.model], cpu_s)
     del cpu, gpu, pert
 
     # the timed path, counters reset just before and read just after: each
@@ -1046,7 +1214,8 @@ def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for name, c in counts.items():
-        want = 3 * steps if name in PATH_KERNELS[path] else 0
+        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
+            else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
     check(all(math.isfinite(x) for x in run.losses), "non-finite loss")
@@ -1088,6 +1257,251 @@ def _profile(run, data, path) -> str:
     return table
 
 
+def _code_noise_steps(cfg, hp) -> list:
+    """The code2 CPU step with 1e-7 relative noise on the embedding tables
+    (the net's inputs are token ids), once per ``CODE_NOISE_SEEDS``: the
+    step's sensitivity to rounding."""
+    import torch
+    from egc_tpu_torch.train.loop import train_step
+    batch = next(iter(cfg.data(hp, "cpu")["train"]))
+    models = []
+    for seed in CODE_NOISE_SEEDS:
+        model = cfg.model(hp, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for emb in model.embedding.children():
+                w = emb.weight
+                w.mul_(1 + 1e-7 * torch.randn(w.shape, generator=gen))
+        train_step(model, cfg.optimizer(model, hp), cfg.loss_fn, *batch)
+        models.append(model)
+    return models
+
+
+@contextlib.contextmanager
+def _same_branches(masks: list, replay: bool):
+    """The branch a code2 step takes at every kink: each conv's
+    leaky_relu on its edges and on its self term, then the ReLU after its
+    BatchNorm, layer by layer. ``replay=False`` appends each branch's mask
+    to ``masks`` (from the same f32 sums the card's kernels form);
+    ``replay=True`` makes the CPU step take them, so it evaluates the same
+    piecewise-smooth function as the card step and the two differ by
+    rounding alone."""
+    import torch
+    from egc_tpu_torch.nn import norm
+    from egc_tpu_torch.nn.conv import attention as at
+    from egc_tpu_torch.ops.cuda.attention import SLOPE
+    saved = (at._leaky, torch.relu, at.GATConv.forward,
+             at.GATv2Conv.forward, norm.MaskedBatchNorm.forward)
+    queue = iter(masks)
+
+    def take(z):
+        m = next(queue, None)
+        check(m is not None and m.shape == z.shape,
+              f"replayed branches: {None if m is None else m.shape} for "
+              f"{tuple(z.shape)}")
+        return m
+
+    def recording(forward, sums):
+        def fwd(self, g, x):
+            def project(xx):
+                out = type(self).project(self, xx)
+                s, r = g.senders.long(), g.receivers.long()
+                masks.extend((z >= 0).cpu() for z in sums(out, s, r))
+                return out
+            self.project = project
+            try:
+                return forward(self, g, x)
+            finally:
+                del self.project
+        return fwd
+
+    def bn(self, x, mask=None):
+        y = saved[4](self, x, mask)
+        masks.append((y > 0).cpu())
+        return y
+
+    if replay:
+        at._leaky = lambda z: torch.where(take(z), z, SLOPE * z)
+        torch.relu = lambda t: torch.where(take(t), t, torch.zeros_like(t))
+    else:   # GAT: a_src[s] + a_dst[r]; GATv2: hl[s] + hr[r]; then self
+        at.GATConv.forward = recording(
+            saved[2], lambda o, s, r: (o[1][s] + o[2][r], o[1] + o[2]))
+        at.GATv2Conv.forward = recording(
+            saved[3], lambda o, s, r: (o[0][s] + o[1][r], o[0] + o[1]))
+        norm.MaskedBatchNorm.forward = bn
+    try:
+        yield
+    finally:
+        (at._leaky, torch.relu, at.GATConv.forward, at.GATv2Conv.forward,
+         norm.MaskedBatchNorm.forward) = saved
+    if replay:
+        check(next(queue, None) is None, "replayed branches left over")
+
+
+def _graphs_per_step(loader, steps: int) -> list:
+    """Real graphs in each of the first ``steps`` batches of a loader's
+    epochs (the last batch of an epoch is short)."""
+    n, bs = len(loader.graphs), loader.batch_size
+    sizes = [min(bs, n - k * bs) for k in range(len(loader))]
+    return [sizes[i % len(sizes)] for i in range(steps)]
+
+
+def phase_code_path(path: str, net: dict) -> dict:
+    """One ogbg-code2 path ("code_gat": CodeNet GAT h304 H8, "code_gatv2":
+    GATv2 h296 H8; 4 layers, vocab 5000, 10,030 attributes, batch 128)
+    through ``train_batched`` on ``synthetic_code(900)`` with the loader's
+    prefetch: one step on the card against the CPU step that takes the
+    card's branch at every kink (and, printed, the plain CPU step), then
+    ``CODE_STEPS`` steps with the launch counters (each kernel of the
+    path 4 per step, every other kernel never), a val pass (sequence F1),
+    and a profiler table of two steps split into the host's batch fetch,
+    its step enqueue, its wait on the card, and the card's busy time."""
+    import torch
+    from egc_tpu_torch.exp.batched import CodeConfig, evaluate, train_batched
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = CodeConfig(net["kind"], net["hidden"], heads=net["heads"],
+                     **CODE_DATA)
+    t0 = time.perf_counter()
+    cpu_branches, branches = [], []
+    with _same_branches(cpu_branches, replay=False):
+        cpu = train_batched(cfg, CODE_HP, steps=1, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    pert = _code_noise_steps(cfg, CODE_HP)
+    with _same_branches(branches, replay=False):
+        gpu = train_batched(cfg, CODE_HP, steps=1)
+    with _same_branches(branches, replay=True):
+        same = train_batched(cfg, CODE_HP, steps=1, device="cpu")
+    # where the card step and the CPU step part: kinks per layer as (edge
+    # leaky_relu, self leaky_relu, ReLU after the BN)
+    flips = [int((a != b).sum()) for a, b in zip(branches, cpu_branches)]
+    flips = [flips[i:i + 3] for i in range(0, len(flips), 3)]
+    log(f"[{path}] kinks where the card step and the CPU step take other "
+        f"branches, per layer (edge leaky_relu, self leaky_relu, ReLU; "
+        f"padding rows included): "
+        f"{flips} of {[int(m.numel()) for m in branches[:3]]}")
+    step_cmp = _step_vs_cpu(path, gpu.step_losses[0], gpu.model,
+                            cpu.step_losses[0], cpu.model, pert, cpu_s,
+                            same=(same.step_losses[0], same.model))
+    step_cmp["branches_apart_per_layer"] = flips
+    del cpu, gpu, pert, same, branches, cpu_branches
+
+    steps = CODE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run = train_batched(cfg, CODE_HP, steps=steps)
+    counts = launch_counts()
+    data = run.data
+    peak = torch.cuda.max_memory_allocated()
+    for name, c in counts.items():
+        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
+            else 0
+        check(c == want, f"[{path}] {name} launched {c} times in {steps} "
+                         f"steps, expected {want}")
+    check(all(math.isfinite(x) for x in run.step_losses), "non-finite loss")
+    val = evaluate(cfg, run.model, data["val"], "val")["val_metric"]
+    check(0.0 <= val <= 1.0, f"[{path}] val F1 {val}")
+    # the step time is the whole timed window over its steps (CUDA events
+    # at the step boundaries, no host synchronise in the loop), with and
+    # without the steps that open an epoch (a new prefetch pool whose first
+    # batch the step waits for, and the last epoch's losses read): an
+    # epoch of synthetic_code(900) is 5 batches, of ogbg-code2 ~3,200
+    epoch = len(data["train"])
+    check(steps % epoch == 0 and steps - STEPS_WARMUP >= epoch,
+          f"{steps} steps: not whole epochs, or under one timed")
+    graphs = _graphs_per_step(data["train"], steps)
+    timed = list(range(STEPS_WARMUP, steps))
+    inner = [i for i in timed if i % epoch]
+
+    def window(idx):
+        sec = [run.step_seconds[i] for i in idx]
+        return {"steps": len(idx), "mean_s": sum(sec) / len(sec),
+                "median_s": statistics.median(sec),
+                "graphs_per_s": sum(graphs[i] for i in idx) / sum(sec)}
+
+    whole, mid = window(timed), window(inner)
+    step_s = whole["mean_s"]
+    res = {"net": net, "steps": steps, "epoch_batches": epoch,
+           "step_seconds_mean": step_s,
+           "step_seconds_median": whole["median_s"],
+           "step_seconds": run.step_seconds[STEPS_WARMUP:],
+           "graphs_per_s": whole["graphs_per_s"],
+           "without_epoch_starts": mid,
+           "budget": data["train"].budget, "peak_memory_bytes": peak,
+           "build_seconds_per_batch": data["train"].build_seconds / steps,
+           "launches": counts, "losses": run.step_losses, "val_f1": val,
+           "step_vs_cpu": step_cmp}
+    sec = res["step_seconds"]
+    log(f"[{path}] {steps} steps: losses "
+        f"{[round(x, 4) for x in run.step_losses]}; val F1 {val:.4f}")
+    log(f"[{path}] step {step_s * 1e3:.3f} ms (whole window over "
+        f"{len(timed)} steps after {STEPS_WARMUP} warm-up, epochs of "
+        f"{epoch} batches; median {whole['median_s'] * 1e3:.3f}, min "
+        f"{min(sec) * 1e3:.3f}, max {max(sec) * 1e3:.3f}), "
+        f"{whole['graphs_per_s']:.1f} graphs/s; without the "
+        f"{len(timed) - len(inner)} epoch starts: mean "
+        f"{mid['mean_s'] * 1e3:.3f} ms, median {mid['median_s'] * 1e3:.3f}"
+        f", {mid['graphs_per_s']:.1f} graphs/s; budget "
+        f"{data['train'].budget}, peak memory {peak / 2**30:.3f} GiB, batch "
+        f"and plan build {res['build_seconds_per_batch'] * 1e3:.3f} ms a "
+        f"batch on the prefetch threads, launches {counts}")
+    res["profile"], res["split"] = _profile_code(run, cfg, data, path)
+    return res
+
+
+def _profile_code(run, cfg, data, path):
+    """A torch.profiler table of two code2 steps in the middle of an epoch
+    (the loader's prefetch running), and the window split into the host's
+    batch fetch (``egc.batch``: waiting for the prefetched batch
+    and enqueueing its copy), its step enqueue (``egc.step``), the rest
+    (the wait for the card at the losses' read), and the card's busy time
+    (kernels and copies); per step. Beside it, the build time of the
+    window's two batches on the prefetch threads (``host_build_s``; the
+    loader counts a batch's build when it yields it), which overlaps the
+    steps before."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from egc_tpu_torch.train.loop import train_epoch
+    loader = data["train"]
+    batches = iter(loader)   # one step first: the prefetch threads run
+    train_epoch(run.model, run.optimizer, cfg.loss_fn, batches, steps=1)
+    torch.cuda.synchronize()
+    built0 = loader.build_seconds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_epoch(run.model, run.optimizer, cfg.loss_fn, batches, steps=2)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    averages = prof.key_averages()
+    host = {"egc.batch": 0.0, "egc.step": 0.0}
+    busy = 0.0
+    for evt in averages:
+        if evt.device_type == DeviceType.CPU and evt.key in host:
+            host[evt.key] += evt.cpu_time_total / 1e6
+        elif evt.device_type == DeviceType.CUDA and evt.key not in host \
+                and not getattr(evt, "is_user_annotation", False):
+            busy += (getattr(evt, "self_device_time_total", None)
+                     or getattr(evt, "self_cuda_time_total", 0.0)) / 1e6
+    split = {"window_s": window / 2, "batch_s": host["egc.batch"] / 2,
+             "step_enqueue_s": host["egc.step"] / 2,
+             "wait_s": (window - sum(host.values())) / 2,
+             "device_busy_s": busy / 2, "idle_share": 1 - busy / window,
+             "host_build_s": (loader.build_seconds - built0) / 2}
+    table = averages.table(sort_by="cuda_time_total", row_limit=25)
+    log(f"[profile] {path}, two steps:\n" + table)
+    log(f"[profile] {path} per step (under the profiler): window "
+        f"{split['window_s'] * 1e3:.3f} ms = batch fetch "
+        f"{split['batch_s'] * 1e3:.3f} + step enqueue "
+        f"{split['step_enqueue_s'] * 1e3:.3f} + wait "
+        f"{split['wait_s'] * 1e3:.3f}; device busy "
+        f"{split['device_busy_s'] * 1e3:.3f} ms (idle share "
+        f"{split['idle_share']:.3f}); batch and plan builds on the "
+        f"prefetch threads {split['host_build_s'] * 1e3:.3f} ms")
+    return table, split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
@@ -1122,15 +1536,27 @@ def main(argv=None) -> int:
     results["segment_gather_reduce"] = check_segment_gather_reduce(data)
     rows += kernels_gat_main_shapes(data)
     rows += kernels_gatv2_main_shapes(data)
+    wide = kernels_code_shapes(code_batch(data["device"]))
+    for row in rows:
+        if row["name"] in wide:
+            row["wide"] = wide[row["name"]]
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                sh["max_abs_err"] for sh in row["wide"]])
     kernels_small(data["device"])
     kernels_gat_small(data["device"])
     kernels_gatv2_small(data["device"])
     d_cpu = full_graph_to_device_dict(raw, "cpu")
     for path, net in (("main", {}), ("gat", GAT_NET), ("gatv2", GATV2_NET)):
         results[path] = phase_path(path, raw, data, d_cpu, net)
-        for row in rows:
-            if row["name"] in PATH_KERNELS[path]:
-                row["launches"] = results[path]["launches"][row["name"]]
+    del data, d_cpu
+    for path, net in (("code_gat", CODE_GAT_NET),
+                      ("code_gatv2", CODE_GATV2_NET)):
+        results[path] = phase_code_path(path, net)
+    for row in rows:   # each path's timed steps, counted on their own
+        row["launches_by_path"] = {
+            path: results[path]["launches"][row["name"]]
+            for path in PATH_KERNELS if row["name"] in PATH_KERNELS[path]}
+        row["launches"] = sum(row["launches_by_path"].values())
     check({r["name"] for r in rows} == set(launch_counts()),
           f"kernel rows {[r['name'] for r in rows]} vs counters "
           f"{sorted(launch_counts())}")
@@ -1141,9 +1567,14 @@ def main(argv=None) -> int:
             json.dump(results, fh, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
-            "library_ms")
+            "library_ms", "launches_by_path")
+    wide_keys = ("heads", "channels", "ms", "bound_ms", "floor_ms")
     log(f"[done] {results['seconds']:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **({"wide": [{k: sh.get(k) for k in wide_keys}   # floor: null
+                      for sh in r["wide"]]}
+            if "wide" in r else {})} for r in rows]}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))

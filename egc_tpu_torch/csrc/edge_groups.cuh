@@ -7,7 +7,10 @@
 // aligned power-of-two run inside the group); each lane holds K
 // consecutive channels of its head (K <= kMaxChans, even when C is, so
 // float2 loads never split a lane's run). LH is the least that keeps K <=
-// kMaxChans; with H <= 32 and H*C <= 256 that always gives P <= 32.
+// kMaxChans. The kernels take (H, C) if and only if 1 <= H <= kMaxHeads and
+// P <= 32 (shape_ok): a group fits in a warp. That reaches H*C = 512 (32
+// lanes of 16 channels); at P = 32 a warp walks one edge per step (G = 1),
+// and the group merges below run no step.
 #pragma once
 
 #include "warp_rows.cuh"
@@ -28,6 +31,13 @@ inline EdgeGroups edge_groups(int H, int C) {
   int k = (C + lh - 1) / lh;
   if (C % 2 == 0 && k % 2 == 1) ++k;
   return EdgeGroups{hp * lh, lh, k};
+}
+
+// The one shape rule of the attention kernels (and of shape_ok in
+// egc_tpu_torch/ops/cuda/attention.py).
+inline bool shape_ok(int heads, int channels) {
+  return heads >= 1 && heads <= kMaxHeads && channels >= 1 &&
+         edge_groups(heads, channels).P <= 32;
 }
 
 // What a lane holds: lane j = lane % P of group grp = lane / P holds the nk

@@ -41,7 +41,10 @@
 // holds K consecutive channels of one head (float2 loads when C is even),
 // heads padded to a power of two and given LH lanes each. P = 16, G = 2,
 // K = 10 at both arxiv shapes: two lanes per head (scalar loads) at (H8,
-// C19), sixteen (float2) at (H1, C152).
+// C19), sixteen (float2) at (H1, C152). P = 32, G = 1, K = 10 at the
+// ogbg-code2 widths: four lanes per head (float2) at (H8, C38), all 32 at
+// (H1, C304). Any shape whose group fits a warp is taken (shape_ok): up to
+// 32 heads and H*C = 512.
 // - Every lane forms its own head's softmax weight from the per-head
 //   scalars it gathers with the row, and q (gat_bwd_t, gat_bwd_f) is the
 //   lane's K-term dot finished by log2(LH) xor-shuffles inside the head's
@@ -375,7 +378,9 @@ int gat_edge_geometry(int heads, int channels, int* out) {
 }
 
 // wh, o: [n_rows, heads*channels]; a_src, a_dst, d, m: [n_rows, heads];
-// heads <= 32 and heads*channels <= 256 (checked by the caller).
+// (heads, channels) as shape_ok takes them (checked by the caller): heads
+// <= 32 and an edge group of at most 32 lanes, which reaches
+// heads*channels = 512.
 int gat_fwd(const float* wh, const float* a_src, const float* a_dst,
             const int* rowptr, const int* senders, int n_rows, int heads,
             int channels, float slope, float* o, float* d, float* m,

@@ -48,7 +48,11 @@
 // time, and each lane holds K consecutive channels of one head (float2
 // loads when C is even), heads padded to a power of two and given LH lanes
 // each. P = 8, K = 14 at both arxiv shapes: one lane per head at (H8, C14),
-// eight at (H1, C112).
+// eight at (H1, C112). P = 32 (one edge per warp step), K = 10 at the
+// ogbg-code2 widths: four lanes per head at (H8, C37) (scalar loads, C
+// odd), all 32 at (H1, C296), where lanes 30 and 31 hold no channel but
+// join every shuffle. Any shape whose group fits a warp is taken
+// (shape_ok): up to 32 heads and H*C = 512.
 // - A head's per-edge sums (e, and q in the backward) are the lane's own
 //   K-term sums, finished by log2(LH) xor-shuffles inside the head's
 //   aligned run: no scan, no shared memory and no barrier in the edge
@@ -86,7 +90,6 @@
 namespace {
 
 constexpr int kMaxAttBlocks = 1024;  // gatv2_bwd_f: rows of d_att partials
-constexpr int kMaxWidth = 32 * 8;    // H*C, as shape_ok allows
 
 // gatv2_fwd: the row is a receiver r, the walk over its in-edges (CSR).
 // Group g takes edges start + g, start + g + G, ... and keeps its own
@@ -235,7 +238,10 @@ gatv2_bwd_t_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
 // [k][warp][lane] so a warp's accesses take 32 banks) until every row is
 // done. Kept in registers, d_att took the kernel to 150 registers and one
 // block per SM; this way it fits 128 registers, two blocks per SM, without
-// a spill.
+// a spill. At the end each warp's d_att row goes to s_att: a row of F
+// floats, and F <= 32 * KT since a group's at most 32 lanes hold at most
+// KT channels each, so s_att is sized by the instantiation (8 KiB at KT = 8,
+// 14 KiB at KT = 14, 16 KiB at KT = 16) rather than by the widest shape.
 template <int KT, int V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 2)
 gatv2_bwd_f_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
@@ -246,7 +252,7 @@ gatv2_bwd_f_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
                    const int* __restrict__ senders, int n_rows, int heads,
                    int channels, float slope, int P, int LH, int K,
                    float* __restrict__ d_hr, float* __restrict__ d_att_part) {
-  __shared__ float s_att[kWarpsPerBlock * kMaxWidth];  // [warp][F]
+  __shared__ float s_att[kWarpsPerBlock * 32 * KT];    // [warp][F]
   __shared__ float s_datt[KT * kWarpsPerBlock * 32];   // [k][warp][lane]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -413,8 +419,9 @@ int gatv2_edge_geometry(int heads, int channels, int* out) {
 }
 
 // hl, hr, o: [n_rows, heads*channels]; att: [heads*channels]; d, m:
-// [n_rows, heads]; heads <= 32 and heads*channels <= 256 (checked by the
-// caller).
+// [n_rows, heads]; (heads, channels) as shape_ok takes them (checked by the
+// caller): heads <= 32 and an edge group of at most 32 lanes, which reaches
+// heads*channels = 512.
 int gatv2_fwd(const float* hl, const float* hr, const float* att,
               const int* rowptr, const int* senders, int n_rows, int heads,
               int channels, float slope, float* o, float* d, float* m,

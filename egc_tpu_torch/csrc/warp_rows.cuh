@@ -1,6 +1,7 @@
 // Constants and helpers shared by the attention kernels (gat_attention.cu,
 // gatv2_attention.cu): blocks of kWarpsPerBlock warps, one warp per row of
-// a CSR or CSC, at most kMaxHeads heads and 256 floats per row.
+// a CSR or CSC, at most kMaxHeads heads. The shapes they take are those
+// whose edge-group geometry fits a warp (shape_ok, edge_groups.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,11 +19,6 @@ __device__ __forceinline__ float leaky(float z, float slope) {
 
 inline unsigned blocks_for(int n_rows) {
   return (unsigned)((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
-inline bool shape_ok(int heads, int channels) {
-  return heads >= 1 && heads <= kMaxHeads && channels >= 1 &&
-         heads * channels <= 32 * 8;
 }
 
 }  // namespace

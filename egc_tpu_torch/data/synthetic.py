@@ -1,9 +1,12 @@
-"""Synthetic full graph (counterpart of ``egc_tpu.data.synthetic``).
+"""Synthetic datasets (counterpart of ``egc_tpu.data.synthetic``).
 
-A copy of ``synthetic_full_graph`` in numpy: the same seed gives arrays
-equal to the JAX package's, so both packages train on the same graph.
+Copies, in numpy, of ``synthetic_full_graph`` and ``synthetic_code`` (with
+its ``_split``): the same seed gives arrays equal to the JAX package's, so
+both packages train on the same data.
 ``synthetic_full_graph(num_nodes=169_343, avg_degree=14, seed=0)`` is the
-ogbn-arxiv-shaped graph of the main path (2,368,458 directed edges).
+ogbn-arxiv-shaped graph of the full-graph paths (2,368,458 directed
+edges); ``synthetic_code(vocab_size=5000, num_attrs=10030)`` has
+ogbg-code2's vocabulary and attribute count.
 """
 
 from __future__ import annotations
@@ -54,3 +57,45 @@ def _same_class_partner(rng, labels, src, num_classes):
     span = np.maximum(ends[c] - starts[c], 1)
     pick = starts[c] + (rng.random(len(src)) * span).astype(np.int64)
     return order[np.minimum(pick, len(order) - 1)]
+
+
+def synthetic_code(num_graphs=900, seed=0, vocab_size=120, seq_len=5,
+                   num_types=98, num_attrs=500, max_depth=20):
+    """ogbg-code2 stand-in: random ASTs of 20-119 nodes (child -> parent
+    edges), nodes ``[N, 3]`` int32 (type, attribute, depth clamped to
+    ``max_depth``), and a 5-token target ``y`` learnable from the type
+    histogram; split 70/15/15 in order."""
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(21).normal(size=(num_types, vocab_size + 2))
+    graphs = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(20, 120))
+        # random tree: parent[i] < i
+        parents = np.array([rng.integers(0, max(i, 1)) for i in range(1, n)],
+                           dtype=np.int32)
+        s = np.arange(1, n, dtype=np.int32)      # child -> parent AST edges
+        r = parents
+        depth = np.zeros(n, np.int32)
+        for i in range(1, n):
+            depth[i] = depth[parents[i - 1]] + 1
+        types = rng.integers(0, num_types, n).astype(np.int32)
+        attrs = rng.integers(0, num_attrs, n).astype(np.int32)
+        hist = np.bincount(types, minlength=num_types).astype(np.float64)
+        tokens = np.argsort(-(hist @ w))[:seq_len].astype(np.int32)
+        graphs.append({
+            "nodes": np.stack([types, attrs, np.minimum(depth, max_depth)],
+                              1),
+            "senders": s, "receivers": r,
+            "y": tokens,
+        })
+    return _split(graphs)
+
+
+def _split(graphs, frac_train=0.7, frac_val=0.15):
+    n = len(graphs)
+    n_tr, n_va = int(n * frac_train), int(n * frac_val)
+    return {
+        "train": graphs[:n_tr],
+        "val": graphs[n_tr:n_tr + n_va],
+        "test": graphs[n_tr + n_va:],
+    }

@@ -10,7 +10,7 @@ all, the kernel plan included.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,12 +53,22 @@ class Graph:
     def replace(self, **changes) -> "Graph":
         return dataclasses.replace(self, **changes)
 
-    def to(self, device) -> "Graph":
+    def to(self, device, non_blocking: bool = False) -> "Graph":
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            moved[f.name] = None if v is None else v.to(device)
+            moved[f.name] = None if v is None else v.to(
+                device, non_blocking=non_blocking)
         return Graph(**moved)
+
+    def pin_memory(self) -> "Graph":
+        """Every tensor (the kernel plan's too) in page-locked host memory,
+        so that ``to(cuda, non_blocking=True)`` copies without a stall."""
+        pinned = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            pinned[f.name] = None if v is None else v.pin_memory()
+        return Graph(**pinned)
 
     @staticmethod
     def from_coo(nodes, senders, receivers, *, edges=None, edge_weight=None,
@@ -118,3 +128,51 @@ def pad_graph(g: Graph, *, num_nodes: int, num_edges: int,
         self_weight=pad_rows(g.self_weight, dn),
         kernel_plan=g.kernel_plan,
     )
+
+
+def batch_np(graphs: Sequence[dict], *, num_nodes: int, num_edges: int,
+             num_graphs: int) -> Tuple[Graph, Optional[np.ndarray]]:
+    """Concatenate host graph dicts (``nodes``, ``senders``, ``receivers``
+    and optionally ``edges`` and ``y``, numpy arrays) into one padded
+    batch, as ``egc_tpu.graph.structure.batch_np`` does: graph i's
+    endpoints shift by the nodes before it, padding nodes and edges go to
+    the last (padding) graph and node. Returns ``(Graph, ys)``: ``ys`` is
+    the ``[num_graphs, ...]`` zero-padded numpy labels (or None).
+
+    ``num_graphs`` must exceed ``len(graphs)`` (one padding graph slot),
+    and ``num_nodes`` the total node count whenever padding edges are
+    needed."""
+    if len(graphs) >= num_graphs:
+        raise ValueError("need at least one padding graph slot")
+    nodes, senders, receivers, edges, gids, ys = [], [], [], [], [], []
+    offset = 0
+    for i, gd in enumerate(graphs):
+        nd = np.asarray(gd["nodes"])
+        nodes.append(nd)
+        senders.append(np.asarray(gd["senders"], dtype=np.int32) + offset)
+        receivers.append(np.asarray(gd["receivers"], dtype=np.int32) + offset)
+        if gd.get("edges") is not None:
+            edges.append(np.asarray(gd["edges"]))
+        gids.append(np.full((nd.shape[0],), i, dtype=np.int32))
+        if gd.get("y") is not None:
+            ys.append(np.asarray(gd["y"]))
+        offset += nd.shape[0]
+    s = np.concatenate(senders).astype(np.int32)
+    g = Graph(
+        nodes=torch.from_numpy(np.concatenate(nodes, axis=0)),
+        senders=torch.from_numpy(s),
+        receivers=torch.from_numpy(np.concatenate(receivers).astype(np.int32)),
+        node_mask=torch.ones(offset, dtype=torch.bool),
+        edge_mask=torch.ones(len(s), dtype=torch.bool),
+        graph_ids=torch.from_numpy(np.concatenate(gids)),
+        graph_mask=torch.ones(len(graphs), dtype=torch.bool),
+        edges=torch.from_numpy(np.concatenate(edges, axis=0))
+        if edges else None)
+    g = pad_graph(g, num_nodes=num_nodes, num_edges=num_edges,
+                  num_graphs=num_graphs)
+    y_out = None
+    if ys:
+        y_arr = np.stack(ys, axis=0)
+        y_out = np.pad(y_arr, [(0, num_graphs - y_arr.shape[0])]
+                       + [(0, 0)] * (y_arr.ndim - 1))
+    return g, y_out

@@ -1,7 +1,8 @@
 """Task networks (counterpart of ``egc_tpu.models.nets``).
 
-``ArxivNet`` is ported with the EGC, GAT and GATv2 convs; ``ConvSpec``
-names every kind the JAX package has, and the kinds not ported yet raise.
+``ArxivNet`` (full graph) and ``CodeNet`` (batched ogbg-code2) are ported
+with the EGC, GAT and GATv2 convs; ``ConvSpec`` names every kind the JAX
+package has, and the kinds not ported yet raise.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ from torch import nn
 from egc_tpu_torch.nn import init as einit
 from egc_tpu_torch.nn.conv.attention import GATConv, GATv2Conv
 from egc_tpu_torch.nn.conv.egc import EGConv
+from egc_tpu_torch.models.encoders import ASTNodeEncoder
 from egc_tpu_torch.nn.norm import MaskedBatchNorm
+from egc_tpu_torch.nn.pool import global_mean_pool
+
+SEQ_LEN = 5    # CodeNet's token positions (reference code/models.py:95-98)
 
 MODEL_KINDS = ("gcn", "gat", "gatv2", "gin", "mpnn-sum", "mpnn-max", "pna",
                "sage", "egc")
@@ -123,3 +128,43 @@ class ArxivNet(nn.Module):
             x = x + identity
         x = self.out(x)
         return torch.log_softmax(x, dim=-1) if self.log_probs else x
+
+
+class CodeNet(nn.Module):
+    """ogbg-code2: ASTNodeEncoder -> L x [conv, masked BN, ReLU, +residual]
+    -> mean pool -> 5 token heads; returns ``[G, 5, vocab_size + 2]``
+    logits (``egc_tpu.models.nets.CodeNet`` as every config of the JAX
+    package builds it: no input dropout, residual, mean readout; reference
+    ``experiments/code/models.py:48-125``, whose per-position list is
+    stacked here).
+
+    Submodules carry the reference's names: ``embedding.{type,attribute,
+    depth}_encoder``, ``graph_layers.{i}.0`` (the conv) and
+    ``graph_layers.{i}.1`` (the BN), ``token_predictors.{s}``.
+    """
+
+    def __init__(self, conv: ConvSpec, hidden_dim: int, *,
+                 num_layers: int = 4, vocab_size: int = 5000,
+                 num_nodeattributes: int = 10030,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.embedding = ASTNodeEncoder(
+            hidden_dim, num_nodeattributes=num_nodeattributes,
+            generator=generator, device=device)
+        self.graph_layers = nn.ModuleList(
+            nn.ModuleList([conv.build(hidden_dim, hidden_dim, layer_idx=i,
+                                      num_layers=num_layers,
+                                      generator=generator, device=device),
+                           MaskedBatchNorm(hidden_dim, device=device)])
+            for i in range(num_layers))
+        self.token_predictors = nn.ModuleList(
+            _linear(hidden_dim, vocab_size + 2, generator, device)
+            for _ in range(SEQ_LEN))
+
+    def forward(self, g) -> torch.Tensor:
+        x = self.embedding(g.nodes[:, :2], g.nodes[:, 2])   # (type, attr)
+        for conv, bn in self.graph_layers:
+            x = torch.relu(bn(conv(g, x), g.node_mask)) + x
+        pooled = global_mean_pool(x, g.graph_ids, g.num_graphs, g.node_mask)
+        return torch.stack([head(pooled) for head in self.token_predictors],
+                           dim=1)

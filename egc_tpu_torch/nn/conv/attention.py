@@ -18,12 +18,13 @@ Dispatch follows the device, as in ``ops.dispatch.conv_aggregate``:
   (``merge_self``);
 - a CUDA tensor without a plan raises.
 
-Attention dropout is not ported: no configuration of the full-graph path
-sets it. Parameters carry the reference's names: GAT ``lin_src`` (Linear
-without bias, H*C outputs), ``att_src`` and ``att_dst`` of shape
-[1, H, C], and ``bias``; GATv2 ``lin_l`` and ``lin_r`` (Linear with bias,
-H*C outputs; one module when ``share_weights``), ``att`` [1, H, C] and
-``bias``.
+Attention dropout is not ported: no configuration of the JAX package sets
+``gat_dropout`` (``egc_tpu/models/nets.py:51``), which keeps its default of
+0.0 on the full-graph and the batched paths alike. Parameters carry the
+reference's names: GAT ``lin_src`` (Linear without bias, H*C outputs),
+``att_src`` and ``att_dst`` of shape [1, H, C], and ``bias``; GATv2
+``lin_l`` and ``lin_r`` (Linear with bias, H*C outputs; one module when
+``share_weights``), ``att`` [1, H, C] and ``bias``.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@
 - PyG ``glorot`` per basis (reference ``experiments/layers.py:82-87``):
   U(+-sqrt(6/(fan_in + L))) for each [fan_in, L] basis matrix.
 - PyG ``glorot`` (``glorot_uniform_``): U(+-sqrt(6/(a + b))) over the last
-  two axes (a, b) of the tensor (the GAT projection and attention vectors).
+  two axes (a, b) of the tensor (the GAT projection and attention vectors,
+  the atom embeddings).
+- ``torch.nn.Embedding`` (``normal_embedding_``): N(0, 1).
 """
 
 from __future__ import annotations
@@ -45,3 +47,11 @@ def glorot_uniform_(t: torch.Tensor, generator: torch.Generator):
     same one)."""
     return uniform_(t, math.sqrt(6.0 / (t.shape[-2] + t.shape[-1])),
                     generator)
+
+
+@torch.no_grad()
+def normal_embedding_(t: torch.Tensor, generator: torch.Generator):
+    """Fill ``t`` with N(0, 1) (``torch.nn.Embedding``'s default), drawn on
+    the CPU generator and copied, as ``uniform_`` is."""
+    t.copy_(torch.randn(t.shape, generator=generator, dtype=torch.float32))
+    return t

@@ -114,8 +114,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def ptxas_summary(report: str) -> List[str]:
-    """One line per kernel of a ``ptxas -v`` report: its name, registers
-    and spill bytes."""
+    """One line per kernel of a ``ptxas -v`` report: its name, registers,
+    spill bytes and static shared memory."""
     out, name, spill = [], None, ""
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -126,7 +126,9 @@ def ptxas_summary(report: str) -> List[str]:
         else:
             regs = re.search(r"Used (\d+) registers", line)
             if regs and name is not None:
-                out.append(f"{name}: {regs.group(1)} registers, {spill}")
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.append(f"{name}: {regs.group(1)} registers, {spill}, "
+                           f"{smem.group(1) if smem else 0} bytes smem")
                 name, spill = None, ""
     return out
 

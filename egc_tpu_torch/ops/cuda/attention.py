@@ -42,14 +42,18 @@ The boundary keeps the JAX package's layout, heads x channels: wh, hl and
 hr are ``[N, H, C]`` (the kernels see them as ``[N, H*C]``), att is
 ``[H, C]``, per-head scalars are ``[N, H]``. A CPU tensor runs the plain
 version; a CUDA tensor launches the kernel in ``csrc/gat_attention.cu`` or
-``csrc/gatv2_attention.cu`` or raises. The kernels take H <= 32 and
-H*C <= 256. ``launches`` counts kernel launches.
+``csrc/gatv2_attention.cu`` or raises. The kernels take (H, C) if and only
+if 1 <= H <= 32 and the edge group of ``edge_geometry(H, C)`` fits a warp
+(P <= 32): ``shape_ok``, the rule of ``csrc/edge_groups.cuh``. That reaches
+H*C = 512 (32 lanes of at most 16 channels), the ogbg-code2 widths (H8,
+C38), (H1, C304), (H8, C37) and (H1, C296) among them; a shape past it
+raises with the rule in the message. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -59,8 +63,10 @@ from egc_tpu_torch.ops.cuda.gather_reduce import _row_ids
 SLOPE = 0.2
 EMPTY_MAX = -1e30      # m of a receiver without in-edges
 MAX_HEADS = 32         # kMaxHeads in csrc/warp_rows.cuh
-MAX_WIDTH = 256        # H*C, as shape_ok in csrc/warp_rows.cuh allows
 MAX_CHANS = 16         # kMaxChans in csrc/edge_groups.cuh
+MAX_WIDTH = 32 * MAX_CHANS   # the widest row (H*C) of any accepted shape
+SHAPE_RULE = (f"1 <= H <= {MAX_HEADS} heads and an edge group of at most 32 "
+              f"lanes (edge_geometry(H, C)[0] <= 32, so H*C <= {MAX_WIDTH})")
 
 launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0,
                             "gatv2_fwd": 0, "gatv2_bwd_t": 0,
@@ -138,10 +144,9 @@ def _check(wh, heads_arrays, ptr, idx, heads=None):
     n, hc = wh.shape
     if heads is None:
         heads = heads_arrays[0][1].shape[1]
-    if not 1 <= heads <= MAX_HEADS or hc % heads or hc > MAX_WIDTH:
-        raise ValueError(f"the GAT kernels take 1 <= H <= {MAX_HEADS} heads "
-                         f"and H*C <= {MAX_WIDTH}; got H={heads}, "
-                         f"H*C={hc}")
+    if heads < 1 or hc % heads or not shape_ok(heads, hc // heads):
+        raise ValueError(f"the attention kernels take {SHAPE_RULE}; got "
+                         f"H={heads}, H*C={hc}")
     _build.check_tensor("wh", wh, torch.float32, dev)
     for name, t in heads_arrays:
         _build.check_tensor(name, t, torch.float32, dev, (n, heads))
@@ -366,6 +371,21 @@ def edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:
     if channels % 2 == 0 and k % 2:
         k += 1
     return hp * lh, lh, k
+
+
+def shape_ok(heads: int, channels: int) -> bool:
+    """The one shape rule of the six attention kernels (``shape_ok`` in
+    ``csrc/edge_groups.cuh``): 1 <= H <= ``MAX_HEADS`` and an edge group of
+    at most 32 lanes."""
+    return (1 <= heads <= MAX_HEADS and channels >= 1
+            and edge_geometry(heads, channels)[0] <= 32)
+
+
+def accepted_shapes() -> List[Tuple[int, int]]:
+    """Every (H, C) that ``shape_ok`` takes, by H then C (1,792 shapes; an
+    accepted shape has H*C <= ``MAX_WIDTH``)."""
+    return [(h, c) for h in range(1, MAX_HEADS + 1)
+            for c in range(1, MAX_WIDTH // h + 1) if shape_ok(h, c)]
 
 
 def gat_edge_geometry(heads: int, channels: int) -> Tuple[int, int, int]:

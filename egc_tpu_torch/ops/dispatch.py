@@ -56,12 +56,18 @@ class KernelPlan:
     def num_edges(self) -> int:
         return self.fwd_senders.shape[0]
 
-    def to(self, device) -> "KernelPlan":
+    def _map(self, fn) -> "KernelPlan":
         fields = {f.name: getattr(self, f.name)
                   for f in dataclasses.fields(self)}
         return dataclasses.replace(self, **{
-            k: v.to(device) for k, v in fields.items()
+            k: fn(v) for k, v in fields.items()
             if isinstance(v, torch.Tensor)})
+
+    def to(self, device, non_blocking: bool = False) -> "KernelPlan":
+        return self._map(lambda v: v.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "KernelPlan":
+        return self._map(lambda v: v.pin_memory())
 
 
 def build_kernel_plan(senders, receivers, num_nodes: int, *,

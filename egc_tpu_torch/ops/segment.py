@@ -102,6 +102,15 @@ def segment_sum(data, segment_ids, num_segments: int, *, mask=None):
                                               mask), num_segments)
 
 
+def segment_mean(data, segment_ids, num_segments: int, *, mask=None):
+    """Sum over the segment's (unmasked) rows over their count; an empty
+    segment gives 0 (the count is clamped to 1)."""
+    s = segment_sum(data, segment_ids, num_segments, mask=mask)
+    cnt = torch.clamp(segment_count(segment_ids, num_segments, mask=mask,
+                                    dtype=s.dtype), min=1.0)
+    return s / _bcast(cnt, s.ndim)
+
+
 def segment_wsum(data, segment_ids, weights, num_segments: int, *,
                  mask=None):
     w = _bcast(weights.to(data.dtype), data.ndim)

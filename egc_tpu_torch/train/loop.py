@@ -1,0 +1,102 @@
+"""Batched training and evaluation epochs (counterpart of
+``egc_tpu.train.loop``).
+
+``train_epoch`` keeps each step's loss on the device until the epoch ends
+and reads them all at once, as the JAX loop does: a per-step ``float()``
+would hold the host at every step and serialise the loader's prefetch
+against the device. ``eval_epoch`` brings each batch's outputs to the
+host for the task metric.
+
+The consuming thread's two parts of a step are ``record_function`` ranges,
+``egc.batch`` (waiting for the next batch and its copy to the device) and
+``egc.step`` (forward, backward and optimizer step, enqueued), so a
+``torch.profiler`` trace splits the host's time between them.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, List, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+
+class StepClock:
+    """Step boundaries without a host synchronise: a CUDA event per mark
+    on the card, the host clock on the CPU. ``start()`` opens a window and
+    ``mark()`` ends a step; ``seconds()`` reads the marks (synchronising
+    once) as each step's duration from the mark before it, so time between
+    windows (an evaluation) counts as no step."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._marks: List = []     # (mark, opens a window)
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def start(self) -> None:
+        self._marks.append((self._now(), True))
+
+    def mark(self) -> None:
+        self._marks.append((self._now(), False))
+
+    def seconds(self) -> List[float]:
+        if self.cuda and self._marks:
+            self._marks[-1][0].synchronize()
+        out = []
+        for (a, _), (b, opens) in zip(self._marks, self._marks[1:]):
+            if not opens:
+                out.append(a.elapsed_time(b) / 1e3 if self.cuda else b - a)
+        return out
+
+
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               loss_fn: Callable, graph, y: torch.Tensor) -> torch.Tensor:
+    """One step on one batch; returns the loss (a device scalar). The
+    parameters' ``.grad`` hold this step's gradients afterwards."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(model(graph), y, graph)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                loss_fn: Callable, loader: Iterable, *,
+                steps: Optional[int] = None,
+                clock: Optional[StepClock] = None) -> np.ndarray:
+    """One pass over ``loader`` (its first ``steps`` batches, when given);
+    returns the per-step losses, read from the device once at the end (the
+    JAX loop returns their mean). ``loss_fn(out, y, graph)`` must respect
+    the batch's masks. ``clock`` is marked after each step."""
+    losses = []
+    it = iter(loader)
+    while steps is None or len(losses) < steps:
+        with record_function("egc.batch"):
+            batch = next(it, None)
+        if batch is None:
+            break
+        with record_function("egc.step"):
+            losses.append(train_step(model, optimizer, loss_fn, *batch))
+        if clock is not None:
+            clock.mark()
+    if not losses:
+        return np.zeros(0, np.float32)
+    return torch.stack(losses).cpu().numpy()
+
+
+@torch.no_grad()
+def eval_epoch(model: torch.nn.Module, loader: Iterable) -> list:
+    """The model in eval mode over ``loader``; returns host-side
+    ``(out, y, graph_mask)`` numpy triples, one per batch."""
+    model.eval()
+    return [(model(graph).cpu().numpy(), y.cpu().numpy(),
+             graph.graph_mask.cpu().numpy()) for graph, y in loader]

@@ -311,36 +311,122 @@ def test_gat_launchers_refuse_cpu_tensors():
 
 
 def test_gat_bwd_t_geometry_covers_every_column():
-    """For every (H, C) the GAT kernels take (H <= 32, H*C <= 256), their
-    lane geometry (``gat_edge_geometry``, at most ``MAX_CHANS`` channels
-    per lane): P divides the warp, each column of a row is owned by
-    exactly one lane of an edge group, and each head's lanes are an
-    aligned power-of-two run holding at most ``MAX_CHANS`` columns
-    each, an even number when C is even (float2 loads). The arxiv shapes
-    get 16 lanes per edge, 2 edges per warp step."""
+    """For every (H, C) the GAT kernels take (``shape_ok``: H <= 32 and an
+    edge group of at most 32 lanes, 1,792 shapes), their lane geometry
+    (``gat_edge_geometry``, at most ``MAX_CHANS`` channels per lane): P
+    divides the warp, each column of a row is owned by exactly one lane of
+    an edge group, and each head's lanes are an aligned power-of-two run
+    holding at most ``MAX_CHANS`` columns each, an even number when C is
+    even (float2 loads). The arxiv shapes get 16 lanes per edge, 2 edges
+    per warp step; the code2 shapes 32 lanes, 1 edge."""
     shapes = 0
-    for heads in range(1, tat.MAX_HEADS + 1):
-        for c in range(1, tat.MAX_WIDTH // heads + 1):
-            p, lh, k = tat.gat_edge_geometry(heads, c)
-            assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
-            assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
-            owner = {}
-            for j in range(p):                 # the kernel's formulas
-                h, c0 = j // lh, (j % lh) * k
-                nk = max(0, min(k, c - c0)) if h < heads else 0
-                for col in range(h * c + c0, h * c + c0 + nk):
-                    assert col not in owner, (heads, c, col)
-                    owner[col] = j
-            assert sorted(owner) == list(range(heads * c)), (heads, c)
-            for h in range(heads):
-                lanes = {owner[h * c + cc] for cc in range(c)}
-                run = range(h * lh, (h + 1) * lh)
-                assert lanes <= set(run) and run.start % lh == 0
-                assert owner[h * c] == h * lh    # it writes d_asrc, d_adst
-            shapes += 1
-    assert shapes > 1000
+    for heads, c in tat.accepted_shapes():
+        p, lh, k = tat.gat_edge_geometry(heads, c)
+        assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
+        assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
+        owner = {}
+        for j in range(p):                 # the kernel's formulas
+            h, c0 = j // lh, (j % lh) * k
+            nk = max(0, min(k, c - c0)) if h < heads else 0
+            for col in range(h * c + c0, h * c + c0 + nk):
+                assert col not in owner, (heads, c, col)
+                owner[col] = j
+        assert sorted(owner) == list(range(heads * c)), (heads, c)
+        for h in range(heads):
+            lanes = {owner[h * c + cc] for cc in range(c)}
+            run = range(h * lh, (h + 1) * lh)
+            assert lanes <= set(run) and run.start % lh == 0
+            assert owner[h * c] == h * lh    # it writes d_asrc, d_adst
+        shapes += 1
+    assert shapes == 1792
+    assert all(h * c <= tat.MAX_WIDTH for h, c in tat.accepted_shapes())
     assert tat.gat_edge_geometry(8, 19) == (16, 2, 10)
     assert tat.gat_edge_geometry(1, 152) == (16, 16, 10)
+    assert tat.gat_edge_geometry(8, 38) == (32, 4, 10)
+    assert tat.gat_edge_geometry(1, 304) == (32, 32, 10)
+
+
+@pytest.mark.parametrize("heads,c", [(1, 513), (33, 1), (3, 129), (8, 65),
+                                     (2, 257), (16, 33)])
+def test_gat_kernels_refuse_shapes_past_the_rule(heads, c):
+    """A shape whose edge group would not fit a warp, or H > 32, is
+    refused with the rule in the message, before any launch."""
+    assert not tat.shape_ok(heads, c)
+    assert tat.shape_ok(heads, c - 1) or heads > tat.MAX_HEADS
+    wh = torch.zeros(4, heads * c)
+    z = torch.zeros(4, heads)
+    with pytest.raises(ValueError, match="edge group of at most 32 lanes"):
+        tat._check(wh, [("a_src", z)], torch.zeros(5, dtype=torch.int32),
+                   torch.zeros(0, dtype=torch.int32))
+
+
+def wide_hub_graph(seed, n=64):
+    """A graph of 64 nodes with a hub receiver (node 0) and a hub sender
+    (node 1) of 48 edges each (more than one warp step's 32 lanes hold),
+    receivers with exactly 1 and 2 in-edges, 6 isolated receivers and 8
+    silent senders; returns (s, r) coalesced."""
+    rng = np.random.default_rng(seed)
+    s = [rng.integers(2, n - 8, 160)]
+    r = [rng.integers(5, n - 6, 160)]
+    s += [rng.choice(np.arange(2, n - 8), 48, replace=False), np.full(48, 1),
+          np.array([9, 10, 11])]
+    r += [np.zeros(48, np.int64), rng.choice(np.arange(5, n - 6), 48,
+                                             replace=False),
+          np.array([2, 3, 3])]
+    s, r = np.concatenate(s), np.concatenate(r)
+    keep = ~np.isin(r, (2, 3)) | (np.arange(len(r)) >= len(r) - 3)
+    s, r, _ = coalesce_np(s[keep].astype(np.int32), r[keep].astype(np.int32),
+                          n)
+    in_deg, out_deg = np.bincount(r, minlength=n), np.bincount(s, minlength=n)
+    assert in_deg[0] == 48 and out_deg[1] == 48
+    assert in_deg[2] == 1 and in_deg[3] == 2
+    assert (in_deg[n - 6:] == 0).all() and (out_deg[n - 8:] == 0).all()
+    return s, r
+
+
+@pytest.mark.parametrize("heads,c", [(8, 38), (1, 304)])
+def test_gat_attention_matches_jax_wide(heads, c):
+    """The ogbg-code2 GAT widths (H8 C38, and the single-head H1 C304
+    last layer; one edge per warp step in the kernels): the plain
+    versions against the JAX kernels in interpret mode on a 64-node graph
+    with hub rows, at rtol = atol = 1e-5 for the normalised outputs, m
+    bitwise on receivers with in-edges, gradients at relative L2 <=
+    1e-5."""
+    n = 64
+    s, r = wide_hub_graph(8)
+    jplan = jax_mini_plan(s, r, n)
+    f, cp = jax_gat_attention(jplan, heads, c, with_m=True)
+    assert cp > c
+    npad = jplan.n_pad
+    has = np.bincount(r, minlength=n) > 0
+    rng = np.random.default_rng(9)
+    wh = rng.normal(size=(n, heads, c)).astype(np.float32)
+    a_src = rng.normal(size=(n, heads)).astype(np.float32)
+    a_dst = rng.normal(size=(n, heads)).astype(np.float32)
+    proj = (rng.normal(size=(n, heads, c)) / np.sqrt(c)).astype(np.float32) \
+        * has[:, None, None]
+
+    def pad(x):
+        return jnp.zeros((npad,) + x.shape[1:]).at[:n].set(x)
+
+    def jloss(wh, a_src, a_dst):
+        o, d, m = f(wh, a_src, a_dst)
+        out = o[:n] / jnp.maximum(d[:n], 1e-16)[:, :, None]
+        return jnp.sum(out * proj), (out, m[:n])
+
+    (_, (jout, jm)), jg = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(pad(wh), pad(a_src),
+                                                pad(a_dst))
+    tw = [torch.tensor(x, requires_grad=True) for x in (wh, a_src, a_dst)]
+    o, d, m = tat.gat_attention(*tw, build_kernel_plan(s, r, n))
+    out = o / torch.clamp(d, min=1e-16)[:, :, None]
+    (out * torch.as_tensor(proj)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy()[has],
+                               np.asarray(jout)[has], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(m.numpy()[has], np.asarray(jm)[has])
+    assert torch.all(o[~torch.as_tensor(has)] == 0)
+    for t, g, name in zip(tw, jg, ("wh", "a_src", "a_dst")):
+        assert rel_l2(t.grad.numpy(), np.asarray(g)[:n]) <= 1e-5, name
 
 
 def hub_sender_graph(n, seed):

@@ -305,32 +305,117 @@ def test_gatv2_attention_refuses_mismatched_shapes():
 
 
 def test_bwd_t_geometry_covers_every_column():
-    """For every (H, C) the kernels take (H <= 32, H*C <= 256), the lane
-    geometry that ``gatv2_fwd``, ``gatv2_bwd_t`` and ``gatv2_bwd_f`` share:
-    P divides the warp, each column of a row is owned by exactly one lane
-    of an edge group, and each head's lanes are an aligned power-of-two run
-    holding at most ``MAX_CHANS`` columns each, an even number when C is
-    even (float2 loads)."""
+    """For every (H, C) the kernels take (``shape_ok``: H <= 32 and an edge
+    group of at most 32 lanes, 1,792 shapes), the lane geometry that
+    ``gatv2_fwd``, ``gatv2_bwd_t`` and ``gatv2_bwd_f`` share: P divides the
+    warp, each column of a row is owned by exactly one lane of an edge
+    group, and each head's lanes are an aligned power-of-two run holding
+    at most ``MAX_CHANS`` columns each, an even number when C is even
+    (float2 loads). The code2 shapes get 32 lanes per edge and 10 channels
+    per lane."""
     shapes = 0
-    for heads in range(1, tat.MAX_HEADS + 1):
-        for c in range(1, tat.MAX_WIDTH // heads + 1):
-            p, lh, k = tat.edge_geometry(heads, c)
-            assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
-            assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
-            owner = {}
-            for j in range(p):                 # the kernel's formulas
-                h, c0 = j // lh, (j % lh) * k
-                nk = max(0, min(k, c - c0)) if h < heads else 0
-                for col in range(h * c + c0, h * c + c0 + nk):
-                    assert col not in owner, (heads, c, col)
-                    owner[col] = j
-            assert sorted(owner) == list(range(heads * c)), (heads, c)
-            for h in range(heads):
-                lanes = {owner[h * c + cc] for cc in range(c)}
-                run = range(h * lh, (h + 1) * lh)
-                assert lanes <= set(run) and run.start % lh == 0
-            shapes += 1
-    assert shapes > 1000
+    for heads, c in tat.accepted_shapes():
+        p, lh, k = tat.edge_geometry(heads, c)
+        assert p & (p - 1) == 0 and lh & (lh - 1) == 0 and p <= 32
+        assert 1 <= k <= tat.MAX_CHANS and (c % 2 or k % 2 == 0)
+        owner = {}
+        for j in range(p):                 # the kernel's formulas
+            h, c0 = j // lh, (j % lh) * k
+            nk = max(0, min(k, c - c0)) if h < heads else 0
+            for col in range(h * c + c0, h * c + c0 + nk):
+                assert col not in owner, (heads, c, col)
+                owner[col] = j
+        assert sorted(owner) == list(range(heads * c)), (heads, c)
+        for h in range(heads):
+            lanes = {owner[h * c + cc] for cc in range(c)}
+            run = range(h * lh, (h + 1) * lh)
+            assert lanes <= set(run) and run.start % lh == 0
+        shapes += 1
+    assert shapes == 1792
+    assert tat.edge_geometry(8, 37) == (32, 4, 10)
+    assert tat.edge_geometry(1, 296) == (32, 32, 10)
+
+
+@pytest.mark.parametrize("heads,c", [(1, 513), (33, 2), (8, 65), (4, 129)])
+def test_gatv2_kernels_refuse_shapes_past_the_rule(heads, c):
+    """The GATv2 launch checks refuse a shape past ``shape_ok`` with the
+    rule in the message."""
+    assert not tat.shape_ok(heads, c)
+    hl = torch.zeros(4, heads * c)
+    with pytest.raises(ValueError, match="edge group of at most 32 lanes"):
+        tat._check_v2(hl, hl, torch.zeros(heads, c), [],
+                      torch.zeros(5, dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.int32))
+
+
+def wide_hub_graph(seed, n=64):
+    """A graph of 64 nodes with a hub receiver (node 0) and a hub sender
+    (node 1) of 48 edges each (more than one warp step's 32 lanes hold),
+    receivers with exactly 1 and 2 in-edges, 6 isolated receivers and 8
+    silent senders; returns (s, r) coalesced."""
+    rng = np.random.default_rng(seed)
+    s = [rng.integers(2, n - 8, 160)]
+    r = [rng.integers(5, n - 6, 160)]
+    s += [rng.choice(np.arange(2, n - 8), 48, replace=False), np.full(48, 1),
+          np.array([9, 10, 11])]
+    r += [np.zeros(48, np.int64), rng.choice(np.arange(5, n - 6), 48,
+                                             replace=False),
+          np.array([2, 3, 3])]
+    s, r = np.concatenate(s), np.concatenate(r)
+    keep = ~np.isin(r, (2, 3)) | (np.arange(len(r)) >= len(r) - 3)
+    s, r, _ = coalesce_np(s[keep].astype(np.int32), r[keep].astype(np.int32),
+                          n)
+    in_deg, out_deg = np.bincount(r, minlength=n), np.bincount(s, minlength=n)
+    assert in_deg[0] == 48 and out_deg[1] == 48
+    assert in_deg[2] == 1 and in_deg[3] == 2
+    assert (in_deg[n - 6:] == 0).all() and (out_deg[n - 8:] == 0).all()
+    return s, r
+
+
+@pytest.mark.parametrize("heads,c", [(8, 37), (1, 296)])
+def test_gatv2_attention_matches_jax_wide(heads, c):
+    """The ogbg-code2 GATv2 widths (H8 C37, C odd, and the single-head H1
+    C296 last layer; one edge per warp step in the kernels): the plain
+    versions against the JAX kernels (one-phase, as H*cp > 128 takes) in
+    interpret mode on a 64-node graph with hub rows, at rtol = atol = 1e-5
+    for the normalised outputs and d, gradients of hl, hr and att at
+    relative L2 <= 1e-5."""
+    n = 64
+    s, r = wide_hub_graph(10)
+    jplan = jax_plan(s, r, n, two_phase=False)
+    f, cp = jax_gatv2_attention(jplan, heads, c)
+    assert cp > c and heads * cp > 128
+    npad = jplan.n_pad
+    has = np.bincount(r, minlength=n) > 0
+    rng = np.random.default_rng(11)
+    hl = rng.normal(size=(n, heads, c)).astype(np.float32)
+    hr = rng.normal(size=(n, heads, c)).astype(np.float32)
+    att = (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32)
+    proj = (rng.normal(size=(n, heads, c)) / np.sqrt(c)).astype(np.float32) \
+        * has[:, None, None]
+
+    def pad(x):
+        return jnp.zeros((npad,) + x.shape[1:]).at[:n].set(x)
+
+    def jloss(hl, hr, att):
+        o, d = f(pad(hl), pad(hr), att)
+        out = o[:n] / jnp.maximum(d[:n], 1e-16)[:, :, None]
+        return jnp.sum(out * proj), (out, d[:n])
+
+    (_, (jout, jd)), jg = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(hl, hr, att)
+    tw = [torch.tensor(x, requires_grad=True) for x in (hl, hr, att)]
+    o, d, m = tat.gatv2_attention(*tw, build_kernel_plan(s, r, n))
+    out = o / torch.clamp(d, min=1e-16)[:, :, None]
+    (out * torch.as_tensor(proj)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy()[has],
+                               np.asarray(jout)[has], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(d.detach().numpy()[has], np.asarray(jd)[has],
+                               rtol=1e-5, atol=1e-5)
+    empty = torch.as_tensor(~has)
+    assert torch.all(o[empty] == 0) and torch.all(m[empty] == tat.EMPTY_MAX)
+    for t, g, name in zip(tw, jg, ("hl", "hr", "att")):
+        assert rel_l2(t.grad.numpy(), np.asarray(g)) <= 1e-5, name
 
 
 def hub_graph(n, seed):
