@@ -11,16 +11,21 @@ Phases, each of which raises (exit code 1) on any failed check:
    sm_90a, timed, with each kernel's registers and spills.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (169,343 nodes, 2,368,458 edges): kernels
-   1-4 at F = 128, prims sum/wsum/max, K = 4 coefficient segments, head
-   mix H4 B4 A3 L32; the GAT kernels at (H8, C19) and (H1, C152); the
-   GATv2 kernels at (H8, C14) and (H1, C112); values and gradients
-   through the autograd functions (and the whole GATConv and GATv2Conv),
-   and ``segment_gather_reduce`` (kernel 1 over COO edges); two
-   full-size launches of ``headmix_bwd`` and of each GAT and GATv2 kernel
-   must agree bitwise. Then again at a small size with empty receivers,
-   senders without out-edges, hub senders and receivers, senders and
-   receivers with 1-3 edges, ties, F = 40 and 37, the head mix's float4
-   and scalar variants forward and backward (each kernel's pick held
+   1-4 at F = 128, prims sum/wsum/max with the max mask (bitwise equal to
+   the plain one, also on values rounded to a 1/8 grid, where ties at
+   scale make the forward re-sweep rows), the backward from c_sum,
+   c_wsum, c_max and that mask, head mix H4 B4 A3 L32; the GAT kernels
+   at (H8, C19) and (H1, C152); the GATv2 kernels at (H8, C14) and (H1,
+   C112); values and gradients through the autograd functions (and the
+   whole GATConv and GATv2Conv), and ``segment_gather_reduce`` (kernel 1
+   over COO edges); two full-size launches of each gather-reduce kernel,
+   of ``headmix_bwd`` and of each GAT and GATv2 kernel must agree
+   bitwise. Then again at a small size with empty receivers, senders
+   without out-edges, hub senders and receivers (a receiver of 300
+   in-edges among them), senders and receivers with 1-3 edges, ties and
+   signed zeros (the masks bitwise), F = 40, 37, 136 and 128 (and
+   ``mask_words`` of the kernel against the wrapper's), the head mix's
+   float4 and scalar variants forward and backward (each kernel's pick held
    against ``headmix.fwd_variant`` / ``bwd_variant``; A = 1 and 6, L = 34,
    H8 L44, y_width > B*L, H = 12), GAT and GATv2 (H, C) = (8, 5),
    (1, 37), (4, 37), (3, 37) and (32, 8) with receivers of G - 1 and
@@ -67,7 +72,11 @@ and bound for the GAT and GATv2 kernels are per launch on their arxiv
 path (two launches at the first shape and one at the second per step);
 ``wide`` gives times and bound at the code2 widths (a code2 batch fits in
 L2, so its gathered floor is null), ``launches_by_path`` the launches
-of each path's timed steps and ``launches`` their sum. Without a
+of each path's timed steps and ``launches`` their sum. The two
+gather-reduce rows also give the bytes each edge gathers in their floor
+(``gathered_bytes_per_edge``); the forward's row its time without the mask
+(``ms_no_mask``) and on the 1/8 grid (``ms_ties``, with ``tied_rows``, the
+rows it re-sweeps). Without a
 CUDA device, or outside the repository, it exits nonzero and prints no
 result. ``--out`` writes every measured number to a JSON file.
 """
@@ -259,47 +268,90 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
     prims = ("sum", "wsum", "max")
     rows = []
 
-    # kernel 1
+    # kernel 1 with the max mask the main path's backward takes
     args = (vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, prims)
-    outs = gr.gather_reduce_fwd(*args)
-    ref = gr.gather_reduce_fwd_plain(*args)
-    err = max(_close(f"gather_reduce_fwd[{p}]", o, r, exact=(p == "max"))
-              for p, o, r in zip(prims, outs, ref))
-    nbytes = 4 * (n * f + (n + 1) + 2 * e + len(prims) * n * f)
+    mkw = dict(masks=("max",), fwd_to_bwd=plan.fwd_to_bwd)
+    outs = gr.gather_reduce_fwd(*args, **mkw)
+    ref = gr.gather_reduce_fwd_plain(*args, **mkw)
+    names = prims + ("max mask",)
+    err = max(_close(f"gather_reduce_fwd[{p}]", o, r,
+                     exact=p in ("max", "max mask"))
+              for p, o, r in zip(names, outs, ref))
+    check(all(torch.equal(a, b) for a, b in
+              zip(outs, gr.gather_reduce_fwd(*args, **mkw))),
+          "gather_reduce_fwd: two launches differ")
+    words = gr.mask_words(f)
+    # vals, rowptr, senders and weights, the outputs, fwd_to_bwd, the mask
+    nbytes = 4 * (n * f + (n + 1) + 2 * e + len(prims) * n * f + e
+                  + words * e)
     b_ms, b_by = bound_ms(nbytes, 4.0 * e * f)
+    # the same at full size on a 1/8 grid: ties at scale, re-swept rows
+    ties = torch.round(vals * 8) / 8
+    t_args = (ties,) + args[1:]
+    t_out = gr.gather_reduce_fwd(*t_args, **mkw)
+    t_ref = gr.gather_reduce_fwd_plain(*t_args, **mkw)
+    _close("gather_reduce_fwd[max mask, 1/8 grid]", t_out[3], t_ref[3],
+           exact=True)
+    rows_f = gr._row_ids(plan.rowptr)
+    held = torch.zeros(n, f, device=dev).index_add_(
+        0, rows_f, (ties[plan.fwd_senders.long()] == t_ref[2][rows_f])
+        .float())
+    tied_rows = int((held > 1).any(1).sum())
     rows.append(dict(
         name="gather_reduce_fwd", route="cuda",
         source="egc_tpu_torch/csrc/gather_reduce.cu",
         replaces="egc_tpu/ops/pallas/gather_reduce.py:504",
-        max_abs_err=err, ms=time_ms(lambda: gr.gather_reduce_fwd(*args)),
-        plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(*args)),
+        max_abs_err=err, ms=time_ms(lambda: gr.gather_reduce_fwd(
+            *args, **mkw)),
+        plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(*args, **mkw)),
         bound_ms=b_ms, bound_by=b_by,
         floor_ms=floor_ms(nbytes, 4 * f, n, e, 4.0 * e * f),   # vals[s]
+        gathered_bytes_per_edge=4 * f,
+        ms_no_mask=time_ms(lambda: gr.gather_reduce_fwd(*args)),
+        ms_ties=time_ms(lambda: gr.gather_reduce_fwd(*t_args, **mkw)),
+        tied_rows=tied_rows,
         library_ms=None,
         library_note="no single PyTorch call computes sum, wsum and max"))
+    log(f"[kernels] gather_reduce_fwd: on the 1/8 grid {tied_rows} of {n} "
+        f"rows hold a tied maximum (re-swept); mask bitwise equal")
 
-    # kernel 2: the main path's segments, mx from the forward above
-    segs = ("c_sum", "c_wsum", "mx", "c_max")
-    mx = outs[2]
-    coeff = torch.cat([torch.randn(n, f, generator=gen, device=dev),
-                       torch.randn(n, f, generator=gen, device=dev), mx,
-                       torch.randn(n, f, generator=gen, device=dev)], 1)
-    bargs = (coeff.contiguous(), vals, plan.colptr, plan.bwd_receivers,
-             plan.bwd_w, segs)
-    err = _close("gather_reduce_bwd", gr.gather_reduce_bwd(*bargs),
-                 gr.gather_reduce_bwd_plain(*bargs))
-    nbytes = 4 * (n * len(segs) * f + n * f + (n + 1) + 2 * e + n * f)
+    # kernel 2: the main path's coefficients, the max mask from above
+    coeffs = {k: torch.randn(n, f, generator=gen, device=dev)
+              for k in ("c_sum", "c_wsum", "c_max")}
+    bkw = dict(coeffs, edge_w=plan.bwd_w, max_mask=outs[3])
+    bargs = (plan.colptr, plan.bwd_receivers)
+    d_vals = gr.gather_reduce_bwd(*bargs, **bkw)
+    err = _close("gather_reduce_bwd", d_vals,
+                 gr.gather_reduce_bwd_plain(*bargs, **bkw))
+    check(torch.equal(d_vals, gr.gather_reduce_bwd(*bargs, **bkw)),
+          "gather_reduce_bwd: two launches differ")
+    t_bkw = dict(bkw, max_mask=t_out[3])
+    _close("gather_reduce_bwd[1/8 grid]", gr.gather_reduce_bwd(
+        *bargs, **t_bkw), gr.gather_reduce_bwd_plain(*bargs, **t_bkw))
+    # c_max is read by the 32-byte sector (8 floats) where a bit is set
+    sectors = int(gr.unpack_mask(outs[3], f).view(e, f // 8, 8).any(-1)
+                  .sum())
+    # c_sum, c_wsum, c_max, colptr, receivers and weights, d_vals, mask
+    nbytes = 4 * (3 * n * f + (n + 1) + 2 * e + n * f + words * e)
     b_ms, b_by = bound_ms(nbytes, 6.0 * e * f)
     rows.append(dict(
         name="gather_reduce_bwd", route="cuda",
         source="egc_tpu_torch/csrc/gather_reduce.cu",
         replaces="egc_tpu/ops/pallas/gather_reduce.py:839",
-        max_abs_err=err, ms=time_ms(lambda: gr.gather_reduce_bwd(*bargs)),
-        plain_ms=time_ms(lambda: gr.gather_reduce_bwd_plain(*bargs)),
-        bound_ms=b_ms, bound_by=b_by,   # gathers the coefficient row of r
-        floor_ms=floor_ms(nbytes, 4 * len(segs) * f, n, e, 6.0 * e * f),
+        max_abs_err=err, ms=time_ms(lambda: gr.gather_reduce_bwd(
+            *bargs, **bkw)),
+        plain_ms=time_ms(lambda: gr.gather_reduce_bwd_plain(*bargs, **bkw)),
+        bound_ms=b_ms, bound_by=b_by,
+        # every edge gathers the c_sum and c_wsum rows of r and the c_max
+        # sectors its bits name (compulsory: c_max once, n * f floats)
+        floor_ms=floor_ms(nbytes + 32 * sectors - 4 * n * f, 2 * 4 * f, n,
+                          e, 6.0 * e * f),
+        gathered_bytes_per_edge=2 * 4 * f + 32 * sectors / e + 4 * words,
         library_ms=None,
         library_note="no single PyTorch call computes this gradient"))
+    log(f"[kernels] gather_reduce_bwd gathers per edge 2 x {4 * f} B "
+        f"(c_sum, c_wsum) + {32 * sectors / e:.1f} B of c_max sectors "
+        f"({sectors / (e * f // 8):.3f} of them) + {4 * words} B of mask")
 
     # kernels 1+2 through the autograd function vs the plain segment path
     aggrs = ("symnorm", "max", "mean")
@@ -422,8 +474,10 @@ HEADMIX_SMALL_SHAPES = ((4, 4, 1, 10, 40, 0, "scalar"),
 
 
 def kernels_small(dev) -> None:
-    """Empty receivers, ties (integer values), F = 40 and 37, A = 1; the
-    head mix's vector and scalar variants."""
+    """Empty receivers, a hub receiver of 300 in-edges, ties (integer
+    values, signed zeros) and the max / min masks bitwise, F = 40, 37, 136
+    and 128, ``mask_words`` of the kernel and the wrapper; A = 1; the head
+    mix's vector and scalar variants."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.transforms import coalesce_np, symnorm_weight
@@ -436,32 +490,42 @@ def kernels_small(dev) -> None:
 
     rng = np.random.default_rng(0)
     n = 1000
-    s = rng.integers(0, n, 6000)
-    r = rng.integers(0, n - 50, 6000)          # 50 isolated receivers
+    hub = rng.choice(n, 300, replace=False)    # receiver 0: >= 300 in-edges
+    s = np.concatenate([rng.integers(0, n, 6000), hub])
+    r = np.concatenate([rng.integers(0, n - 50, 6000),   # 50 isolated
+                        np.zeros(300, np.int64)])
     s, r, _ = coalesce_np(s, r, n)
+    check(int((r == 0).sum()) >= 300, "small graph: hub degree")
     ew, sw = symnorm_weight(torch.as_tensor(s), torch.as_tensor(r), n)
     plan = build_kernel_plan(s, r, n, edge_weight=ew.numpy(), device=dev)
     st, rt = torch.as_tensor(s, device=dev), torch.as_tensor(r, device=dev)
     ew, sw = ew.to(dev), sw.to(dev)
     all_aggrs = ("sum", "mean", "max", "min", "var", "std", "symnorm")
-    for f in (40, 37):
+    bad = [f for f in range(1, 600)
+           if gr.kernel_mask_words(f) != gr.mask_words(f)]
+    check(not bad, f"mask_words: kernel and wrapper differ at f = {bad}")
+    for f in (40, 37, 136, 128):
         ints = rng.integers(-2, 3, size=(n, f)).astype(np.float32)
+        ints[(ints == 0) & (rng.random((n, f)) < 0.5)] = -0.0   # -0 ties +0
         vals = torch.as_tensor(ints, device=dev)
         prims = gr.PRIMS
-        for p, o, ref in zip(prims, gr.gather_reduce_fwd(
-                vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, prims),
-                gr.gather_reduce_fwd_plain(vals, plan.rowptr,
-                                           plan.fwd_senders, plan.fwd_w,
-                                           prims)):
-            _close(f"small fwd[{p}] f={f}", o, ref, exact=p in ("max", "min"))
-            check(bool((o[n - 50:] == 0).all()), f"empty rows of {p} not 0")
-        coeff = torch.cat([torch.as_tensor(
-            rng.normal(size=(n, f)).astype(np.float32), device=dev)
-            for _ in gr.SEGS], 1)
-        bargs = (coeff, vals, plan.colptr, plan.bwd_receivers, plan.bwd_w,
-                 gr.SEGS)
-        _close(f"small bwd f={f}", gr.gather_reduce_bwd(*bargs),
-               gr.gather_reduce_bwd_plain(*bargs))
+        args = (vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, prims)
+        mkw = dict(masks=gr.EXTREMA, fwd_to_bwd=plan.fwd_to_bwd)
+        got = gr.gather_reduce_fwd(*args, **mkw)
+        for p, o, ref in zip(prims + ("max mask", "min mask"), got,
+                             gr.gather_reduce_fwd_plain(*args, **mkw)):
+            _close(f"small fwd[{p}] f={f}", o, ref,
+                   exact=p not in ("sum", "wsum", "sumsq"))
+            if p in prims:
+                check(bool((o[n - 50:] == 0).all()),
+                      f"empty rows of {p} not 0")
+        coeffs = {k: torch.as_tensor(rng.normal(size=(n, f)).astype(
+            np.float32), device=dev) for k in gr.COEFFS}
+        bkw = dict(coeffs, edge_w=plan.bwd_w, vals=vals, max_mask=got[5],
+                   min_mask=got[6])
+        bargs = (plan.colptr, plan.bwd_receivers)
+        _close(f"small bwd f={f}", gr.gather_reduce_bwd(*bargs, **bkw),
+               gr.gather_reduce_bwd_plain(*bargs, **bkw))
         for include_self in (False, True):
             ct = torch.as_tensor(rng.normal(size=(n, len(all_aggrs), f))
                                  .astype(np.float32), device=dev)
@@ -512,7 +576,8 @@ def kernels_small(dev) -> None:
         check(all(bool((d[:, B * L:] == 0).all()) for d in dys),
               f"headmix_bwd {shape}: dy tail not zero")
     torch.cuda.synchronize()
-    log("[kernels] small-size checks passed (empty rows, ties, F=40/37, "
+    log("[kernels] small-size checks passed (empty rows, a 300-in-edge hub, "
+        "ties, masks bitwise, F=40/37/136/128, "
         "A=1, head mix (H, B, A, L, y_width, offset) = "
         f"{[sh[:6] for sh in HEADMIX_SMALL_SHAPES]}, vector and scalar "
         "variants of kernels 3 and 4)")
@@ -1570,8 +1635,10 @@ def main(argv=None) -> int:
             "library_ms", "launches_by_path")
     wide_keys = ("heads", "channels", "ms", "bound_ms", "floor_ms")
     log(f"[done] {results['seconds']:.1f} s")
+    extra = ("gathered_bytes_per_edge", "ms_no_mask", "ms_ties",
+             "tied_rows")   # the gather-reduce rows
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys},
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r},
          **({"wide": [{k: sh.get(k) for k in wide_keys}   # floor: null
                       for sh in r["wide"]]}
             if "wide" in r else {})} for r in rows]}))

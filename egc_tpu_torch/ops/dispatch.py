@@ -4,8 +4,10 @@
 ``build_kernel_plan`` lays a static graph out for the gather-reduce
 kernels in a Hopper layout: a receiver-sorted CSR for the forward and a
 sender-sorted CSC of the transposed graph for the backward, each with its
-edge weights pre-permuted, plus the in-degree over valid edges. The TPU's
-window/cell layout and its 128-lane row padding are not carried over.
+edge weights pre-permuted, the CSC position of each CSR edge (where the
+forward stores an edge's max / min mask words for the backward), and the
+in-degree over valid edges. The TPU's window/cell layout and its 128-lane
+row padding are not carried over.
 Masked (padding) edges never enter the plan: the JAX package's note on
 pad-row self-loops (``dispatch.py:135-143``) shows what they would do to
 the max/min tie backward.
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from egc_tpu_torch.ops.cuda.gather_reduce import (
-    gather_reduce_bwd, gather_reduce_fwd,
+    EXTREMA, gather_reduce_bwd, gather_reduce_fwd,
 )
 from egc_tpu_torch.ops.segment import (
     _var_from_moments, canonical_aggr, multi_aggregate,
@@ -50,6 +52,7 @@ class KernelPlan:
     bwd_receivers: torch.Tensor  # [E'] int32, receiver of each CSC edge
     bwd_w: Optional[torch.Tensor]   # [E'] f32, edge weights in CSC order
     bwd_perm: torch.Tensor      # [E'] int64, original edge index
+    fwd_to_bwd: torch.Tensor    # [E'] int32, CSC position of each CSR edge
     deg: torch.Tensor           # [N] f32, in-degree over valid edges
 
     @property
@@ -89,18 +92,21 @@ def build_kernel_plan(senders, receivers, num_nodes: int, *,
     def layout(major, minor):
         order = np.lexsort((minor, major))     # by major, then minor
         ptr = np.searchsorted(major[order], np.arange(num_nodes + 1))
-        return (torch.from_numpy(ptr.astype(np.int32)),
-                torch.from_numpy(minor[order].astype(np.int32)),
-                None if w is None else torch.from_numpy(w[order]),
-                torch.from_numpy(kept[order].astype(np.int64)))
+        return order, (torch.from_numpy(ptr.astype(np.int32)),
+                       torch.from_numpy(minor[order].astype(np.int32)),
+                       None if w is None else torch.from_numpy(w[order]),
+                       torch.from_numpy(kept[order].astype(np.int64)))
 
-    rowptr, fwd_s, fwd_w, fwd_perm = layout(r, s)
-    colptr, bwd_r, bwd_w, bwd_perm = layout(s, r)
+    fwd_order, (rowptr, fwd_s, fwd_w, fwd_perm) = layout(r, s)
+    bwd_order, (colptr, bwd_r, bwd_w, bwd_perm) = layout(s, r)
+    csc_pos = np.empty(len(s), np.int32)       # CSC position of each edge
+    csc_pos[bwd_order] = np.arange(len(s), dtype=np.int32)
     deg = torch.from_numpy(
         np.bincount(r, minlength=num_nodes).astype(np.float32))
     plan = KernelPlan(num_nodes=num_nodes, rowptr=rowptr, fwd_senders=fwd_s,
                       fwd_w=fwd_w, fwd_perm=fwd_perm, colptr=colptr,
                       bwd_receivers=bwd_r, bwd_w=bwd_w, bwd_perm=bwd_perm,
+                      fwd_to_bwd=torch.from_numpy(csc_pos[fwd_order]),
                       deg=deg)
     return plan if device is None else plan.to(device)
 
@@ -124,43 +130,33 @@ def _plan_prims(aggrs: Tuple[str, ...]) -> Tuple[str, ...]:
 
 class _FusedPrimitives(torch.autograd.Function):
     """Edge-level primitives: kernel 1 forward, kernel 2 backward over the
-    transposed layout with the packed coefficients
-    ``c_sum|c_wsum|c_sumsq2|mx|c_max|mn|c_min`` (present segments only)."""
+    transposed layout. The forward writes the max / min ``masks`` asked
+    for (which in-edges hold each extremum; asked for when ``vals`` needs
+    a gradient), and the backward takes them and one tensor per
+    coefficient."""
 
     @staticmethod
-    def forward(ctx, vals, plan, prims, ew_f, ew_b):
-        outs = gather_reduce_fwd(vals, plan.rowptr, plan.fwd_senders, ew_f,
-                                 prims)
-        p = dict(zip(prims, outs))
+    def forward(ctx, vals, plan, prims, ew_f, ew_b, masks):
+        res = gather_reduce_fwd(vals, plan.rowptr, plan.fwd_senders, ew_f,
+                                prims, masks=masks,
+                                fwd_to_bwd=plan.fwd_to_bwd)
+        words = dict(zip(masks, res[len(prims):]))
         ctx.plan, ctx.prims = plan, prims
-        ctx.save_for_backward(vals, ew_b, p.get("max"), p.get("min"))
-        return outs
+        ctx.save_for_backward(vals if "sumsq" in prims else None, ew_b,
+                              words.get("max"), words.get("min"))
+        return res[:len(prims)]
 
     @staticmethod
     def backward(ctx, *cts):
-        vals, ew_b, mx, mn = ctx.saved_tensors
-        ct = dict(zip(ctx.prims, cts))
-        segs, cols = [], []
-        if "sum" in ct:
-            segs.append("c_sum")
-            cols.append(ct["sum"])
-        if "wsum" in ct:
-            segs.append("c_wsum")
-            cols.append(ct["wsum"])
-        if "sumsq" in ct:
-            segs.append("c_sumsq2")
-            cols.append(2.0 * ct["sumsq"])
-        if "max" in ct:
-            segs.extend(["mx", "c_max"])
-            cols.extend([mx, ct["max"]])
-        if "min" in ct:
-            segs.extend(["mn", "c_min"])
-            cols.extend([mn, ct["min"]])
-        coeff = torch.cat(cols, dim=1).contiguous()
+        vals, ew_b, max_mask, min_mask = ctx.saved_tensors
+        ct = {p: c.contiguous() for p, c in zip(ctx.prims, cts)}
         d_vals = gather_reduce_bwd(
-            coeff, vals, ctx.plan.colptr, ctx.plan.bwd_receivers,
-            ew_b if "c_wsum" in segs else None, segs)
-        return d_vals, None, None, None, None
+            ctx.plan.colptr, ctx.plan.bwd_receivers, c_sum=ct.get("sum"),
+            c_wsum=ct.get("wsum"), edge_w=ew_b if "wsum" in ct else None,
+            c_sumsq2=2.0 * ct["sumsq"] if "sumsq" in ct else None,
+            vals=vals, c_max=ct.get("max"), max_mask=max_mask,
+            c_min=ct.get("min"), min_mask=min_mask)
+        return d_vals, None, None, None, None, None
 
 
 def fused_multi_aggregate(
@@ -195,8 +191,10 @@ def fused_multi_aggregate(
             w = symnorm_edge_w.detach().float()
             ew_f = w[plan.fwd_perm].contiguous()
             ew_b = w[plan.bwd_perm].contiguous()
+    masks = tuple(m for m in EXTREMA if m in prims) \
+        if vals.requires_grad and torch.is_grad_enabled() else ()
     p = dict(zip(prims, _FusedPrimitives.apply(vals.contiguous(), plan,
-                                               prims, ew_f, ew_b)))
+                                               prims, ew_f, ew_b, masks)))
 
     deg = plan.deg[:, None]
     outs = []

@@ -102,9 +102,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
     ptr = torch.zeros(5, dtype=torch.int32)
     idx = torch.zeros(0, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
-        gr._launch_fwd(vals, ptr, idx, None, ("sum",))
+        gr._launch_fwd(vals, ptr, idx, None, ("sum",), (), None)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
-        gr._launch_bwd(torch.zeros(4, 8), vals, ptr, idx, None, ("c_sum",))
+        gr._launch_bwd(ptr, idx, c_sum=torch.zeros(4, 8))
     w = torch.zeros(4, 2)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         hm._launch_fwd(w, (torch.zeros(4, 3),), None, 1, 2, 1, 1, 3)
