@@ -40,7 +40,10 @@ Phases, each of which raises (exit code 1) on any failed check:
    and library times are medians of CUDA-event timed launches; each
    kernel's bound counts its compulsory bytes, and its floor, for a
    gather over random endpoints, the rows it gathers per edge
-   (``floor_ms``).
+   (``floor_ms``). Kernels 1 and 2 again in the instantiation each
+   conv-zoo path runs (GCN wsum at F = 156, GIN sum at 156, SAGE sum at
+   115, MPNN sum and max at 116, PNA sum / sumsq / max / min at 76 with
+   both masks) at the arxiv shape, masks bitwise, timed.
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
@@ -64,7 +67,27 @@ Phases, each of which raises (exit code 1) on any failed check:
    on a code2 path the CPU step that agrees is one that replays the card
    step's branch at every ReLU and leaky_relu (one ReLU that flips under
    the card's rounding moves a code2 gradient by ~1e-3, PERF.md §6); the
-   plain CPU step's gap is printed beside it.
+   plain CPU step's gap is printed beside it. The six conv-zoo arxiv
+   paths ("gcn" h156, "gin" h156, "sage" h115, "mpnn_sum" and "mpnn_max"
+   h116, "pna" h76; ArxivConfig's lr 0.01, wd 5e-4, dropout 0.2) run as
+   the three arxiv paths do, the gather-reduce pair 3 times a step each;
+   their card step is held against the CPU step on a graph of 1/8 the
+   nodes at the same average degree when two full-size CPU steps a path
+   would take the script past ``ZOO_BUDGET_S`` (a line says which). In
+   the timed steps of EGC-M and of each zoo path, the (F, primitives,
+   masks) that ``ops/dispatch`` launches the gather-reduce pair with must
+   be the one phase 3 held (``PATH_GATHER``).
+5. the trial loop and the command line: ``exp/runner.run_trial`` at arxiv
+   size (EGC-M h128 H4 B4 through an ArxivConfig on the 169,343-node
+   graph, 12 iterations into a trial directory; seconds an iteration
+   beside the bare step, the eval forward and one ``persist_trial``;
+   launch counters as on the paths); then ``python -m egc_tpu_torch``'s
+   main in process on the card, ``--check --check-epochs 3`` of all nine
+   kinds at their reference arxiv widths on ArxivConfig's synthetic graph
+   (metrics finite, the kind's kernels launched and no other), then one
+   EGC-M h136 ``--use-default-hparams --final-runs 1`` run whose
+   ``restore_trial`` gives the accuracies its ``result.json`` recorded.
+Each phase's seconds are printed at the end.
 
 Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
 the result line ``{"ok": true, "device": {...}}``. A kernel row's times
@@ -76,7 +99,8 @@ of each path's timed steps and ``launches`` their sum. The two
 gather-reduce rows also give the bytes each edge gathers in their floor
 (``gathered_bytes_per_edge``); the forward's row its time without the mask
 (``ms_no_mask``) and on the 1/8 grid (``ms_ties``, with ``tied_rows``, the
-rows it re-sweeps). Without a
+rows it re-sweeps), and ``zoo`` their times, bound and floor in each
+conv-zoo path's instantiation. Without a
 CUDA device, or outside the repository, it exits nonzero and prints no
 result. ``--out`` writes every measured number to a JSON file.
 """
@@ -114,6 +138,49 @@ CODE_DATA = dict(num_layers=4, vocab_size=5000, num_nodeattributes=10030,
                  num_graphs=900)
 CODE_HP = {"lr": 1e-3, "batch_size": 128}
 CODE_STEPS = 15   # 3 epochs of the 5 train batches of synthetic_code(900)
+# the conv-zoo arxiv paths, each at its reference arxiv width
+# (egc_tpu/exp/pretrained.py:59-70; PNA and MPNN with 4 towers) with
+# ArxivConfig's defaults (lr 0.01, wd 5e-4, dropout 0.2), and the
+# gather-reduce instantiation each runs: (F, primitives, masks)
+ZOO_NETS = {"gcn": dict(kind="gcn", hidden=156),
+            "gin": dict(kind="gin", hidden=156),
+            "sage": dict(kind="sage", hidden=115),
+            "mpnn_sum": dict(kind="mpnn-sum", hidden=116),
+            "mpnn_max": dict(kind="mpnn-max", hidden=116),
+            "pna": dict(kind="pna", hidden=76)}
+ZOO_SHAPES = {"gcn": (156, ("wsum",), ()), "gin": (156, ("sum",), ()),
+              "sage": (115, ("sum",), ()), "mpnn_sum": (116, ("sum",), ()),
+              "mpnn_max": (116, ("max",), ("max",)),
+              "pna": (76, ("sum", "sumsq", "max", "min"), ("max", "min"))}
+#   (held against what ``ops/dispatch`` launches in each path's timed
+#   steps, ``_gather_instantiations``; EGC-M's is the main shape's)
+PATH_GATHER = {"main": (128, ("sum", "wsum", "max"), ("max",)), **ZOO_SHAPES}
+# the parameters of each path that feed a BatchNorm through affine maps
+# only: BN removes a constant shift, so their true gradient is 0 and both
+# steps hold rounding noise there (MPNN-max's message biases too, where
+# every real node has an in-edge: a constant shift of every max)
+ZERO_GRAD = {"sage": r"lin_l\.bias", "gin": r"nn\.bias",
+             "mpnn_sum": r"lin\.bias|update_layer\.\d+\.bias",
+             "mpnn_max": r"lin\.bias|(update|message)_layer\.\d+\.bias",
+             "pna": r"lin\.bias|post_nns\.\d+\.0\.bias"}
+# the step check of the zoo paths moves to a graph of 1/8 the nodes (same
+# average degree) when its CPU steps would take the script past this
+ZOO_BUDGET_S = 420
+# the CLI phase: every kind at its reference arxiv width through
+# ``python -m egc_tpu_torch``'s main, in process (EGC-M: h136 H4 B4,
+# egc_tpu/exp/pretrained.py:69)
+CLI_RUNS = {"gcn": ["--hidden", "156"], "gat": ["--hidden", "152"],
+            "gatv2": ["--hidden", "112"], "gin": ["--hidden", "156"],
+            "sage": ["--hidden", "115"], "mpnn-sum": ["--hidden", "116"],
+            "mpnn-max": ["--hidden", "116"], "pna": ["--hidden", "76"],
+            "egc": ["--hidden", "136", "--aggrs", "symnorm,max,mean",
+                    "--egc-num-heads", "4", "--egc-num-bases", "4"]}
+CLI_EPOCHS = 3
+# the trial loop the command line runs (``exp/runner.run_trial``) at arxiv
+# size: EGC-M h128 H4 B4 (the main path's net) through an ArxivConfig
+# whose graph is the 169,343-node one, this many iterations
+TRIAL_ITERS = 12
+GATHER = ("gather_reduce_fwd", "gather_reduce_bwd")
 PATH_KERNELS = {
     "main": ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
              "headmix_bwd"),
@@ -121,9 +188,13 @@ PATH_KERNELS = {
     "gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
     "code_gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
     "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
+    **{path: GATHER for path in ZOO_NETS},
 }
 PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
-               "code_gatv2": 4}   # launches of each path kernel per step
+               "code_gatv2": 4, **{path: 3 for path in ZOO_NETS}}
+#   launches of each path kernel per step
+CLI_KERNELS = {"gat": PATH_KERNELS["gat"], "gatv2": PATH_KERNELS["gatv2"],
+               "egc": PATH_KERNELS["main"]}   # the others: GATHER
 # tolerances, with why:
 SUM_RTOL = SUM_ATOL = 1e-5     # f32 sums of <= ~40 terms in another order
 GRAD_REL_L2 = 1e-4             # autograd vs kernel backward; var/std
@@ -260,12 +331,11 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
     from egc_tpu_torch.ops.segment import multi_aggregate
 
     g, plan = data["graph"], data["graph"].kernel_plan
-    n, e, f = g.num_nodes, plan.num_edges, 128
-    L = f // B
+    f, prims, _ = PATH_GATHER["main"]
+    n, e, L = g.num_nodes, plan.num_edges, f // B
     dev = g.nodes.device
     gen = torch.Generator(device=dev).manual_seed(0)
     vals = torch.randn(n, f, generator=gen, device=dev)
-    prims = ("sum", "wsum", "max")
     rows = []
 
     # kernel 1 with the max mask the main path's backward takes
@@ -613,6 +683,111 @@ def check_segment_gather_reduce(data) -> dict:
         f"{res['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, floor "
         f"{res['floor_ms']:.4f}), max abs err {err:.3e}")
     return res
+
+
+_COEFF = {"sum": "c_sum", "wsum": "c_wsum", "sumsq": "c_sumsq2",
+          "max": "c_max", "min": "c_min"}
+_PRIM_OPS = {"sum": 1, "wsum": 2, "sumsq": 2, "max": 1, "min": 1}
+
+
+def kernels_zoo_shapes(data) -> dict:
+    """Kernels 1 and 2 against their plain versions in the instantiation
+    each conv-zoo path runs (``ZOO_SHAPES``: GCN wsum at F = 156, GIN sum
+    at 156, SAGE sum at 115 (a lane of one column), MPNN sum and max at
+    116, PNA sum / sumsq / max / min at 76 with both masks), at the arxiv
+    shape: the values at ``SUM_RTOL``, the extrema and masks bitwise, the
+    backward from the path's coefficients (and masks) at ``GRAD_REL_L2``,
+    two launches of each bitwise; timed. Returns the entries by kernel."""
+    import torch
+    from egc_tpu_torch.ops.cuda import gather_reduce as gr
+    plan = data["graph"].kernel_plan
+    n, e, dev = plan.num_nodes, plan.num_edges, data["device"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"gather_reduce_fwd": [], "gather_reduce_bwd": []}
+    for path, (f, prims, masks) in ZOO_SHAPES.items():
+        label = f"{path} F={f} {'/'.join(prims)}"
+        vals = torch.randn(n, f, generator=gen, device=dev)
+        ew_f = plan.fwd_w if "wsum" in prims else None
+        args = (vals, plan.rowptr, plan.fwd_senders, ew_f, prims)
+        mkw = dict(masks=masks, fwd_to_bwd=plan.fwd_to_bwd) if masks \
+            else {}
+        got = gr.gather_reduce_fwd(*args, **mkw)
+        ref = gr.gather_reduce_fwd_plain(*args, **mkw)
+        names = prims + tuple(f"{m} mask" for m in masks)
+        err = max(_close(f"gather_reduce_fwd[{label}: {p}]", o, r,
+                         exact=p not in ("sum", "wsum", "sumsq"))
+                  for p, o, r in zip(names, got, ref))
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, gr.gather_reduce_fwd(*args, **mkw))),
+              f"gather_reduce_fwd[{label}]: two launches differ")
+        words = gr.mask_words(f)
+        w = 1 if ew_f is not None else 0
+        # vals, rowptr, senders (and weights), the outputs, fwd_to_bwd once
+        # (one CSC position an edge serves every mask), the mask words
+        nbytes = 4 * (n * f + (n + 1) + (1 + w) * e + len(prims) * n * f
+                      + (e if masks else 0) + words * e * len(masks))
+        ops = sum(_PRIM_OPS[p] for p in prims) * e * f
+        b_ms, b_by = bound_ms(nbytes, ops)
+        fwd = dict(path=path, f=f, prims=list(prims), masks=list(masks),
+                   max_abs_err=err,
+                   ms=time_ms(lambda: gr.gather_reduce_fwd(*args, **mkw)),
+                   plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(
+                       *args, **mkw)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   floor_ms=floor_ms(nbytes, 4 * f, n, e, ops))
+        out["gather_reduce_fwd"].append(fwd)
+
+        coeffs = {_COEFF[p]: torch.randn(n, f, generator=gen, device=dev)
+                  for p in prims}
+        bkw = dict(coeffs)
+        if "wsum" in prims:
+            bkw["edge_w"] = plan.bwd_w
+        if "sumsq" in prims:
+            bkw["vals"] = vals
+        for m, words_t in zip(masks, got[len(prims):]):
+            bkw[f"{m}_mask"] = words_t
+        bargs = (plan.colptr, plan.bwd_receivers)
+        d_vals = gr.gather_reduce_bwd(*bargs, **bkw)
+        d_ref = gr.gather_reduce_bwd_plain(*bargs, **bkw)
+        r = rel_l2(d_vals, d_ref)
+        check(r <= GRAD_REL_L2, f"gather_reduce_bwd[{label}]: rel L2 {r}")
+        check(torch.equal(d_vals, gr.gather_reduce_bwd(*bargs, **bkw)),
+              f"gather_reduce_bwd[{label}]: two launches differ")
+        # the coefficients, colptr, receivers (and weights), vals (sumsq),
+        # d_vals, the masks
+        nbytes = 4 * (len(coeffs) * n * f + (n + 1) + (1 + w) * e
+                      + ("sumsq" in prims) * n * f + n * f
+                      + words * e * len(masks))
+        ops = 2.0 * len(coeffs) * e * f
+        b_ms, b_by = bound_ms(nbytes, ops)
+        # each edge gathers the rows of r of every coefficient not masked,
+        # and of c_max / c_min the 32-byte sectors its bits name
+        # (compulsory: those once, n * f floats each)
+        dense = len(coeffs) - len(masks)
+        sectors = 0
+        for words_t in got[len(prims):]:
+            bits = gr.unpack_mask(words_t, f)
+            bits = torch.nn.functional.pad(bits, (0, -f % 8))
+            sectors += int(bits.view(e, -1, 8).any(-1).sum())
+            del bits
+        out["gather_reduce_bwd"].append(dict(
+            path=path, f=f, prims=list(prims), masks=list(masks),
+            max_abs_err=float((d_vals - d_ref).abs().max()), rel_l2=r,
+            ms=time_ms(lambda: gr.gather_reduce_bwd(*bargs, **bkw)),
+            plain_ms=time_ms(lambda: gr.gather_reduce_bwd_plain(
+                *bargs, **bkw)),
+            bound_ms=b_ms, bound_by=b_by,
+            floor_ms=floor_ms(nbytes + 32 * sectors - 4 * n * f * len(masks),
+                              4 * f * dense, n, e, ops),
+            gathered_bytes_per_edge=4 * f * dense + 32 * sectors / e
+            + 4 * words * len(masks)))
+        for name in GATHER:
+            sh = out[name][-1]
+            log(f"[kernels] {name} {label}: {sh['ms']:.4f} ms (plain "
+                f"{sh['plain_ms']:.4f}, bound {sh['bound_ms']:.4f} by "
+                f"{sh['bound_by']}, floor {sh['floor_ms']:.4f}), max abs "
+                f"err {sh['max_abs_err']:.3e}")
+    return out
 
 
 def _gat_inputs(n, heads, c, gen, dev):
@@ -1166,16 +1341,17 @@ def kernels_code_shapes(g) -> dict:
 # 4. main path
 # ---------------------------------------------------------------------------
 
-def _grad_rels(model, ref_model) -> list:
+def _grad_rels(model, ref_model, zero: str = r"bias") -> list:
     """Sorted (relative L2, name) of each parameter gradient of ``model``
     against ``ref_model``'s. A conv bias feeds a BatchNorm, which cancels
     it: its true gradient is 0, so it is checked to be noise-sized and left
-    out of the list."""
+    out of the list; ``zero`` names such parameters of a conv (the path's
+    ``ZERO_GRAD``)."""
     ref = dict(ref_model.named_parameters())
     scale = max(float(q.grad.abs().max()) for q in ref.values())
     rels = []
     for name, p in model.named_parameters():
-        if re.fullmatch(r"convs\.\d+\.bias|graph_layers\.\d+\.0\.bias",
+        if re.fullmatch(rf"(convs\.\d+|graph_layers\.\d+\.0)\.({zero})",
                         name):
             check(float(p.grad.abs().max()) <= 1e-4 * scale,
                   f"{name}: gradient is not noise-sized")
@@ -1196,8 +1372,9 @@ def _step_vs_cpu(path, loss_card, model_card, loss_cpu, model_cpu,
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     check(loss_rel <= STEP_LOSS_RTOL,
           f"[{path}] step loss {loss_card} vs CPU {loss_cpu}")
-    rels = _grad_rels(model_card, model_cpu)
-    noise = [dict((name, r) for r, name in _grad_rels(m, model_cpu))
+    zero = ZERO_GRAD.get(path, r"bias")
+    rels = _grad_rels(model_card, model_cpu, zero)
+    noise = [dict((name, r) for r, name in _grad_rels(m, model_cpu, zero))
              for m in noise_models]
     noise_worst = max((n[name], name) for n in noise for _, name in rels)
     over_flat = [(r, name) for r, name in rels if r > STEP_GRAD_REL_L2]
@@ -1226,7 +1403,7 @@ def _step_vs_cpu(path, loss_card, model_card, loss_cpu, model_cpu,
     if same is not None:
         loss_same, model_same = same
         same_loss_rel = abs(loss_card - loss_same) / abs(loss_same)
-        rels = _grad_rels(model_card, model_same)
+        rels = _grad_rels(model_card, model_same, zero)
         step_cmp.update(same_branch_loss_rel=same_loss_rel,
                         same_branch_grad_rel_l2_worst=rels[0],
                         same_branch_grad_rel_l2={name: r for r, name in rels})
@@ -1244,9 +1421,35 @@ def _step_vs_cpu(path, loss_card, model_card, loss_cpu, model_cpu,
     return step_cmp
 
 
-def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
+@contextlib.contextmanager
+def _gather_instantiations():
+    """Yields the set of ``(F, primitives, masks)`` of every
+    ``gather_reduce_fwd`` call that ``ops/dispatch`` makes in the block
+    (each names the forward and, with its masks, the backward
+    instantiation the call launches)."""
+    from egc_tpu_torch.ops import dispatch
+    seen, launch = set(), dispatch.gather_reduce_fwd
+
+    def record(vals, rowptr, senders, edge_w, prims, masks=(),
+               fwd_to_bwd=None):
+        seen.add((vals.shape[1], tuple(prims), tuple(masks)))
+        return launch(vals, rowptr, senders, edge_w, prims, masks=masks,
+                      fwd_to_bwd=fwd_to_bwd)
+
+    dispatch.gather_reduce_fwd = record
+    try:
+        yield seen
+    finally:
+        dispatch.gather_reduce_fwd = launch
+
+
+def phase_path(path: str, raw, data, d_cpu, net: dict,
+               checked=None) -> dict:
     """One path ("main": EGC-M, "gat": GAT h152 H8, "gatv2": GATv2 h112
-    H8) through ``train_full_graph`` with the net arguments ``net``."""
+    H8, or a conv-zoo path of ``ZOO_NETS``) through ``train_full_graph``
+    with the net arguments ``net``. ``checked``: ``(raw, data, d_cpu)`` of
+    the graph the card step is held against the CPU step on, when not the
+    path's own."""
     import torch
     from egc_tpu_torch.exp.fullgraph import train_full_graph
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1254,20 +1457,26 @@ def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
     # one dropout-0 step on the card vs the same step of the port on the
     # CPU; beside it, how far the CPU step itself moves when its inputs
     # carry 1e-7 relative noise (the step's sensitivity to rounding)
+    c_raw, c_data, c_cpu = checked or (raw, data, d_cpu)
+    if path == "mpnn_max":    # the premise of its message biases' ZERO_GRAD
+        deg = c_data["graph"].kernel_plan.deg[:c_raw["x"].shape[0]]
+        check(bool((deg > 0).all()), f"[{path}] a real node without in-edges")
     t0 = time.perf_counter()
-    cpu = train_full_graph(raw, steps=1, dropout=0.0, data=d_cpu,
+    cpu = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_cpu,
                            device="cpu", **net)
     cpu_s = time.perf_counter() - t0
-    g = d_cpu["graph"]
+    g = c_cpu["graph"]
     noise = torch.randn(g.nodes.shape,
                         generator=torch.Generator().manual_seed(1))
     pert = train_full_graph(
-        raw, steps=1, dropout=0.0, device="cpu",
-        data={**d_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))},
+        c_raw, steps=1, dropout=0.0, device="cpu",
+        data={**c_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))},
         **net)
-    gpu = train_full_graph(raw, steps=1, dropout=0.0, data=data, **net)
+    gpu = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_data, **net)
     step_cmp = _step_vs_cpu(path, gpu.losses[0], gpu.model, cpu.losses[0],
                             cpu.model, [pert.model], cpu_s)
+    step_cmp["graph_nodes"] = c_raw["x"].shape[0]
+    step_cmp["graph_edges"] = c_data["num_edges"]
     del cpu, gpu, pert
 
     # the timed path, counters reset just before and read just after: each
@@ -1275,9 +1484,15 @@ def phase_path(path: str, raw, data, d_cpu, net: dict) -> dict:
     steps = STEPS_WARMUP + STEPS_TIMED
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    run = train_full_graph(raw, steps=steps, dropout=0.2, data=data, **net)
+    with _gather_instantiations() as seen:
+        run = train_full_graph(raw, steps=steps, dropout=0.2, data=data,
+                               **net)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    if path in PATH_GATHER:   # the instantiation the kernel rows hold
+        check(seen == {PATH_GATHER[path]},
+              f"[{path}] gather-reduce launched as {sorted(seen)}, the "
+              f"kernel rows hold {PATH_GATHER[path]}")
     for name, c in counts.items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
             else 0
@@ -1567,6 +1782,196 @@ def _profile_code(run, cfg, data, path):
     return table, split
 
 
+def _zoo_check_graph(results, raw, data, d_cpu, elapsed: float):
+    """The graph the conv-zoo paths' card step is held against the CPU
+    step on: the path's own, unless its CPU steps (two a path, each
+    estimated at the EGC-M path's, the heaviest) would take the script
+    past ``ZOO_BUDGET_S``; then ``synthetic_full_graph`` of 1/8 the nodes
+    at the same average degree (the timed steps and the kernel rows stay
+    at full size)."""
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
+    cpu_s = results["main"]["step_vs_cpu"]["cpu_step_seconds"]
+    projected = elapsed + 2 * len(ZOO_NETS) * cpu_s
+    if projected <= ZOO_BUDGET_S:
+        log(f"[zoo] step checks on the full graph (projected "
+            f"{projected:.0f} s <= {ZOO_BUDGET_S} s)")
+        return raw, data, d_cpu
+    small = synthetic_full_graph(num_nodes=NUM_NODES // 8, avg_degree=14,
+                                 num_features=128, num_classes=40, seed=0)
+    log(f"[zoo] step checks on a graph of 1/8 the nodes "
+        f"({small['x'].shape[0]} nodes, {len(small['senders'])} edges, "
+        f"average degree 14): two full-size CPU steps a path would take "
+        f"the script to ~{projected:.0f} s, past {ZOO_BUDGET_S} s; the "
+        f"timed steps and the kernel rows stay at full size")
+    return (small, full_graph_to_device_dict(small),
+            full_graph_to_device_dict(small, "cpu"))
+
+
+def phase_trial(raw, main_step_s: float) -> dict:
+    """``exp/runner.run_trial``, the loop ``python -m egc_tpu_torch`` runs,
+    at arxiv size: EGC-M h128 H4 B4 at ArxivConfig's default hparams
+    through an ``ArxivConfig`` whose graph is ``raw`` (169,343 nodes),
+    ``TRIAL_ITERS`` iterations into a trial directory. Each iteration is
+    the step, the eval-mode forward, the accuracies of every split read
+    back, the plateau and, where val improved, ``checkpoint.pt`` /
+    ``checkpoint.json``. The launch counters are reset just before and
+    read just after (3 launches a layer: each forward kernel in the step,
+    the eval forward and the final test forward, each backward kernel in
+    the step). Seconds an iteration (from the history's clock, the
+    warm-up iterations left out) stand beside the bare step, the eval
+    forward and one ``persist_trial``, each timed alone on the trained
+    model, and beside the main path's step."""
+    import tempfile
+    from pathlib import Path
+    from egc_tpu_torch.exp.fullgraph import ArxivConfig, train_step
+    from egc_tpu_torch.exp.runner import run_trial
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    class ArxivAtSize(ArxivConfig):
+        def load_full_graph(self):
+            return raw
+
+    config = ArxivAtSize("egc", 128, heads=4, bases=4,
+                         aggrs=("symnorm", "max", "mean"))
+    hp = config.default_hparams()
+    layers, its = PATH_LAYERS["main"], TRIAL_ITERS
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_trial(config, hp, max_iterations=its, patience=its,
+                        trial_dir=Path(tmp), verbose=False)
+        trial_s = time.perf_counter() - t0
+        counts = launch_counts()
+        for name, c in counts.items():
+            want = {"gather_reduce_fwd": layers * (2 * its + 1),
+                    "headmix_fwd": layers * (2 * its + 1),
+                    "gather_reduce_bwd": layers * its,
+                    "headmix_bwd": layers * its}.get(name, 0)
+            check(c == want, f"[trial] {name} launched {c} times in {its} "
+                             f"iterations, expected {want}")
+        hist = out["history"]
+        check(len(hist) == its and all(
+            math.isfinite(r["train_loss"]) for r in hist),
+            f"[trial] history {hist}")
+        clock = [0.0] + [r["time_s"] for r in hist]
+        iter_s = [b - a for a, b in zip(clock, clock[1:])][STEPS_WARMUP:]
+        vals = [r["val_acc"] for r in hist]
+        saves = sum(v > max(vals[:i], default=-1.0)
+                    for i, v in enumerate(vals))
+        model, opt, data = out["model"], out["state"], out["data"]
+        gen = config.rng(0)
+
+        def alone(fn, reps=5):
+            fn()
+            ts = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t)
+            return statistics.median(ts)
+
+        step_s = alone(lambda: float(train_step(model, opt, data, gen)))
+        val_s = alone(lambda: config.val(model, opt, data))
+        persist_s = alone(lambda: config.persist_trial(
+            Path(tmp), model, opt, config.plateau(hp), hp,
+            extra={"iteration": its}))
+        ckpt_bytes = (Path(tmp) / "checkpoint.pt").stat().st_size
+    res = {"iterations": its, "trial_seconds": trial_s,
+           "iteration_seconds": iter_s,
+           "iteration_seconds_mean": sum(iter_s) / len(iter_s),
+           "iteration_seconds_median": statistics.median(iter_s),
+           "checkpoint_writes": saves, "checkpoint_bytes": ckpt_bytes,
+           "step_seconds": step_s, "val_seconds": val_s,
+           "persist_seconds": persist_s, "main_step_seconds": main_step_s,
+           "launches": counts, "history": hist}
+    log(f"[trial] run_trial EGC-M h128 at arxiv size, {its} iterations in "
+        f"{trial_s:.2f} s ({saves} checkpoint writes of {ckpt_bytes} B): "
+        f"{res['iteration_seconds_mean'] * 1e3:.3f} ms an iteration (mean "
+        f"of the last {len(iter_s)}; median "
+        f"{res['iteration_seconds_median'] * 1e3:.3f}); alone: step "
+        f"{step_s * 1e3:.3f}, eval forward and accuracies "
+        f"{val_s * 1e3:.3f}, persist_trial {persist_s * 1e3:.3f} ms "
+        f"(medians of 5); the main path's step {main_step_s * 1e3:.3f} ms; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    return res
+
+
+def phase_cli() -> dict:
+    """``python -m egc_tpu_torch``'s ``main``, in process on the card:
+    ``--check --check-epochs 3`` of every kind at its reference arxiv
+    width (``CLI_RUNS``) on ``ArxivConfig``'s synthetic graph, each with
+    the launch counters reset just before and read just after (the kind's
+    kernels launched, every other kernel not) and finite metrics in the
+    dict it prints; then one EGC-M ``--use-default-hparams --final-runs
+    1`` run, whose ``final/run_0`` ``restore_trial`` must give the val
+    accuracy its ``result.json`` recorded."""
+    import ast
+    import io
+    import tempfile
+    from pathlib import Path
+    import torch
+    from egc_tpu_torch import cli
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    def run(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, args in CLI_RUNS.items():
+            reset_launch_counts()
+            lines, sec = run([f"{tmp}/{model}", model, "arxiv", *args,
+                              "--check", "--check-epochs", str(CLI_EPOCHS)])
+            counts = launch_counts()
+            printed = ast.literal_eval(lines[-1])
+            values = [printed["best_val"], *printed["test"].values()]
+            check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
+                  f"[cli] {model}: metrics {printed}")
+            kernels = CLI_KERNELS.get(model, GATHER)
+            for name, c in counts.items():
+                check(c > 0 if name in kernels else c == 0,
+                      f"[cli] {model}: {name} launched {c} times")
+            res[model] = {"printed": printed, "launches": counts,
+                          "seconds": sec}
+            log(f"[cli] {model} {' '.join(args)} --check --check-epochs "
+                f"{CLI_EPOCHS}: {printed}; launches "
+                f"{ {k: v for k, v in counts.items() if v} } ({sec:.1f} s)")
+        d = Path(tmp) / "egc_final"
+        lines, sec = run([str(d), "egc", "arxiv", *CLI_RUNS["egc"],
+                          "--use-default-hparams", "--final-runs", "1"])
+        run_dir = d / "final" / "run_0"
+        result = json.loads((run_dir / "result.json").read_text())
+        history = json.loads((run_dir / "history.json").read_text())
+        config = cli.build_config("arxiv", "egc", hidden=136, heads=4,
+                                  bases=4, aggrs="symnorm,max,mean",
+                                  num_samples=50)
+        model, state, _, hp, data = config.restore_trial(run_dir)
+        restored = config.val(model, state, data)
+        check(restored == result["test"],
+              f"[cli] restored accuracies {restored} vs recorded "
+              f"{result['test']}")
+        # and the restored weights are the trained ones, not an init's
+        fresh = config.model(hp, seed=0).eval()
+        with torch.no_grad():
+            check(not torch.equal(fresh(data["graph"]),
+                                  model(data["graph"])),
+                  "[cli] the restored net computes what a fresh one does")
+        res["egc_final"] = {"result": result, "iterations": len(history),
+                            "restored": restored, "hparams": hp,
+                            "seconds": sec}
+        log(f"[cli] egc --use-default-hparams --final-runs 1: "
+            f"{len(history)} iterations in {sec:.1f} s, best val "
+            f"{result['best_val']:.4f} at {result['best_iter']}, final "
+            f"{result['test']}; restore_trial of final/run_0 gives "
+            f"{restored}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
@@ -1587,8 +1992,11 @@ def main(argv=None) -> int:
     from egc_tpu_torch.ops.cuda import launch_counts
 
     t_start = time.perf_counter()
+    phases = {}
+    t0 = time.perf_counter()
     info = phase_device()
-    results = {"device": info, **phase_build()}
+    results = {"device": info, **phase_build(), "phase_seconds": phases}
+    phases["device and build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     raw = synthetic_full_graph(num_nodes=NUM_NODES, avg_degree=14,
                                num_features=128, num_classes=40, seed=0)
@@ -1602,21 +2010,43 @@ def main(argv=None) -> int:
     rows += kernels_gat_main_shapes(data)
     rows += kernels_gatv2_main_shapes(data)
     wide = kernels_code_shapes(code_batch(data["device"]))
+    zoo = kernels_zoo_shapes(data)
     for row in rows:
-        if row["name"] in wide:
-            row["wide"] = wide[row["name"]]
-            row["max_abs_err"] = max([row["max_abs_err"]] + [
-                sh["max_abs_err"] for sh in row["wide"]])
+        for key, per_shape in (("wide", wide), ("zoo", zoo)):
+            if row["name"] in per_shape:
+                row[key] = per_shape[row["name"]]
+                row["max_abs_err"] = max([row["max_abs_err"]] + [
+                    sh["max_abs_err"] for sh in row[key]])
     kernels_small(data["device"])
     kernels_gat_small(data["device"])
     kernels_gatv2_small(data["device"])
+    phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     d_cpu = full_graph_to_device_dict(raw, "cpu")
     for path, net in (("main", {}), ("gat", GAT_NET), ("gatv2", GATV2_NET)):
         results[path] = phase_path(path, raw, data, d_cpu, net)
-    del data, d_cpu
+    phases["arxiv paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = _zoo_check_graph(results, raw, data, d_cpu,
+                               time.perf_counter() - t_start)
+    results["zoo_check_nodes"] = checked[0]["x"].shape[0]
+    for path, net in ZOO_NETS.items():
+        results[path] = phase_path(path, raw, data, d_cpu, net,
+                                   checked=checked)
+    phases["zoo paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results["trial"] = phase_trial(
+        raw, results["main"]["step_seconds_mean"])
+    phases["trial"] = time.perf_counter() - t0
+    del data, d_cpu, checked
+    t0 = time.perf_counter()
     for path, net in (("code_gat", CODE_GAT_NET),
                       ("code_gatv2", CODE_GATV2_NET)):
         results[path] = phase_code_path(path, net)
+    phases["code2 paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results["cli"] = phase_cli()
+    phases["cli"] = time.perf_counter() - t0
     for row in rows:   # each path's timed steps, counted on their own
         row["launches_by_path"] = {
             path: results[path]["launches"][row["name"]]
@@ -1634,14 +2064,19 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
             "library_ms", "launches_by_path")
     wide_keys = ("heads", "channels", "ms", "bound_ms", "floor_ms")
-    log(f"[done] {results['seconds']:.1f} s")
+    log(f"[done] {results['seconds']:.1f} s; by phase "
+        f"{ {k: round(v, 1) for k, v in phases.items()} }")
     extra = ("gathered_bytes_per_edge", "ms_no_mask", "ms_ties",
              "tied_rows")   # the gather-reduce rows
+    zoo_keys = ("path", "f", "prims", "masks", "ms", "plain_ms",
+                "bound_ms", "floor_ms", "max_abs_err")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r},
          **({"wide": [{k: sh.get(k) for k in wide_keys}   # floor: null
                       for sh in r["wide"]]}
-            if "wide" in r else {})} for r in rows]}))
+            if "wide" in r else {}),
+         **({"zoo": [{k: sh[k] for k in zoo_keys} for sh in r["zoo"]]}
+            if "zoo" in r else {})} for r in rows]}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))

@@ -1,0 +1,191 @@
+"""The port's command line (counterpart of the JAX package's ``main.py``,
+the reference command line, reference ``main.py:211-372``):
+
+    python -m egc_tpu_torch EXP_DIR MODEL DATASET [options]
+
+The positional arguments, option names and defaults are ``main.py``'s,
+plus ``--device`` (default: the card; ``--device cpu`` runs the plain
+PyTorch path). Modes: ``--check`` (a short smoke trial), ``--hparams``
+(parsed with ``ast.literal_eval``) or ``--use-default-hparams`` straight
+to the seeded final runs, else a hyperparameter search first (in
+process), then the final runs.
+
+This port runs the ``arxiv`` dataset, all nine model kinds. The other
+datasets and ``--pretrained``, ``--partitions``, ``--sampled``,
+``--device-sampler`` and ``--search-workers`` > 1 raise, naming their
+ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import sys
+import time
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+MODELS = ["gcn", "gat", "egc", "gin", "mpnn-sum", "mpnn-max", "pna", "sage",
+          "gatv2"]
+DATASETS = ["zinc", "hiv", "arxiv", "cifar", "code", "rmag", "mag"]
+
+# the reference's support matrix (main.py:56-208)
+SUPPORTED = {
+    "zinc": {"egc", "gatv2"},
+    "cifar": {"egc", "gatv2"},
+    "hiv": {"egc", "gcn", "gat", "gatv2", "gin", "mpnn-sum", "mpnn-max",
+            "sage"},
+    "arxiv": set(MODELS),
+    "code": set(MODELS),
+    "mag": {"egc"},
+    "rmag": {"egc"},
+}
+
+# where each dataset and option this port does not run yet stands in
+# ROADMAP.md's queue A
+NOT_PORTED = {
+    "zinc": "A12 (batched tasks: ZincConfig)",
+    "cifar": "A12 (batched tasks: CifarConfig)",
+    "hiv": "A12 (batched tasks: MolConfig)",
+    "code": "A12 (CodeConfig onto the ExperimentConfig surface)",
+    "mag": "A11 (mag homogeneous)",
+    "rmag": "A13 (hetero rmag)",
+    "--pretrained": "A15 (the pretrained registry)",
+    "--partitions": "A16 (distributed)",
+    "--sampled": "A14 (sampling)",
+    "--device-sampler": "A14 (sampling)",
+    "--search-workers": "A15 (parallel search)",
+}
+
+
+class UsageError(ValueError):
+    """A command line that cannot run (``click.UsageError``)."""
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to egc_tpu_torch yet: ROADMAP.md item "
+        f"{NOT_PORTED[what]}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m egc_tpu_torch",
+        description="Train a GNN with the PyTorch/CUDA port of egc_tpu.")
+    ap.add_argument("exp_directory")
+    ap.add_argument("model", choices=MODELS)
+    ap.add_argument("dataset", choices=DATASETS)
+    ap.add_argument("--num-samples", type=int, default=50)
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--check-epochs", type=int, default=200)
+    ap.add_argument("--use-default-hparams", action="store_true")
+    ap.add_argument("--hparams", type=str, default=None)
+    ap.add_argument("--egc-num-bases", type=int, default=None)
+    ap.add_argument("--egc-num-heads", type=int, default=None)
+    ap.add_argument("--final-runs", type=int, default=None)
+    ap.add_argument("--aggrs", type=str, default=None)
+    ap.add_argument("--hidden", type=int, default=None)
+    ap.add_argument("--seed-base", type=int, default=0)
+    ap.add_argument("--use-old-code-dataset", action="store_true")
+    ap.add_argument("--pretrained", action="store_true")
+    ap.add_argument("--partitions", type=int, default=0)
+    ap.add_argument("--search-workers", type=int, default=0)
+    ap.add_argument("--synthetic", dest="synthetic", action="store_true",
+                    default=True, help="synthetic data (the default)")
+    ap.add_argument("--real", dest="synthetic", action="store_false",
+                    help="the real dataset under $DATASET_LOC")
+    ap.add_argument("--sampled", action="store_true")
+    ap.add_argument("--device-sampler", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    return ap
+
+
+def build_config(dataset, model, *, hidden, heads, bases, aggrs,
+                 num_samples, synthetic=True, partitions=0, sampled=False,
+                 device_sampler=False, device=None):
+    """``main.build_config`` for the datasets this port runs."""
+    if model not in SUPPORTED[dataset]:
+        raise UsageError(f"{model!r} not supported for {dataset!r} "
+                         f"(supported: {sorted(SUPPORTED[dataset])})")
+    if (sampled or device_sampler) and dataset != "mag":
+        raise UsageError(
+            "--sampled/--device-sampler apply to the mag dataset only")
+    if hidden is None:
+        raise UsageError("--hidden is required")
+    if model == "egc" and aggrs is None:
+        raise UsageError("--aggrs is required for egc")
+    if dataset != "arxiv":
+        raise _not_ported(dataset)
+    if partitions:
+        raise _not_ported("--partitions")
+    from egc_tpu_torch.exp.fullgraph import ArxivConfig
+    cfg = ArxivConfig(model, hidden, heads=heads or 8, bases=bases or 8,
+                      aggrs=tuple(aggrs.split(",")) if aggrs else None,
+                      gat_version=2 if model == "gatv2" else 1,
+                      device=device)
+    cfg.synthetic = synthetic
+    cfg._num_samples = num_samples
+    return cfg
+
+
+def dump_invocation_state(exp_dir: Path, argv: Sequence[str]):
+    (exp_dir / "invocation.json").write_text(json.dumps({
+        "argv": list(argv), "time": time.strftime("%Y-%m-%d %H:%M:%S"),
+    }))
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    from egc_tpu_torch.exp.runner import check_config, train_final_models
+    from egc_tpu_torch.exp.search import run_search
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    a = build_parser().parse_args(argv)
+    for flag, on in (("--pretrained", a.pretrained),
+                     ("--sampled", a.sampled and a.dataset == "mag"),
+                     ("--device-sampler",
+                      a.device_sampler and a.dataset == "mag"),
+                     ("--search-workers", a.search_workers > 1)):
+        if on:
+            raise _not_ported(flag)
+    exp_directory = Path(a.exp_directory).expanduser()
+    exp_directory.mkdir(parents=True, exist_ok=True)
+
+    config = build_config(a.dataset, a.model, hidden=a.hidden,
+                          heads=a.egc_num_heads, bases=a.egc_num_bases,
+                          aggrs=a.aggrs, num_samples=a.num_samples,
+                          synthetic=a.synthetic, partitions=a.partitions,
+                          sampled=a.sampled,
+                          device_sampler=a.device_sampler, device=a.device)
+
+    if a.check:
+        res = check_config(config, a.check_epochs)
+        print({k: res[k] for k in ("best_val", "best_iter", "test")})
+        return
+
+    dump_invocation_state(exp_directory, ["-m", "egc_tpu_torch"] + argv)
+
+    if a.hparams is not None:
+        best_hparams = ast.literal_eval(a.hparams)
+        print("Using given hyperparams:", best_hparams)
+    elif a.use_default_hparams:
+        best_hparams = config.default_hparams()
+        print("Using default hyperparams:", best_hparams)
+    else:
+        best_hparams = run_search(config, exp_directory, seed=a.seed_base)
+        print("Best hparams:", best_hparams)
+
+    train_final_models(config, best_hparams, exp_directory,
+                       override_repeats=a.final_runs, seed_base=a.seed_base)
+
+
+def cli() -> int:
+    """``python -m egc_tpu_torch``: a command line this port cannot run
+    exits 2 with its message."""
+    try:
+        main()
+    except (UsageError, NotImplementedError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    return 0

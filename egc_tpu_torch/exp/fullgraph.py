@@ -1,15 +1,25 @@
 """Full-graph (transductive) training of the arxiv nets (counterpart of
-``egc_tpu.exp.fullgraph``'s data build and ``ArxivConfig`` step): EGC-M
-(``kind="egc"``, the default: h128 H4 B4 symnorm/max/mean), GAT
+``egc_tpu.exp.fullgraph``): the data build, ``FullGraphConfig`` and
+``ArxivConfig`` (the experiment surface the runner and the CLI drive),
+and ``train_full_graph``, a bare step loop over any of the nine kinds:
+EGC-M (``kind="egc"``, the default: h128 H4 B4 symnorm/max/mean), GAT
 (``kind="gat"``: h152 H8, the last layer single-head, is the reference's
-tuned arxiv width) and GATv2 (``kind="gatv2"``, ``gat_version=2``: h112
+tuned arxiv width), GATv2 (``kind="gatv2"``, ``gat_version=2``: h112
 H8, the last layer single-head, at lr 0.0087876 and wd 0.001 is the
-reference's tuned arxiv configuration).
+reference's tuned arxiv configuration), and GCN, GIN, SAGE, MPNN-sum,
+MPNN-max and PNA (reference arxiv widths h156, h156, h115, h116, h116
+and h76, ``egc_tpu/exp/pretrained.py:59-70``).
 
 One step is the ``ArxivConfig`` epoch: a full-graph forward in training
 mode, the NLL averaged over the train split, backward, and one
 ``torch.optim.Adam(lr, weight_decay=wd)`` step (L2 added to the gradient,
 as the reference and ``egc_tpu.train.optim`` do).
+
+``ArxivConfig`` follows the JAX one: the synthetic graph of 4,000 nodes
+at degree 12 and 40 classes (or ``load_ogbn_arxiv`` with ``synthetic =
+False``), its search space, grid (10 x 2 x 2), plateau (patience 40) and
+stopper (80, 1000). The TPU plan knobs (``wide_aggrs``, PNA's
+``bwd_narrow_window_rows``) are layout machinery and are not carried over.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise.
@@ -24,12 +34,22 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from egc_tpu_torch.data import synthetic
 from egc_tpu_torch.device import DeviceLike, resolve_device
+from egc_tpu_torch.exp.config import (
+    ExperimentConfig, ExperimentSettings, Metric, StopperSpec,
+)
+from egc_tpu_torch.exp.hyperparams import (
+    LogUniformHyperParam, UniformHyperParam,
+)
 from egc_tpu_torch.graph.structure import Graph, pad_graph
 from egc_tpu_torch.graph.transforms import symnorm_weight
 from egc_tpu_torch.models.nets import ArxivNet, ConvSpec
+from egc_tpu_torch.nn.conv.pna import avg_log_degree
 from egc_tpu_torch.ops.dispatch import build_kernel_plan
 from egc_tpu_torch.train.losses import gather_label_scores
+from egc_tpu_torch.train.metrics import split_accuracies
+from egc_tpu_torch.train.optim import plateau_init
 
 
 def _round_up(x: int, m: int) -> int:
@@ -41,7 +61,8 @@ def full_graph_to_device_dict(raw: Dict[str, Any],
     """Pad a host full-graph dict, attach global symnorm weights and the
     kernel plan, and move it to ``device``. Padding follows ``egc_tpu``'s
     plan-free layout: one padding node (rounded to 8 rows) and edges
-    rounded to 128; padded edges are masked and stay out of the plan."""
+    rounded to 128; padded edges are masked and stay out of the plan.
+    ``avg_log_deg`` is PNA's statistic of the in-degrees."""
     dev = resolve_device(device)
     n = raw["x"].shape[0]
     senders = torch.as_tensor(raw["senders"], dtype=torch.int32)
@@ -63,22 +84,21 @@ def full_graph_to_device_dict(raw: Dict[str, Any],
         m = torch.zeros(npad, dtype=torch.bool)
         m[torch.as_tensor(raw[f"{split}_idx"], dtype=torch.int64)] = True
         masks[split] = m.to(dev)
+    deg = np.bincount(np.asarray(raw["receivers"], np.int64), minlength=n)
     return {"graph": g, "y": y.to(dev), "masks": masks,
             "num_classes": raw["num_classes"],
-            "num_edges": int(len(raw["senders"])), "device": dev}
+            "num_edges": int(len(raw["senders"])), "device": dev,
+            "avg_log_deg": avg_log_degree(np.bincount(deg))}
 
 
-def build_model(*, kind: str = "egc", hidden: int = 128, heads: int = 4,
-                bases: int = 4,
-                aggrs: Sequence[str] = ("symnorm", "max", "mean"),
-                num_layers: int = 3, dropout: float = 0.2,
-                num_features: int = 128, num_classes: int = 40,
-                seed: int = 0, device: DeviceLike = None) -> ArxivNet:
-    """The ``ArxivConfig`` net with ``kind`` convs (``bases`` and
-    ``aggrs`` are EGC's), initialised from ``seed`` on the CPU and moved
-    to ``device`` (so every device starts from the same weights)."""
+def arxiv_net(spec: ConvSpec, hidden: int, *, num_layers: int = 3,
+              dropout: float = 0.2, num_features: int = 128,
+              num_classes: int = 40, seed: int = 0,
+              device: DeviceLike = None) -> ArxivNet:
+    """The ``ArxivConfig`` net of ``spec`` convs, initialised from
+    ``seed`` on the CPU and moved to ``device`` (so every device starts
+    from the same weights)."""
     dev = resolve_device(device)
-    spec = ConvSpec(kind=kind, heads=heads, bases=bases, aggrs=tuple(aggrs))
     model = ArxivNet(spec, hidden, num_layers=num_layers, dropout=dropout,
                      num_features=num_features,
                      num_classes=num_classes,
@@ -135,11 +155,11 @@ def train_full_graph(raw: Dict[str, Any], *, steps: int, kind: str = "egc",
         data = full_graph_to_device_dict(raw, dev)
     elif data["device"] != dev:
         raise ValueError(f"data lives on {data['device']}, not {dev}")
-    model = build_model(kind=kind, hidden=hidden, heads=heads, bases=bases,
-                        aggrs=aggrs, dropout=dropout,
-                        num_features=data["graph"].nodes.shape[1],
-                        num_classes=data["num_classes"], seed=seed,
-                        device=dev)
+    spec = ConvSpec(kind=kind, heads=heads, bases=bases, aggrs=tuple(aggrs),
+                    avg_log_deg=data["avg_log_deg"])
+    model = arxiv_net(spec, hidden, dropout=dropout,
+                      num_features=data["graph"].nodes.shape[1],
+                      num_classes=data["num_classes"], seed=seed, device=dev)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr, weight_decay=wd)
     gen = torch.Generator(device=dev).manual_seed(seed)
     losses, seconds = [], []
@@ -151,3 +171,101 @@ def train_full_graph(raw: Dict[str, Any], *, steps: int, kind: str = "egc",
     if not np.all(np.isfinite(losses)):
         raise FloatingPointError(f"non-finite training loss: {losses}")
     return TrainRun(losses, seconds, model, optimizer, data)
+
+
+class FullGraphConfig(ExperimentConfig):
+    """Shared machinery of transductive node classification: one epoch is
+    one full-graph step (``train_step``), evaluation the argmax accuracy
+    of every split in eval mode (BatchNorm's running statistics)."""
+
+    num_layers: int = 3
+
+    def __init__(self, model_kind: str, hidden: int, *, heads: int = 8,
+                 bases: int = 8, aggrs: Optional[Sequence[str]] = None,
+                 gat_version: int = 1, device: DeviceLike = None):
+        self.model_kind = model_kind
+        self.hidden = hidden
+        self.heads = heads
+        self.bases = bases
+        self.aggrs = tuple(aggrs) if aggrs else None
+        self.gat_version = gat_version
+        self.device = resolve_device(device)
+        self._avg_log_deg = 1.0
+        self._num_features = 128
+
+    def load_full_graph(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def data(self, hparams):
+        d = full_graph_to_device_dict(self.load_full_graph(), self.device)
+        self._avg_log_deg = d["avg_log_deg"]
+        self._num_features = d["graph"].nodes.shape[1]
+        return d
+
+    def conv_spec(self) -> ConvSpec:
+        kind = self.model_kind
+        if kind in ("gat", "gatv2"):
+            kind = "gat" if self.gat_version == 1 else "gatv2"
+        return ConvSpec(kind=kind, heads=self.heads, bases=self.bases,
+                        aggrs=self.aggrs, avg_log_deg=self._avg_log_deg)
+
+    def train(self, model, state, data, rng, iteration: int):
+        loss = train_step(model, state, data, rng)
+        return state, {"train_loss": float(loss)}
+
+    @torch.no_grad()
+    def val(self, model, state, data):
+        model.eval()
+        out = model(data["graph"])
+        return split_accuracies(out, data["y"], data["masks"])
+
+    def test(self, model, state, data):
+        return self.val(model, state, data)
+
+
+class ArxivConfig(FullGraphConfig):
+    name = "arxiv"
+    num_layers = 3                     # reference arxiv/configs.py:29
+
+    def settings(self):
+        return ExperimentSettings("arxiv", final_repeats=10,
+                                  final_max_iterations=1000)
+
+    def stoppers(self):
+        return StopperSpec(patience=80, max_iters=1000)
+
+    def trial_metric(self):
+        return Metric("val_acc", "max")
+
+    def search_strategy(self):
+        # reference arxiv/configs.py:122-123 (FIFO scheduler: no pruner)
+        from egc_tpu_torch.exp.search import GridSearchStrategy
+        return GridSearchStrategy({"lr": 10, "wd": 2, "dropout": 2})
+
+    def hyperparams(self):
+        # reference arxiv/configs.py:140-144
+        return {
+            "lr": LogUniformHyperParam(0.001, 0.05, default=0.01),
+            "wd": LogUniformHyperParam(0.0001, 0.001, default=0.0005),
+            "dropout": UniformHyperParam(0.0, 0.2, default=0.2),
+        }
+
+    def plateau(self, hparams):
+        # ReduceLROnPlateau(patience=40): reference arxiv/configs.py:153-157
+        return plateau_init(hparams["lr"], mode="max", factor=0.5,
+                            patience=40, min_lr=1e-5)
+
+    def load_full_graph(self):
+        if self.synthetic:
+            return synthetic.synthetic_full_graph(
+                num_nodes=4000, avg_degree=12, num_classes=40,
+                num_features=128)
+        from egc_tpu_torch.data.ondisk import load_ogbn_arxiv
+        return load_ogbn_arxiv()
+
+    def model(self, hparams, *, seed: int = 0):
+        return arxiv_net(self.conv_spec(), self.hidden,
+                         num_layers=self.num_layers,
+                         dropout=float(hparams.get("dropout", 0.2)),
+                         num_features=self._num_features, seed=seed,
+                         device=self.device)

@@ -20,6 +20,16 @@ shared; only their key prefixes differ (``convs.{i}.`` / ``bns.{i}.`` and
   ``bias`` as it is (``weight_port.py:204-211``). A conv built with
   ``share_weights`` has no ``lin_r`` in flax; its ``lin_l`` fills both
   keys, as the state dict of a module whose ``lin_r`` is ``lin_l`` holds;
+- GCNConv ``lin.kernel`` -> ``lin.weight`` (no bias), ``bias`` as it
+  is; GINConv ``eps`` as it is, and its net, the sibling ``MLP_{i}``'s
+  ``Dense_0`` (the JAX package builds the conv's Linear in the net's
+  scope, ``weight_port.py:212-214``), -> ``nn.weight`` / ``nn.bias``;
+  SAGEConv ``lin_l`` (with bias) and ``lin_r`` (without);
+- MPNNConv ``msg_kernel`` / ``upd_kernel`` [T, in, out] and their biases
+  [T, out] -> one Linear a tower, ``message_layer.{t}`` /
+  ``update_layer.{t}``, then ``lin``; PNAConv ``pre_kernel`` /
+  ``post_kernel`` the same way to ``pre_nns.{t}.0`` / ``post_nns.{t}.0``
+  (``weight_port.py:158-172``), then ``lin``;
 - MaskedBatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
   ``running_mean/running_var``, plus ``num_batches_tracked`` = 0;
 - code: the ASTNodeEncoder's ``type`` / ``attr`` / ``depth`` embeddings and
@@ -30,7 +40,7 @@ shared; only their key prefixes differ (``convs.{i}.`` / ``bns.{i}.`` and
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -48,9 +58,31 @@ def _t(w) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(w).T)
 
 
+CONV_MODULE = {"gcn": "GCNConv", "gat": "GATConv", "gatv2": "GATv2Conv",
+               "gin": "GINConv", "sage": "SAGEConv", "mpnn-sum": "MPNNConv",
+               "mpnn-max": "MPNNConv", "pna": "PNAConv", "egc": "EGConv"}
+
+
+def _linear(sd, tp, p, bias=True) -> None:
+    sd[tp + "weight"] = _t(p["kernel"])
+    if bias:
+        sd[tp + "bias"] = np.asarray(p["bias"])
+
+
+def _towers(sd, kernel, bias, tower_prefix) -> None:
+    """[T, in, out] kernel and [T, out] bias -> one Linear a tower at
+    ``tower_prefix(t)``: every weight, then every bias (the JAX export's
+    order)."""
+    kernel, bias = np.asarray(kernel), np.asarray(bias)
+    for t in range(kernel.shape[0]):
+        sd[tower_prefix(t) + "weight"] = _t(kernel[t])
+    for t in range(kernel.shape[0]):
+        sd[tower_prefix(t) + "bias"] = bias[t]
+
+
 def _conv_rules(sd, params, conv_prefix, bases: int) -> None:
-    """The EGC, GAT and GATv2 conv rules, shared by every family; conv i
-    goes under ``conv_prefix(i)``."""
+    """The conv rules of every kind, shared by every family; conv i goes
+    under ``conv_prefix(i)``."""
     for i in _module_indices(params, "EGConv"):
         p, tp = params[f"EGConv_{i}"], conv_prefix(i)
         for b, chunk in enumerate(np.split(np.asarray(p["bases"]["kernel"]),
@@ -73,6 +105,47 @@ def _conv_rules(sd, params, conv_prefix, bases: int) -> None:
             sd[f"{tp}{side}.bias"] = np.asarray(lin["bias"])
         sd[tp + "att"] = np.asarray(p["att"])[None]
         sd[tp + "bias"] = np.asarray(p["bias"])
+    for i in _module_indices(params, "GCNConv"):
+        p, tp = params[f"GCNConv_{i}"], conv_prefix(i)
+        _linear(sd, tp + "lin.", p["lin"], bias=False)
+        sd[tp + "bias"] = np.asarray(p["bias"])
+    for i in _module_indices(params, "GINConv"):
+        sd[conv_prefix(i) + "eps"] = np.asarray(params[f"GINConv_{i}"]["eps"])
+    for i in _module_indices(params, "SAGEConv"):
+        p, tp = params[f"SAGEConv_{i}"], conv_prefix(i)
+        _linear(sd, tp + "lin_l.", p["lin_l"])
+        _linear(sd, tp + "lin_r.", p["lin_r"], bias=False)
+    for i in _module_indices(params, "MPNNConv"):
+        p, tp = params[f"MPNNConv_{i}"], conv_prefix(i)
+        _towers(sd, p["msg_kernel"], p["msg_bias"],
+                lambda t: f"{tp}message_layer.{t}.")
+        _towers(sd, p["upd_kernel"], p["upd_bias"],
+                lambda t: f"{tp}update_layer.{t}.")
+        _linear(sd, tp + "lin.", p["lin"])
+    for i in _module_indices(params, "PNAConv"):
+        p, tp = params[f"PNAConv_{i}"], conv_prefix(i)
+        _towers(sd, p["pre_kernel"], p["pre_bias"],
+                lambda t: f"{tp}pre_nns.{t}.0.")
+        _towers(sd, p["post_kernel"], p["post_bias"],
+                lambda t: f"{tp}post_nns.{t}.0.")
+        _linear(sd, tp + "lin.", p["lin"])
+
+
+def _gin_net_rules(sd, params, conv_prefix) -> None:
+    """GIN conv i's Linear: the sibling ``MLP_{i}``'s ``Dense_0``, after
+    the BatchNorms as in the JAX export."""
+    for i in _module_indices(params, "GINConv"):
+        _linear(sd, conv_prefix(i) + "nn.", params[f"MLP_{i}"]["Dense_0"])
+
+
+def _check_kind(params, kind: Optional[str]) -> None:
+    if kind is None:
+        return
+    if kind not in CONV_MODULE:
+        raise ValueError(f"unknown model kind {kind!r}")
+    if not _module_indices(params, CONV_MODULE[kind]):
+        raise ValueError(f"the variables hold no {CONV_MODULE[kind]} for "
+                         f"kind {kind!r}")
 
 
 def _batchnorm_rules(sd, params, stats, bn_prefix) -> None:
@@ -95,14 +168,19 @@ def _finish(sd) -> "OrderedDict[str, torch.Tensor]":
         (k, torch.from_numpy(np.array(v))) for k, v in sd.items())
 
 
-def arxiv_state_dict_from_jax(variables: Dict[str, Any], *, bases: int = 4
+def arxiv_state_dict_from_jax(variables: Dict[str, Any], *,
+                              kind: Optional[str] = None, bases: int = 4
                               ) -> "OrderedDict[str, torch.Tensor]":
-    """``bases``: the EGC convs' basis count (GAT and GATv2 read none)."""
+    """``kind``: the conv kind, checked against the variables (None: take
+    whichever convs they hold); ``bases``: the EGC convs' basis count (the
+    other kinds read none)."""
     params = variables["params"]
+    _check_kind(params, kind)
     sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
     _conv_rules(sd, params, lambda i: f"convs.{i}.", bases)
     _batchnorm_rules(sd, params, variables.get("batch_stats", {}),
                      lambda i: f"bns.{i}.")
+    _gin_net_rules(sd, params, lambda i: f"convs.{i}.")
     sd["embed.0.weight"] = _t(params["embed"]["kernel"])
     sd["embed.0.bias"] = np.asarray(params["embed"]["bias"])
     sd["out.weight"] = _t(params["out"]["kernel"])
@@ -123,6 +201,7 @@ def code_state_dict_from_jax(variables: Dict[str, Any], *, bases: int = 4
     _conv_rules(sd, params, lambda i: f"graph_layers.{i}.0.", bases)
     _batchnorm_rules(sd, params, variables.get("batch_stats", {}),
                      lambda i: f"graph_layers.{i}.1.")
+    _gin_net_rules(sd, params, lambda i: f"graph_layers.{i}.0.")
     emb = params["embedding"]
     for ours, theirs in (("type", "type_encoder"),
                          ("attr", "attribute_encoder"),

@@ -1,8 +1,7 @@
 """Task networks (counterpart of ``egc_tpu.models.nets``).
 
-``ArxivNet`` (full graph) and ``CodeNet`` (batched ogbg-code2) are ported
-with the EGC, GAT and GATv2 convs; ``ConvSpec`` names every kind the JAX
-package has, and the kinds not ported yet raise.
+``ArxivNet`` (full graph) and ``CodeNet`` (batched ogbg-code2) take every
+kind of conv the JAX package has: ``ConvSpec`` builds all nine.
 """
 
 from __future__ import annotations
@@ -13,9 +12,12 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from egc_tpu_torch.nn import init as einit
 from egc_tpu_torch.nn.conv.attention import GATConv, GATv2Conv
 from egc_tpu_torch.nn.conv.egc import EGConv
+from egc_tpu_torch.nn.conv.mpnn import MPNNConv
+from egc_tpu_torch.nn.conv.pna import PNAConv
+from egc_tpu_torch.nn.conv.simple import GCNConv, GINConv, SAGEConv
+from egc_tpu_torch.nn.mlp import linear
 from egc_tpu_torch.models.encoders import ASTNodeEncoder
 from egc_tpu_torch.nn.norm import MaskedBatchNorm
 from egc_tpu_torch.nn.pool import global_mean_pool
@@ -24,15 +26,6 @@ SEQ_LEN = 5    # CodeNet's token positions (reference code/models.py:95-98)
 
 MODEL_KINDS = ("gcn", "gat", "gatv2", "gin", "mpnn-sum", "mpnn-max", "pna",
                "sage", "egc")
-# where each kind not ported yet stands in ROADMAP.md's queue A
-_NOT_PORTED = {
-    "gcn": "A9 (convs on conv_aggregate)",
-    "gin": "A9 (convs on conv_aggregate)",
-    "sage": "A9 (convs on conv_aggregate)",
-    "mpnn-sum": "A9 (convs on conv_aggregate)",
-    "mpnn-max": "A9 (convs on conv_aggregate)",
-    "pna": "A9 (convs on conv_aggregate)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +39,8 @@ class ConvSpec:
     sigmoid: bool = False
     hardtanh: bool = False
     aggrs: Optional[Tuple[str, ...]] = None
-    self_loop_mode: str = "paper"
+    self_loop_mode: str = "paper"     # EGC only
+    avg_log_deg: float = 0.0          # PNA only (the dataset's degrees)
 
     def build(self, in_dim: int, out_dim: int, *, layer_idx: int,
               num_layers: int, generator: Optional[torch.Generator] = None,
@@ -72,18 +66,23 @@ class ConvSpec:
             ctor = GATConv if self.kind == "gat" else GATv2Conv
             return ctor(in_dim, out_dim // h, heads=h, generator=generator,
                         device=device)
-        if self.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"conv kind {self.kind!r} is not ported to egc_tpu_torch "
-                f"yet: ROADMAP.md item {_NOT_PORTED[self.kind]}")
+        kw = dict(generator=generator, device=device)
+        if self.kind == "gcn":
+            return GCNConv(in_dim, out_dim, **kw)
+        if self.kind == "gin":
+            # GINConv(nn.Linear(h, h), train_eps=True): reference
+            # arxiv/norm_models.py:95 (the JAX package's MLP([out]))
+            return GINConv(linear(in_dim, out_dim, **kw), device=device)
+        if self.kind == "sage":
+            return SAGEConv(in_dim, out_dim, **kw)
+        if self.kind in ("mpnn-sum", "mpnn-max"):
+            return MPNNConv(in_dim, out_dim, aggr=self.kind[len("mpnn-"):],
+                            **kw)
+        if self.kind == "pna":
+            return PNAConv(in_dim, out_dim, avg_log_deg=self.avg_log_deg,
+                           **kw)
         raise ValueError(f"unknown model kind {self.kind!r}; supported "
                          f"{MODEL_KINDS}")
-
-
-def _linear(fan_in: int, fan_out: int, generator, device) -> nn.Linear:
-    lin = nn.Linear(fan_in, fan_out, device=device)
-    einit.torch_linear_(lin, generator)
-    return lin
 
 
 class ArxivNet(nn.Module):
@@ -104,7 +103,8 @@ class ArxivNet(nn.Module):
         self.dropout = dropout
         self.log_probs = log_probs
         self.embed = nn.Sequential(
-            _linear(num_features, hidden_dim, generator, device))
+            linear(num_features, hidden_dim, generator=generator,
+                   device=device))
         self.convs = nn.ModuleList()
         self.bns = nn.ModuleList()
         for i in range(num_layers):
@@ -112,7 +112,8 @@ class ArxivNet(nn.Module):
                                          num_layers=num_layers,
                                          generator=generator, device=device))
             self.bns.append(MaskedBatchNorm(hidden_dim, device=device))
-        self.out = _linear(hidden_dim, num_classes, generator, device)
+        self.out = linear(hidden_dim, num_classes, generator=generator,
+                          device=device)
 
     def forward(self, g, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -158,7 +159,8 @@ class CodeNet(nn.Module):
                            MaskedBatchNorm(hidden_dim, device=device)])
             for i in range(num_layers))
         self.token_predictors = nn.ModuleList(
-            _linear(hidden_dim, vocab_size + 2, generator, device)
+            linear(hidden_dim, vocab_size + 2, generator=generator,
+                   device=device)
             for _ in range(SEQ_LEN))
 
     def forward(self, g) -> torch.Tensor:

@@ -1,0 +1,64 @@
+"""Checkpoint persist / restore (counterpart of ``egc_tpu.train.checkpoint``;
+the reference's ``persist_trial`` / ``restore_trial`` contract,
+``experiments/exp_config.py:31-53``).
+
+A trial directory holds ``checkpoint.pt``, written with ``torch.save`` in
+the reference's trial payload shape: ``model`` (the reference-named state
+dict), ``opt`` (the optimizer's ``state_dict``) and ``step``. Beside it,
+``checkpoint.json`` holds the JAX package's meta unchanged: ``hparams``,
+``plateau`` as a list and ``extra``.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from egc_tpu_torch.train.optim import PlateauState, set_lr
+from egc_tpu_torch.train.state import optimizer_step
+
+
+def save_checkpoint(ckpt_dir, *, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer,
+                    plateau: Optional[PlateauState] = None,
+                    hparams: Optional[Dict[str, Any]] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> Path:
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    path = ckpt_dir / "checkpoint.pt"
+    torch.save({"model": model.state_dict(), "opt": optimizer.state_dict(),
+                "step": optimizer_step(optimizer)}, path)
+    meta = {
+        "hparams": hparams or {},
+        "plateau": list(plateau) if plateau is not None else None,
+        "extra": extra or {},
+    }
+    (ckpt_dir / "checkpoint.json").write_text(json.dumps(meta, default=float))
+    return path
+
+
+def load_checkpoint(ckpt_dir, *, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer
+                    ) -> Tuple[int, Optional[PlateauState], Dict[str, Any]]:
+    """Load a trial directory into ``model`` (strictly) and ``optimizer``;
+    returns ``(step, plateau, hparams)``. The optimizer's learning rate
+    follows the restored plateau."""
+    ckpt_dir = Path(ckpt_dir)
+    dev = next(model.parameters()).device
+    raw = torch.load(ckpt_dir / "checkpoint.pt", map_location=dev,
+                     weights_only=True)
+    model.load_state_dict(raw["model"], strict=True)
+    optimizer.load_state_dict(raw["opt"])
+    meta = json.loads((ckpt_dir / "checkpoint.json").read_text())
+    plateau = None
+    if meta.get("plateau") is not None:
+        vals = meta["plateau"]
+        plateau = PlateauState(lr=vals[0], best=vals[1], num_bad=int(vals[2]),
+                               mode=vals[3], factor=vals[4],
+                               patience=int(vals[5]), min_lr=vals[6],
+                               threshold=vals[7])
+        set_lr(optimizer, plateau.lr)
+    return int(raw["step"]), plateau, meta.get("hparams", {})

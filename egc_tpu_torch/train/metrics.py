@@ -8,6 +8,8 @@ evaluators).
   on binary labels.
 - ``sequence_f1``: ogbg-code2 evaluator: per-sample set-overlap precision,
   recall and F1 of the decoded token sequences, averaged.
+- ``split_accuracies``: the full-graph evaluation, the argmax accuracy of
+  each split's rows, computed on the tensors' device and read once.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 
 def accuracy(pred_labels, true_labels) -> float:
@@ -56,3 +59,15 @@ def sequence_f1(seq_pred: Sequence[List], seq_ref: Sequence[List]) -> float:
         rec = tp / len(rs) if rs else 0.0
         f1s.append(2 * prec * rec / (prec + rec) if prec + rec > 0 else 0.0)
     return float(np.mean(f1s)) if f1s else 0.0
+
+
+def split_accuracies(out: torch.Tensor, y: torch.Tensor,
+                     masks: dict) -> dict:
+    """``{split}_acc`` for train / val / test: the share of each split's
+    rows whose argmax over ``out [N, C]`` is the label (0 for an empty
+    split), with one read from the device."""
+    splits = ("train", "val", "test")
+    hit = out.argmax(dim=-1) == y
+    accs = torch.stack([(hit & masks[s]).sum() / masks[s].sum().clamp(min=1)
+                        for s in splits])
+    return {f"{s}_acc": float(v) for s, v in zip(splits, accs.cpu())}

@@ -1,0 +1,151 @@
+"""The port's command line, ``python -m egc_tpu_torch`` (``cli.py``),
+against the JAX package's ``main.py``: the same options and defaults,
+``--check`` of all nine kinds on the CPU, the final runs' files, and the
+datasets and options this port does not run yet."""
+
+import ast
+import contextlib
+import io
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import main as jmain
+
+from egc_tpu_torch import cli
+
+torch.set_num_threads(2)
+EGC = ["--aggrs", "symnorm,max,mean", "--egc-num-heads", "4",
+       "--egc-num-bases", "4"]
+
+
+def run_cli(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue()
+
+
+def test_parser_takes_every_option_of_main():
+    """Every click parameter of ``main.main`` by name, flags and default;
+    ``--device`` is the one option more."""
+    actions = {}
+    for a in cli.build_parser()._actions:     # the first of each dest
+        if a.dest != "help":
+            actions.setdefault(a.dest, a)
+    for p in jmain.main.params:
+        if p.param_type_name == "argument":
+            assert actions[p.name].option_strings == [], p.name
+            continue
+        a = actions[p.name]
+        assert set(p.opts) <= set(a.option_strings), p.name
+        assert a.default == p.default, p.name
+        for flag in p.secondary_opts:          # --synthetic/--real
+            off = [b for b in cli.build_parser()._actions
+                   if flag in b.option_strings]
+            assert off and off[0].dest == p.name and off[0].const is False
+    names = {p.name for p in jmain.main.params}
+    assert set(actions) - names == {"device"}
+    assert actions["device"].default is None
+    positional = [a.dest for a in cli.build_parser()._actions
+                  if not a.option_strings]
+    assert positional == ["exp_directory", "model", "dataset"]
+    assert cli.MODELS == jmain.MODELS and cli.DATASETS == jmain.DATASETS
+    assert cli.SUPPORTED == jmain.SUPPORTED
+
+
+@pytest.mark.parametrize("model", cli.MODELS)
+def test_check_runs_each_kind_on_the_cpu(tmp_path, model):
+    """``--check --check-epochs 2 --hidden 16 --device cpu`` prints the
+    dict ``main.py`` prints: best_val, best_iter and the test metrics."""
+    argv = [str(tmp_path), model, "arxiv", "--hidden", "16", "--check",
+            "--check-epochs", "2", "--device", "cpu"]
+    if model == "egc":
+        argv += EGC
+    res = ast.literal_eval(run_cli(argv).strip().splitlines()[-1])
+    assert set(res) == {"best_val", "best_iter", "test"}
+    assert set(res["test"]) == {"train_acc", "val_acc", "test_acc"}
+    assert res["best_iter"] in (0, 1) and 0.0 <= res["best_val"] <= 1.0
+
+
+def test_final_runs_write_the_jax_keys(tmp_path, monkeypatch):
+    """``--use-default-hparams --final-runs 2`` (each run cut to 3
+    iterations): ``final_summary.json`` with the JAX package's keys, a
+    trial directory per run, and the invocation."""
+    from egc_tpu_torch.exp import fullgraph as tfg
+    monkeypatch.setattr(tfg.ArxivConfig, "stoppers",
+                        lambda self: tfg.StopperSpec(80, 3))
+    argv = [str(tmp_path), "sage", "arxiv", "--hidden", "8",
+            "--use-default-hparams", "--final-runs", "2", "--device", "cpu"]
+    out = run_cli(argv)
+    assert "Using default hyperparams:" in out
+    summary = json.loads((tmp_path / "final_summary.json").read_text())
+    assert set(summary) == {"hparams", "repeats", "train_acc", "val_acc",
+                            "test_acc"}
+    assert summary["repeats"] == 2
+    assert summary["hparams"] == {"lr": 0.01, "wd": 0.0005, "dropout": 0.2}
+    assert len(summary["val_acc"]["values"]) == 2
+    for rep in (0, 1):
+        d = tmp_path / "final" / f"run_{rep}"
+        assert (d / "checkpoint.pt").exists()
+        assert len(json.loads((d / "history.json").read_text())) == 3
+    inv = json.loads((tmp_path / "invocation.json").read_text())
+    assert inv["argv"][-len(argv):] == argv
+
+
+def test_hparams_are_a_literal(tmp_path):
+    with pytest.raises(ValueError):
+        cli.main([str(tmp_path), "gcn", "arxiv", "--hidden", "8",
+                  "--hparams", "__import__('os')", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["gcn", "code"], "A12"),
+    (["egc", "zinc"], "A12"),
+    (["gcn", "hiv"], "A12"),
+    (["egc", "cifar"], "A12"),
+    (["egc", "mag"], "A11"),
+    (["egc", "rmag"], "A13"),
+    (["gcn", "arxiv", "--pretrained"], "A15"),
+    (["gcn", "arxiv", "--partitions", "4"], "A16"),
+    (["gcn", "arxiv", "--search-workers", "2"], "A15"),
+    (["egc", "mag", "--sampled"], "A14"),
+    (["egc", "mag", "--device-sampler"], "A14"),
+])
+def test_out_of_scope_raises_with_its_roadmap_item(tmp_path, argv, item):
+    full = [str(tmp_path)] + argv + ["--hidden", "8", "--aggrs", "symnorm",
+                                      "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+        cli.main(full)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["sage", "zinc"], "not supported"),
+    (["egc", "arxiv", "--hidden", "8"], "--aggrs is required"),
+    (["gcn", "arxiv"], "--hidden is required"),
+    (["gcn", "arxiv", "--hidden", "8", "--sampled"], "mag dataset only"),
+])
+def test_usage_errors(tmp_path, argv, msg):
+    with pytest.raises(cli.UsageError, match=msg):
+        cli.main([str(tmp_path)] + argv + ["--device", "cpu"])
+
+
+def test_the_card_is_the_default(tmp_path, monkeypatch):
+    """Without ``--device cpu`` and without a card, the command raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main([str(tmp_path), "gcn", "arxiv", "--hidden", "8", "--check",
+                  "--check-epochs", "1"])
+
+
+def test_module_entry_point_exits_2_on_what_it_cannot_run(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "egc", "mag",
+         "--hidden", "8", "--aggrs", "symnorm", "--device", "cpu"],
+        capture_output=True, text=True, timeout=120,
+        cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert res.returncode == 2 and "A11" in res.stderr

@@ -127,14 +127,6 @@ def test_gatv2_launchers_refuse_cpu_tensors():
             at._launch_v2_bwd(name, hl, hl, att, z, hl, z, ptr, idx)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "gin", "sage", "mpnn-sum",
-                                  "mpnn-max", "pna"])
-def test_unported_conv_kinds_raise(kind):
-    from egc_tpu_torch.models.nets import ConvSpec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConvSpec(kind=kind).build(8, 8, layer_idx=0, num_layers=3)
-
-
 def test_gat_kind_builds_single_head_last_layer():
     from egc_tpu_torch.models.nets import ConvSpec
     from egc_tpu_torch.nn.conv.attention import GATConv
