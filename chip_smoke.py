@@ -43,7 +43,24 @@ Phases, each of which raises (exit code 1) on any failed check:
    (``floor_ms``). Kernels 1 and 2 again in the instantiation each
    conv-zoo path runs (GCN wsum at F = 156, GIN sum at 156, SAGE sum at
    115, MPNN sum and max at 116, PNA sum / sumsq / max / min at 76 with
-   both masks) at the arxiv shape, masks bitwise, timed.
+   both masks) at the arxiv shape, masks bitwise, timed. Then kernels 1-4
+   in the instantiation each EGC path of phase 4 runs (``NEW_GATHER``,
+   ``PATH_HEADMIX``): on the first train batch of zinc (F 124, sum /
+   sumsq / max), cifar (F 128, sum / wsum / sumsq / max) and hiv (F 224,
+   sum / max), each with the max mask, and at mag's full shape (F 176
+   wsum over the ``MAG_GRAPH`` graph, whose build on the host is timed),
+   the head mix at (H, B, A, L) = (4, 4, 3, 31), (4, 4, 3, 32), (4, 4, 3,
+   56) and (8, 4, 1, 44) on the same rows, its variant held against
+   ``fwd_variant`` / ``bwd_variant``; values, gradients, masks bitwise,
+   two launches bitwise, timed with their bounds. The same for each
+   instantiation that only a CLI run of phase 5 launches (``CLI_GATHER``,
+   ``CLI_HEADMIX``: on a hiv batch, a code2 batch and the arxiv graph;
+   the attention shapes ``CLI_GAT_SHAPES``, ``CLI_GATV2_SHAPES`` on the
+   small graph). What phase 3 held is recorded (``HELD``): every timed
+   path and CLI run fails on a gather-reduce (F, primitives, masks; the
+   forward without masks counted held with the masked one), head mix
+   (H, B, A, L) or attention (H, C) that it launched and phase 3 did not
+   hold.
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
@@ -76,7 +93,24 @@ Phases, each of which raises (exit code 1) on any failed check:
    would take the script past ``ZOO_BUDGET_S`` (a line says which). In
    the timed steps of EGC-M and of each zoo path, the (F, primitives,
    masks) that ``ops/dispatch`` launches the gather-reduce pair with must
-   be the one phase 3 held (``PATH_GATHER``).
+   be the one phase 3 held (``PATH_GATHER``). Then "mag": MagNet h352 H8
+   B4 symnorm (2 layers, lr 0.01, wd 1e-5, dropout 0.3) through
+   ``MagConfig``'s hooks on ``synthetic_full_graph`` of ogbn-mag's 736,389
+   papers at average degree 15: one dropout-0 iteration against the CPU
+   one (on a graph of 1/8 the nodes when the full size would end past
+   ``MAG_BUDGET_S``), 2 warm-up and 10 timed iterations with the
+   counters (each EGC kernel twice a step), edges/s, peak memory, a
+   profiler table. Then the batched EGC-M paths of ``BATCHED_NETS``
+   ("zinc_egc" h124 ``add,std,max`` batch 64, "cifar_egc" h128
+   ``symadd,std,max`` batch 32 dropout 0.081, "hiv_egc" h224
+   ``add,mean,max`` batch 32 dropout 0.2; H4 B4, 4 layers, the main
+   table's lr and wd) through their configs, as the code2 paths: the
+   card step held against the CPU step on the card's branches (every
+   ReLU, std's gate), 2 warm-up steps and one epoch timed (each EGC
+   kernel 4 times a step), a val pass of the config's metric, graphs/s,
+   the profiler's split. In the timed steps of these four paths the
+   gather-reduce and head-mix instantiations launched must be the ones
+   held above (``PATH_GATHER``, ``PATH_HEADMIX``).
 5. the trial loop and the command line: ``exp/runner.run_trial`` at arxiv
    size (EGC-M h128 H4 B4 through an ArxivConfig on the 169,343-node
    graph, 12 iterations into a trial directory; seconds an iteration
@@ -86,7 +120,11 @@ Phases, each of which raises (exit code 1) on any failed check:
    kinds at their reference arxiv widths on ArxivConfig's synthetic graph
    (metrics finite, the kind's kernels launched and no other), then one
    EGC-M h136 ``--use-default-hparams --final-runs 1`` run whose
-   ``restore_trial`` gives the accuracies its ``result.json`` recorded.
+   ``restore_trial`` gives the accuracies its ``result.json`` recorded;
+   then ``--check --check-epochs 2`` of each of the 22 supported (dataset,
+   kind) pairs of zinc, cifar, hiv, code and mag at its main-table width
+   (``CLI_DATASET_RUNS``), and one zinc EGC-M h124 final run restored the
+   same way.
 Each phase's seconds are printed at the end.
 
 Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
@@ -94,13 +132,17 @@ the result line ``{"ok": true, "device": {...}}``. A kernel row's times
 and bound for the GAT and GATv2 kernels are per launch on their arxiv
 path (two launches at the first shape and one at the second per step);
 ``wide`` gives times and bound at the code2 widths (a code2 batch fits in
-L2, so its gathered floor is null), ``launches_by_path`` the launches
+L2, so its gathered floor is null), ``zoo``, ``paths`` and ``cli`` those
+of each gather-reduce and head-mix instantiation held in phase 3,
+``launches_by_path`` the launches
 of each path's timed steps and ``launches`` their sum. The two
 gather-reduce rows also give the bytes each edge gathers in their floor
 (``gathered_bytes_per_edge``); the forward's row its time without the mask
 (``ms_no_mask``) and on the 1/8 grid (``ms_ties``, with ``tied_rows``, the
 rows it re-sweeps), and ``zoo`` their times, bound and floor in each
-conv-zoo path's instantiation. Without a
+conv-zoo path's instantiation, and ``paths`` those of the kernels 1-4
+in each phase-4 EGC path's (a batch's gathered floor is null: it fits in
+L2). Without a
 CUDA device, or outside the repository, it exits nonzero and prints no
 result. ``--out`` writes every measured number to a JSON file.
 """
@@ -152,17 +194,67 @@ ZOO_SHAPES = {"gcn": (156, ("wsum",), ()), "gin": (156, ("sum",), ()),
               "sage": (115, ("sum",), ()), "mpnn_sum": (116, ("sum",), ()),
               "mpnn_max": (116, ("max",), ("max",)),
               "pna": (76, ("sum", "sumsq", "max", "min"), ("max", "min"))}
+# the EGC paths of the batched tasks and of homogeneous ogbn-mag at the
+# main table's EGC-M widths and hyperparameters
+# (scripts/train_main_table.sh:16,21,32,60), through their configs
+BATCHED_NETS = {
+    "zinc_egc": dict(config="ZincConfig", hidden=124,
+                     aggrs=("add", "std", "max"),
+                     hp={"lr": 0.0019099809690277627, "batch_size": 64,
+                         "wd": 0.00020407622034162426}),
+    "cifar_egc": dict(config="CifarConfig", hidden=128,
+                      aggrs=("symadd", "std", "max"),
+                      hp={"lr": 0.0009263869626947979, "batch_size": 32,
+                          "wd": 0.0007592290244995363,
+                          "dropout": 0.08118925150158363}),
+    "hiv_egc": dict(config="MolConfig", hidden=224,
+                    aggrs=("add", "mean", "max"),
+                    hp={"lr": 0.0001, "batch_size": 32, "wd": 0.001,
+                        "dropout": 0.2})}
+# MagNet h352 H8 B4 symnorm, 2 layers, on a synthetic graph of ogbn-mag's
+# 736,389 papers at average degree 15 (~ its 5,416,271 cites edges, both
+# directions after to_undirected), 128 features, 349 classes
+MAG_NET = dict(hidden=352, heads=8, bases=4, aggrs=("symnorm",),
+               hp={"lr": 0.01, "wd": 1e-05, "dropout": 0.3})
+MAG_GRAPH = dict(num_nodes=736_389, avg_degree=15, num_classes=349,
+                 num_features=128, seed=0)
+# the mag step check moves to a graph of 1/8 the nodes when its two CPU
+# steps (projected from the main path's) would end past this
+MAG_BUDGET_S = 330
+# each new EGC path's gather-reduce (F = B*L, primitives, masks) and head
+# mix (H, B, A, L); the batched ones H4 B4 A3 (hiv A3 too: add, mean, max)
+NEW_GATHER = {"zinc_egc": (124, ("sum", "sumsq", "max"), ("max",)),
+              "cifar_egc": (128, ("sum", "wsum", "sumsq", "max"),
+                            ("max",)),
+              "hiv_egc": (224, ("sum", "max"), ("max",)),
+              "mag": (176, ("wsum",), ())}
+PATH_HEADMIX = {"main": (4, 4, 3, 32), "zinc_egc": (4, 4, 3, 31),
+                "cifar_egc": (4, 4, 3, 32), "hiv_egc": (4, 4, 3, 56),
+                "mag": (8, 4, 1, 44)}
 #   (held against what ``ops/dispatch`` launches in each path's timed
-#   steps, ``_gather_instantiations``; EGC-M's is the main shape's)
-PATH_GATHER = {"main": (128, ("sum", "wsum", "max"), ("max",)), **ZOO_SHAPES}
-# the parameters of each path that feed a BatchNorm through affine maps
-# only: BN removes a constant shift, so their true gradient is 0 and both
-# steps hold rounding noise there (MPNN-max's message biases too, where
-# every real node has an in-edge: a constant shift of every max)
-ZERO_GRAD = {"sage": r"lin_l\.bias", "gin": r"nn\.bias",
-             "mpnn_sum": r"lin\.bias|update_layer\.\d+\.bias",
-             "mpnn_max": r"lin\.bias|(update|message)_layer\.\d+\.bias",
-             "pna": r"lin\.bias|post_nns\.\d+\.0\.bias"}
+#   steps, ``_instantiations``; EGC-M's is the main shape's)
+PATH_GATHER = {"main": (128, ("sum", "wsum", "max"), ("max",)), **ZOO_SHAPES,
+               **NEW_GATHER}
+# the parameters of each path, by the whole name, that feed a BatchNorm
+# through affine maps only: BN removes a constant shift, so their true
+# gradient is 0 and both steps hold rounding noise there (MPNN-max's
+# message biases too, where every real node has an in-edge: a constant
+# shift of every max). By default a conv's bias (arxiv ``convs.{i}``,
+# CodeNet ``graph_layers.{i}.0``); MagNet has no BatchNorm; a batched EGC
+# net's conv bias and its readout's first two Linears' biases feed one
+# (cifar's conv is graph_layers.{i}.1)
+ZERO_GRAD = {"sage": r"convs\.\d+\.lin_l\.bias",
+             "gin": r"convs\.\d+\.nn\.bias",
+             "mpnn_sum": r"convs\.\d+\.(lin|update_layer\.\d+)\.bias",
+             "mpnn_max":
+                 r"convs\.\d+\.(lin|(update|message)_layer\.\d+)\.bias",
+             "pna": r"convs\.\d+\.(lin|post_nns\.\d+\.0)\.bias",
+             "code_gat": r"graph_layers\.\d+\.0\.bias",
+             "code_gatv2": r"graph_layers\.\d+\.0\.bias",
+             "mag": r"(?!)",
+             "zinc_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias",
+             "cifar_egc": r"graph_layers\.\d+\.1\.bias|mlp\.[04]\.bias",
+             "hiv_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias"}
 # the step check of the zoo paths moves to a graph of 1/8 the nodes (same
 # average degree) when its CPU steps would take the script past this
 ZOO_BUDGET_S = 420
@@ -181,25 +273,81 @@ CLI_EPOCHS = 3
 # whose graph is the 169,343-node one, this many iterations
 TRIAL_ITERS = 12
 GATHER = ("gather_reduce_fwd", "gather_reduce_bwd")
+EGC_KERNELS = ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
+               "headmix_bwd")
 PATH_KERNELS = {
-    "main": ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
-             "headmix_bwd"),
+    "main": EGC_KERNELS,
     "gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
     "gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
     "code_gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
     "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
     **{path: GATHER for path in ZOO_NETS},
+    "mag": EGC_KERNELS, **{path: EGC_KERNELS for path in BATCHED_NETS},
 }
 PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
-               "code_gatv2": 4, **{path: 3 for path in ZOO_NETS}}
+               "code_gatv2": 4, **{path: 3 for path in ZOO_NETS},
+               "mag": 2, **{path: 4 for path in BATCHED_NETS}}
 #   launches of each path kernel per step
 CLI_KERNELS = {"gat": PATH_KERNELS["gat"], "gatv2": PATH_KERNELS["gatv2"],
                "egc": PATH_KERNELS["main"]}   # the others: GATHER
+# then ``--check --check-epochs 2`` of every SUPPORTED (dataset, kind) of
+# the batched datasets and mag, each at its width in
+# scripts/train_main_table.sh (EGC: its egc_m row), and one zinc EGC-M
+# final run restored with ``restore_trial``
+_EGC_M = ["--egc-num-heads", "4", "--egc-num-bases", "4", "--aggrs"]
+CLI_DATASET_RUNS = [
+    ("zinc", "egc", ["--hidden", "124", *_EGC_M, "add,std,max"]),
+    ("zinc", "gatv2", ["--hidden", "104"]),
+    ("cifar", "egc", ["--hidden", "128", *_EGC_M, "symadd,std,max"]),
+    ("cifar", "gatv2", ["--hidden", "104"]),
+    ("hiv", "egc", ["--hidden", "224", *_EGC_M, "add,mean,max"]),
+    ("hiv", "gcn", ["--hidden", "240"]), ("hiv", "gat", ["--hidden", "240"]),
+    ("hiv", "gatv2", ["--hidden", "184"]), ("hiv", "gin", ["--hidden", "240"]),
+    ("hiv", "sage", ["--hidden", "180"]),
+    ("hiv", "mpnn-max", ["--hidden", "180"]),
+    ("hiv", "mpnn-sum", ["--hidden", "180"]),
+    ("code", "egc", ["--hidden", "300", *_EGC_M, "symadd,min,max"]),
+    ("code", "gcn", ["--hidden", "304"]), ("code", "gat", ["--hidden", "304"]),
+    ("code", "gatv2", ["--hidden", "296"]),
+    ("code", "gin", ["--hidden", "304"]),
+    ("code", "sage", ["--hidden", "293"]),
+    ("code", "mpnn-max", ["--hidden", "292"]),
+    ("code", "mpnn-sum", ["--hidden", "292"]),
+    ("code", "pna", ["--hidden", "272"]),
+    ("mag", "egc", ["--hidden", "352", "--egc-num-heads", "8",
+                    "--egc-num-bases", "4", "--aggrs", "symnorm"])]
+CLI_DATASET_EPOCHS = 2
+# the kernel instantiations that the CLI runs launch beyond the timed
+# paths', by dataset and kind: gather-reduce (F, primitives, masks) and
+# head mix (H, B, A, L), held in phase 3 on a batch of the dataset (arxiv:
+# its graph; hiv's mpnn-sum launches sage's (180, sum)); the attention
+# shapes (H, C) of hiv GAT h240, zinc / cifar GATv2 h104 and hiv GATv2
+# h184, held on the small graph
+CLI_GATHER = {
+    "arxiv": {"egc": (136, ("sum", "wsum", "max"), ("max",))},
+    "hiv": {"gcn": (240, ("wsum",), ()), "gin": (240, ("sum",), ()),
+            "sage": (180, ("sum",), ()),
+            "mpnn-max": (180, ("max",), ("max",))},
+    "code": {"egc": (300, ("wsum", "max", "min"), ("max", "min")),
+             "gcn": (304, ("wsum",), ()), "gin": (304, ("sum",), ()),
+             "sage": (293, ("sum",), ()), "mpnn-sum": (292, ("sum",), ()),
+             "mpnn-max": (292, ("max",), ("max",)),
+             "pna": (272, ("sum", "sumsq", "max", "min"), ("max", "min"))}}
+CLI_HEADMIX = {"arxiv": {"egc": (4, 4, 3, 34)},
+               "code": {"egc": (4, 4, 3, 75)}}
+CLI_GAT_SHAPES = ((8, 30), (1, 240))
+CLI_GATV2_SHAPES = ((8, 13), (1, 104), (8, 23), (1, 184))
+# what phase 3 held against the plain versions: gather-reduce (F,
+# primitives, masks; the forward without masks, as an eval launches it,
+# besides each masked one), head mix (H, B, A, L), GAT and GATv2 (H, C).
+# Every instantiation a CLI run launches must be among them.
+HELD = {"gather": set(), "headmix": set(), "gat": set(), "gatv2": set()}
 # tolerances, with why:
 SUM_RTOL = SUM_ATOL = 1e-5     # f32 sums of <= ~40 terms in another order
 GRAD_REL_L2 = 1e-4             # autograd vs kernel backward; var/std
 #                                cancel two large terms
 STEP_LOSS_RTOL = 1e-5          # card vs CPU step: cuBLAS vs CPU matmul
+RESTORE_RTOL = 1e-5            # a batched eval on the card: atomic sums
 STEP_GRAD_REL_L2 = 1e-3        # card vs CPU at full size: max and ReLU
 #   selections that flip under another rounding move whole cotangents; the
 #   step prints the spread that 1e-7 input noise gives on the CPU alone.
@@ -350,6 +498,10 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
     check(all(torch.equal(a, b) for a, b in
               zip(outs, gr.gather_reduce_fwd(*args, **mkw))),
           "gather_reduce_fwd: two launches differ")
+    check(all(torch.equal(a, b) for a, b in
+              zip(outs, gr.gather_reduce_fwd(*args))),
+          "gather_reduce_fwd: without the mask it differs")
+    HELD["gather"] |= {(f, prims, ("max",)), (f, prims, ())}
     words = gr.mask_words(f)
     # vals, rowptr, senders and weights, the outputs, fwd_to_bwd, the mask
     nbytes = 4 * (n * f + (n + 1) + 2 * e + len(prims) * n * f + e
@@ -499,6 +651,7 @@ def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
 
     # kernels 3+4 through the autograd function vs autograd of the plain
     _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, B * L)
+    HELD["headmix"].add((H, B, A, L))
     for row in rows:
         log(f"[kernels] {row['name']}: {row['ms']:.4f} ms (plain "
             f"{row['plain_ms']:.4f}, library {row['library_ms']}, bound "
@@ -695,19 +848,39 @@ def kernels_zoo_shapes(data) -> dict:
     each conv-zoo path runs (``ZOO_SHAPES``: GCN wsum at F = 156, GIN sum
     at 156, SAGE sum at 115 (a lane of one column), MPNN sum and max at
     116, PNA sum / sumsq / max / min at 76 with both masks), at the arxiv
-    shape: the values at ``SUM_RTOL``, the extrema and masks bitwise, the
-    backward from the path's coefficients (and masks) at ``GRAD_REL_L2``,
-    two launches of each bitwise; timed. Returns the entries by kernel."""
+    shape (``_gather_entries``). Returns the entries by kernel."""
+    import torch
+    gen = torch.Generator(device=data["device"]).manual_seed(12)
+    return _gather_entries(data["graph"].kernel_plan, ZOO_SHAPES, gen)
+
+
+def _gather_entries(plan, shapes: dict, gen, gathered: bool = True,
+                    out: dict = None) -> dict:
+    """Kernels 1 and 2 against their plain versions on ``plan`` in each
+    instantiation of ``shapes`` (path -> (F, primitives, masks)): the
+    values at ``SUM_RTOL``, the extrema and masks bitwise, the backward
+    from the path's coefficients (and masks) at ``GRAD_REL_L2``, two
+    launches of each bitwise; timed, with the bound and, for a graph
+    whose gathered rows exceed the L2 (``gathered``), the gathered-bytes
+    floor (else null). Appends the entries by kernel to ``out``."""
     import torch
     from egc_tpu_torch.ops.cuda import gather_reduce as gr
-    plan = data["graph"].kernel_plan
-    n, e, dev = plan.num_nodes, plan.num_edges, data["device"]
-    gen = torch.Generator(device=dev).manual_seed(12)
-    out = {"gather_reduce_fwd": [], "gather_reduce_bwd": []}
-    for path, (f, prims, masks) in ZOO_SHAPES.items():
+    n, e = plan.num_nodes, plan.num_edges
+    dev = plan.rowptr.device
+    out = out if out is not None else \
+        {"gather_reduce_fwd": [], "gather_reduce_bwd": []}
+    for path, (f, prims, masks) in shapes.items():
         label = f"{path} F={f} {'/'.join(prims)}"
         vals = torch.randn(n, f, generator=gen, device=dev)
-        ew_f = plan.fwd_w if "wsum" in prims else None
+        ew_f = ew_b = None
+        if "wsum" in prims:
+            ew_f, ew_b = plan.fwd_w, plan.bwd_w
+            if ew_f is None:   # a batch plan: weights in edge order, as
+                # ops/dispatch permutes symnorm's into both layouts
+                w = torch.rand(int(plan.fwd_perm.max()) + 1, generator=gen,
+                               device=dev)
+                ew_f = w[plan.fwd_perm].contiguous()
+                ew_b = w[plan.bwd_perm].contiguous()
         args = (vals, plan.rowptr, plan.fwd_senders, ew_f, prims)
         mkw = dict(masks=masks, fwd_to_bwd=plan.fwd_to_bwd) if masks \
             else {}
@@ -720,6 +893,9 @@ def kernels_zoo_shapes(data) -> dict:
         check(all(torch.equal(a, b) for a, b in
                   zip(got, gr.gather_reduce_fwd(*args, **mkw))),
               f"gather_reduce_fwd[{label}]: two launches differ")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, gr.gather_reduce_fwd(*args))),
+              f"gather_reduce_fwd[{label}]: without the masks it differs")
         words = gr.mask_words(f)
         w = 1 if ew_f is not None else 0
         # vals, rowptr, senders (and weights), the outputs, fwd_to_bwd once
@@ -734,14 +910,15 @@ def kernels_zoo_shapes(data) -> dict:
                    plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(
                        *args, **mkw)),
                    bound_ms=b_ms, bound_by=b_by,
-                   floor_ms=floor_ms(nbytes, 4 * f, n, e, ops))
+                   floor_ms=floor_ms(nbytes, 4 * f, n, e, ops) if gathered
+                   else None)
         out["gather_reduce_fwd"].append(fwd)
 
         coeffs = {_COEFF[p]: torch.randn(n, f, generator=gen, device=dev)
                   for p in prims}
         bkw = dict(coeffs)
         if "wsum" in prims:
-            bkw["edge_w"] = plan.bwd_w
+            bkw["edge_w"] = ew_b
         if "sumsq" in prims:
             bkw["vals"] = vals
         for m, words_t in zip(masks, got[len(prims):]):
@@ -778,15 +955,146 @@ def kernels_zoo_shapes(data) -> dict:
                 *bargs, **bkw)),
             bound_ms=b_ms, bound_by=b_by,
             floor_ms=floor_ms(nbytes + 32 * sectors - 4 * n * f * len(masks),
-                              4 * f * dense, n, e, ops),
+                              4 * f * dense, n, e, ops) if gathered
+            else None,
             gathered_bytes_per_edge=4 * f * dense + 32 * sectors / e
             + 4 * words * len(masks)))
+        HELD["gather"] |= {(f, tuple(prims), tuple(masks)),
+                           (f, tuple(prims), ())}
         for name in GATHER:
             sh = out[name][-1]
-            log(f"[kernels] {name} {label}: {sh['ms']:.4f} ms (plain "
-                f"{sh['plain_ms']:.4f}, bound {sh['bound_ms']:.4f} by "
-                f"{sh['bound_by']}, floor {sh['floor_ms']:.4f}), max abs "
-                f"err {sh['max_abs_err']:.3e}")
+            floor = "null" if sh["floor_ms"] is None \
+                else f"{sh['floor_ms']:.4f}"
+            log(f"[kernels] {name} {label} (n {n}, E {e}): {sh['ms']:.4f} "
+                f"ms (plain {sh['plain_ms']:.4f}, bound "
+                f"{sh['bound_ms']:.4f} by {sh['bound_by']}, floor {floor}), "
+                f"max abs err {sh['max_abs_err']:.3e}")
+        del vals, got, ref, coeffs, bkw, d_vals, d_ref
+    return out
+
+
+def _headmix_entries(path: str, n: int, shape, gen, dev) -> tuple:
+    """Kernels 3 and 4 against their plain versions at ``shape`` = (H, B,
+    A, L) on ``n`` rows: the variant of each (rule and kernel) the one
+    ``fwd_variant`` / ``bwd_variant`` give for contiguous tensors, values at
+    ``SUM_RTOL``, the autograd function's gradients at ``GRAD_REL_L2``, two
+    launches bitwise; timed beside their plain versions and the einsum
+    calls, with the bound. Returns the (forward, backward) entries."""
+    import torch
+    from egc_tpu_torch.ops.cuda import headmix as hm
+    H, B, A, L = shape
+    O, HBA, yw = H * L, H * B * A, B * L
+    w2d = torch.randn(n, HBA, generator=gen, device=dev)
+    ys = [torch.randn(n, yw, generator=gen, device=dev) for _ in range(A)]
+    bias = torch.randn(O, generator=gen, device=dev)
+    dz = torch.randn(n, O, generator=gen, device=dev)
+    kw = dict(H=H, B=B, A=A, L=L)
+    label = f"{path} H{H} B{B} A{A} L{L}"
+    want = hm.fwd_variant(L, yw, [y.data_ptr() for y in ys]
+                          + [bias.data_ptr()])
+    got_v = hm.kernel_fwd_variant(ys, bias, L, yw)
+    check(got_v == want, f"headmix_fwd {label}: kernel variant {got_v}, "
+                         f"rule {want}")
+    z = hm.headmix_fwd(w2d, ys, bias, y_width=yw, **kw)
+    err_f = _close(f"headmix_fwd {label}", z,
+                   hm.headmix_fwd_plain(w2d, ys, bias, **kw))
+    check(torch.equal(z, hm.headmix_fwd(w2d, ys, bias, y_width=yw, **kw)),
+          f"headmix_fwd {label}: two launches differ")
+    dw, dys = hm.headmix_bwd(w2d, ys, dz, y_width=yw, **kw)
+    want_b = hm.bwd_variant(L, yw, [t.data_ptr() for t in ys + list(dys)
+                                    + [dz]])
+    got_b = hm.kernel_bwd_variant(ys, dys, dz, L, yw)
+    check(got_b == want_b and want_b == want,
+          f"headmix_bwd {label}: kernel variant {got_b}, rule {want_b}")
+    dw_p, dys_p = hm.headmix_bwd_plain(w2d, ys, dz, y_width=yw, **kw)
+    err_b = max([_close(f"headmix_bwd {label} dw", dw, dw_p)]
+                + [_close(f"headmix_bwd {label} dy{a}", d, p)
+                   for a, (d, p) in enumerate(zip(dys, dys_p))])
+    dw2, dys2 = hm.headmix_bwd(w2d, ys, dz, y_width=yw, **kw)
+    check(torch.equal(dw, dw2) and all(torch.equal(a, b)
+                                       for a, b in zip(dys, dys2)),
+          f"headmix_bwd {label}: two launches differ")
+    _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, yw)
+    HELD["headmix"].add((H, B, A, L))
+    y_st = torch.stack(ys, 1).reshape(n, A, B, L)
+    w4 = w2d.reshape(n, H, B, A)
+    dz4 = dz.reshape(n, H, L)
+
+    def einsum_pair():
+        torch.einsum("nhl,nabl->nhba", dz4, y_st)
+        torch.einsum("nhba,nhl->nabl", w4, dz4)
+
+    common = dict(path=path, H=H, B=B, A=A, L=L, n=n, variant=want)
+    b_ms, b_by = bound_ms(4 * (n * HBA + A * n * yw + O + n * O),
+                          2.0 * B * A * n * O)
+    fwd = dict(common, max_abs_err=err_f, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lambda: hm.headmix_fwd(w2d, ys, bias, y_width=yw,
+                                                 **kw)),
+               plain_ms=time_ms(lambda: hm.headmix_fwd_plain(w2d, ys, bias,
+                                                             **kw)),
+               library_ms=time_ms(lambda: torch.einsum("nhba,nabl->nhl", w4,
+                                                       y_st)))
+    b_ms, b_by = bound_ms(4 * (2 * n * HBA + 2 * A * n * yw + n * O),
+                          4.0 * n * H * B * A * L)
+    bwd = dict(common, max_abs_err=err_b, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lambda: hm.headmix_bwd(w2d, ys, dz, y_width=yw,
+                                                 **kw)),
+               plain_ms=time_ms(lambda: hm.headmix_bwd_plain(
+                   w2d, ys, dz, y_width=yw, **kw)),
+               library_ms=time_ms(einsum_pair))
+    for name, sh in (("headmix_fwd", fwd), ("headmix_bwd", bwd)):
+        log(f"[kernels] {name} {label} ({want} variant, n {n}): "
+            f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}, einsum "
+            f"{sh['library_ms']:.4f}, bound {sh['bound_ms']:.4f} by "
+            f"{sh['bound_by']}), max abs err {sh['max_abs_err']:.3e}")
+    return fwd, bwd
+
+
+def kernels_path_shapes(batches: dict, mag_plan) -> dict:
+    """Kernels 1-4 in the instantiation each phase-4 EGC path runs: the
+    gather-reduce pair (``NEW_GATHER``) on a batch of each batched path
+    and at mag's full shape, and the head mix (``PATH_HEADMIX``) on the
+    same rows. Returns the entries by kernel (the rows' ``paths``)."""
+    import torch
+    dev = mag_plan.rowptr.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"gather_reduce_fwd": [], "gather_reduce_bwd": [],
+           "headmix_fwd": [], "headmix_bwd": []}
+    for path, plan in list(batches.items()) + [("mag", mag_plan)]:
+        # a batch's gathered rows (<= 7 k x 224 f32) fit in the 50 MB L2:
+        # no gathered floor; mag's (736 k x 176 f32, 518 MB) do not
+        _gather_entries(plan, {path: NEW_GATHER[path]}, gen,
+                        gathered=path == "mag", out=out)
+        fwd, bwd = _headmix_entries(path, plan.num_nodes,
+                                    PATH_HEADMIX[path], gen, dev)
+        out["headmix_fwd"].append(fwd)
+        out["headmix_bwd"].append(bwd)
+    torch.cuda.synchronize()
+    return out
+
+
+def kernels_cli_shapes(plans: dict) -> dict:
+    """Kernels 1-4 in each instantiation that a CLI run launches and no
+    timed path holds (``CLI_GATHER``, ``CLI_HEADMIX``), on ``plans``
+    (dataset -> the kernel plan of its graph or of one batch), as
+    ``kernels_path_shapes`` does. Returns the entries by kernel (the
+    rows' ``cli``)."""
+    import torch
+    out = {"gather_reduce_fwd": [], "gather_reduce_bwd": [],
+           "headmix_fwd": [], "headmix_bwd": []}
+    for dataset, plan in plans.items():
+        dev = plan.rowptr.device
+        gen = torch.Generator(device=dev).manual_seed(14)
+        # arxiv's gathered rows (169 k x 136 f32, 92 MB) exceed the L2
+        _gather_entries(plan, {f"{dataset}/{kind}": inst for kind, inst
+                               in CLI_GATHER[dataset].items()}, gen,
+                        gathered=dataset == "arxiv", out=out)
+        for kind, shape in CLI_HEADMIX.get(dataset, {}).items():
+            fwd, bwd = _headmix_entries(f"{dataset}/{kind}", plan.num_nodes,
+                                        shape, gen, dev)
+            out["headmix_fwd"].append(fwd)
+            out["headmix_bwd"].append(bwd)
+    torch.cuda.synchronize()
     return out
 
 
@@ -1033,7 +1341,8 @@ def _small_attention_graph(dev):
     few = [(node, 1 + i % 3) for i, node in enumerate(range(n - 50, n - 40))]
     groups = {32 // at.edge_geometry(h, c)[0]
               for h, c in GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES
-              + GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES}
+              + CLI_GAT_SHAPES + GATV2_SMALL_SHAPES + GATV2_SHAPES
+              + CODE_GATV2_SHAPES + CLI_GATV2_SHAPES}
     near = sorted({k for g in groups for k in (g - 1, g + 1) if k > 0})
     check(len(near) <= 10, f"small graph: {near} needs more nodes")
     few_out = [(0, 70), (1, 100), (2, 150)] + few
@@ -1067,8 +1376,8 @@ def kernels_gat_small(dev) -> None:
     """Kernels 5-7 with empty receivers, senders without out-edges, hub
     senders and receivers, senders and receivers with 1-3 edges and
     receivers with G +- 1, at C = 5, 37 and 8 (H = 3 and 32 among them)
-    besides the arxiv and code2 paths' shapes; and the lane geometry of
-    the three kernels as they report it against
+    besides the arxiv and code2 paths' shapes and the CLI runs' (hiv GAT
+    h240); and the lane geometry of the three kernels as they report it against
     ``attention.gat_edge_geometry`` at every shape they take
     (``attention.accepted_shapes``, 1,792)."""
     import torch
@@ -1080,17 +1389,18 @@ def kernels_gat_small(dev) -> None:
                    f"gat_edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    for heads, c in GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES:
+    held = GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES + CLI_GAT_SHAPES
+    for heads, c in held:
         ins = _gat_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gat_kernel_args(g.kernel_plan, ins), label, empty,
                          silent)
         _check_gat_autograd(g, ins, heads, c, gen, label)
+        HELD["gat"].add((heads, c))
     torch.cuda.synchronize()
     log(f"[kernels] GAT small-size checks passed (empty receivers, senders "
         f"without out-edges, hubs, 1-3-edge senders and receivers, receivers "
-        f"of G +- 1 edges, (H, C) = "
-        f"{GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES}); the geometry "
+        f"of G +- 1 edges, (H, C) = {held}); the geometry "
         f"of the GAT kernels agrees at {len(shapes)} shapes")
 
 
@@ -1251,7 +1561,8 @@ def kernels_gatv2_small(dev) -> None:
     """The GATv2 kernels with empty receivers, senders without out-edges,
     hub senders and receivers, and senders and receivers with 1-3 edges, at
     C = 5, 37 and 8 (H = 3 and 32 among them) besides the arxiv and code2
-    paths' shapes; and the lane geometry of ``gatv2_fwd``, ``gatv2_bwd_t``
+    paths' shapes and the CLI runs' (zinc / cifar h104, hiv h184); and the
+    lane geometry of ``gatv2_fwd``, ``gatv2_bwd_t``
     and ``gatv2_bwd_f`` as the kernels report it against the launcher's
     rule for every shape they take (``attention.accepted_shapes``)."""
     import torch
@@ -1263,17 +1574,19 @@ def kernels_gatv2_small(dev) -> None:
                    f"differs from edge_geometry at {bad[:5]}")
     g, empty, silent = _small_attention_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    for heads, c in GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES:
+    held = (GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES
+            + CLI_GATV2_SHAPES)
+    for heads, c in held:
         ins = _gatv2_inputs(g.num_nodes, heads, c, gen, dev)
         label = f"small H{heads} C{c}"
         _gat_kernel_errs(_gatv2_kernel_args(g.kernel_plan, ins), label,
                          empty, silent)
         _check_gatv2_autograd(g, ins, heads, c, gen, label)
+        HELD["gatv2"].add((heads, c))
     torch.cuda.synchronize()
     log(f"[kernels] GATv2 small-size checks passed (empty receivers, senders "
         f"without out-edges, hub senders and receivers, 1-3-edge senders and "
-        f"receivers, (H, C) = "
-        f"{GATV2_SMALL_SHAPES + GATV2_SHAPES + CODE_GATV2_SHAPES}); the "
+        f"receivers, (H, C) = {held}); the "
         f"geometry of gatv2_fwd, gatv2_bwd_t and gatv2_bwd_f agrees at "
         f"{len(shapes)} shapes")
 
@@ -1286,6 +1599,20 @@ def code_batch(dev):
     g, _ = next(iter(cfg.data(CODE_HP, dev)["train"]))
     check(g.kernel_plan is not None, "a CUDA batch without a kernel plan")
     return g
+
+
+def batch_plans() -> dict:
+    """The kernel plan of the first train batch of each batched EGC path's
+    loader (``BATCHED_NETS``, built on the host as on the path)."""
+    from egc_tpu_torch.exp import batched
+    plans = {}
+    for path, net in BATCHED_NETS.items():
+        cfg = getattr(batched, net["config"])("egc", net["hidden"], heads=4,
+                                              bases=4, aggrs=net["aggrs"])
+        g, _ = next(iter(cfg.data(net["hp"])["train"]))
+        check(g.kernel_plan is not None, "a CUDA batch without a kernel plan")
+        plans[path] = g.kernel_plan
+    return plans
 
 
 def kernels_code_shapes(g) -> dict:
@@ -1341,18 +1668,22 @@ def kernels_code_shapes(g) -> dict:
 # 4. main path
 # ---------------------------------------------------------------------------
 
-def _grad_rels(model, ref_model, zero: str = r"bias") -> list:
+def _zero_names(path: str) -> str:
+    """The regex of the parameters of ``path`` whose true gradient is 0
+    (``ZERO_GRAD``, else a conv's bias)."""
+    return ZERO_GRAD.get(path, r"convs\.\d+\.bias")
+
+
+def _grad_rels(model, ref_model, zero: str) -> list:
     """Sorted (relative L2, name) of each parameter gradient of ``model``
-    against ``ref_model``'s. A conv bias feeds a BatchNorm, which cancels
-    it: its true gradient is 0, so it is checked to be noise-sized and left
-    out of the list; ``zero`` names such parameters of a conv (the path's
-    ``ZERO_GRAD``)."""
+    against ``ref_model``'s. A bias that feeds a BatchNorm is cancelled
+    by it: its true gradient is 0, so it is checked to be noise-sized and
+    left out of the list; ``zero`` matches such names (``_zero_names``)."""
     ref = dict(ref_model.named_parameters())
     scale = max(float(q.grad.abs().max()) for q in ref.values())
     rels = []
     for name, p in model.named_parameters():
-        if re.fullmatch(rf"(convs\.\d+|graph_layers\.\d+\.0)\.({zero})",
-                        name):
+        if re.fullmatch(zero, name):
             check(float(p.grad.abs().max()) <= 1e-4 * scale,
                   f"{name}: gradient is not noise-sized")
             continue
@@ -1372,7 +1703,7 @@ def _step_vs_cpu(path, loss_card, model_card, loss_cpu, model_cpu,
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     check(loss_rel <= STEP_LOSS_RTOL,
           f"[{path}] step loss {loss_card} vs CPU {loss_cpu}")
-    zero = ZERO_GRAD.get(path, r"bias")
+    zero = _zero_names(path)
     rels = _grad_rels(model_card, model_cpu, zero)
     noise = [dict((name, r) for r, name in _grad_rels(m, model_cpu, zero))
              for m in noise_models]
@@ -1422,25 +1753,64 @@ def _step_vs_cpu(path, loss_card, model_card, loss_cpu, model_cpu,
 
 
 @contextlib.contextmanager
-def _gather_instantiations():
-    """Yields the set of ``(F, primitives, masks)`` of every
-    ``gather_reduce_fwd`` call that ``ops/dispatch`` makes in the block
-    (each names the forward and, with its masks, the backward
-    instantiation the call launches)."""
+def _instantiations():
+    """Yields the sets of what the block launches, by kernel family:
+    ``gather``, the ``(F, primitives, masks)`` of every
+    ``gather_reduce_fwd`` call that ``ops/dispatch`` makes (each names the
+    forward and, with its masks, the backward instantiation); ``headmix``,
+    the ``(H, B, A, L)`` of every head mix of the EGC convs; ``gat`` and
+    ``gatv2``, the ``(H, C)`` of every attention call of the convs."""
+    from egc_tpu_torch.nn.conv import attention, egc
     from egc_tpu_torch.ops import dispatch
-    seen, launch = set(), dispatch.gather_reduce_fwd
+    seen = {"gather": set(), "headmix": set(), "gat": set(), "gatv2": set()}
+    launch, mix = dispatch.gather_reduce_fwd, egc.head_mix_fused
+    gat, gatv2 = attention.gat_attention, attention.gatv2_attention
 
     def record(vals, rowptr, senders, edge_w, prims, masks=(),
                fwd_to_bwd=None):
-        seen.add((vals.shape[1], tuple(prims), tuple(masks)))
+        seen["gather"].add((vals.shape[1], tuple(prims), tuple(masks)))
         return launch(vals, rowptr, senders, edge_w, prims, masks=masks,
                       fwd_to_bwd=fwd_to_bwd)
 
-    dispatch.gather_reduce_fwd = record
+    def record_mix(w2d, ys, *, H, B, A, L, **kw):
+        seen["headmix"].add((H, B, A, L))
+        return mix(w2d, ys, H=H, B=B, A=A, L=L, **kw)
+
+    def record_gat(wh, *args):
+        seen["gat"].add(tuple(wh.shape[1:]))
+        return gat(wh, *args)
+
+    def record_gatv2(hl, *args):
+        seen["gatv2"].add(tuple(hl.shape[1:]))
+        return gatv2(hl, *args)
+
+    dispatch.gather_reduce_fwd, egc.head_mix_fused = record, record_mix
+    attention.gat_attention = record_gat
+    attention.gatv2_attention = record_gatv2
     try:
         yield seen
     finally:
-        dispatch.gather_reduce_fwd = launch
+        dispatch.gather_reduce_fwd, egc.head_mix_fused = launch, mix
+        attention.gat_attention, attention.gatv2_attention = gat, gatv2
+
+
+def _check_held(label: str, seen: dict) -> None:
+    """Fails unless every instantiation in ``seen`` (``_instantiations``)
+    is one that phase 3 held against the plain version (``HELD``)."""
+    for family, got in seen.items():
+        check(got <= HELD[family],
+              f"[{label}] launched {family} at {sorted(got - HELD[family])}, "
+              f"which phase 3 did not hold")
+
+
+def _check_path_instantiation(path: str, seen: dict) -> None:
+    """An EGC path launched just the gather-reduce and the head mix whose
+    times its kernel rows report (``PATH_GATHER``, ``PATH_HEADMIX``)."""
+    check(seen["gather"] == {PATH_GATHER[path]}
+          and seen["headmix"] == {PATH_HEADMIX[path]},
+          f"[{path}] launched gather-reduce {sorted(seen['gather'])} and "
+          f"head mix {sorted(seen['headmix'])}; phase 3 held "
+          f"{PATH_GATHER[path]} and {PATH_HEADMIX[path]}")
 
 
 def phase_path(path: str, raw, data, d_cpu, net: dict,
@@ -1484,15 +1854,16 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
     steps = STEPS_WARMUP + STEPS_TIMED
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    with _gather_instantiations() as seen:
+    with _instantiations() as seen:
         run = train_full_graph(raw, steps=steps, dropout=0.2, data=data,
                                **net)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    _check_held(path, seen)
     if path in PATH_GATHER:   # the instantiation the kernel rows hold
-        check(seen == {PATH_GATHER[path]},
-              f"[{path}] gather-reduce launched as {sorted(seen)}, the "
-              f"kernel rows hold {PATH_GATHER[path]}")
+        check(seen["gather"] == {PATH_GATHER[path]},
+              f"[{path}] gather-reduce launched as {sorted(seen['gather'])}, "
+              f"the kernel rows hold {PATH_GATHER[path]}")
     for name, c in counts.items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
             else 0
@@ -1537,10 +1908,10 @@ def _profile(run, data, path) -> str:
     return table
 
 
-def _code_noise_steps(cfg, hp) -> list:
-    """The code2 CPU step with 1e-7 relative noise on the embedding tables
-    (the net's inputs are token ids), once per ``CODE_NOISE_SEEDS``: the
-    step's sensitivity to rounding."""
+def _batched_noise_steps(cfg, hp) -> list:
+    """A batched path's CPU step with 1e-7 relative noise on the embedding
+    (code2's and zinc's inputs are token ids, cifar's enter through it),
+    once per ``CODE_NOISE_SEEDS``: the step's sensitivity to rounding."""
     import torch
     from egc_tpu_torch.train.loop import train_step
     batch = next(iter(cfg.data(hp, "cpu")["train"]))
@@ -1549,8 +1920,7 @@ def _code_noise_steps(cfg, hp) -> list:
         model = cfg.model(hp, seed=0, device="cpu")
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
-            for emb in model.embedding.children():
-                w = emb.weight
+            for w in model.embedding.parameters():
                 w.mul_(1 + 1e-7 * torch.randn(w.shape, generator=gen))
         train_step(model, cfg.optimizer(model, hp), cfg.loss_fn, *batch)
         models.append(model)
@@ -1558,24 +1928,32 @@ def _code_noise_steps(cfg, hp) -> list:
 
 
 @contextlib.contextmanager
-def _same_branches(masks: list, replay: bool):
-    """The branch a code2 step takes at every kink: each conv's
-    leaky_relu on its edges and on its self term, then the ReLU after its
-    BatchNorm, layer by layer. ``replay=False`` appends each branch's mask
-    to ``masks`` (from the same f32 sums the card's kernels form);
-    ``replay=True`` makes the CPU step take them, so it evaluates the same
+def _same_branches(masks: dict, replay: bool):
+    """The branch a batched step takes at every kink: each GAT / GATv2
+    conv's leaky_relu on its edges and on its self term, and every
+    ``torch.relu`` (the ReLU after each BatchNorm and in the readout MLP,
+    std's gate on var), in the order the step meets them (``masks
+    ["kinks"]``); and which in-edges hold each EGC conv's max / min
+    (``masks["extrema"]``, [E, F] in edge order). ``replay=False``
+    appends each branch's mask (from the same f32 sums the card's kernels
+    form); ``replay=True`` makes the CPU step take them, the extrema's
+    cotangent going to the recorded edges, so it evaluates the same
     piecewise-smooth function as the card step and the two differ by
     rounding alone."""
     import torch
-    from egc_tpu_torch.nn import norm
     from egc_tpu_torch.nn.conv import attention as at
+    from egc_tpu_torch.nn.conv import egc
+    from egc_tpu_torch.ops import segment
     from egc_tpu_torch.ops.cuda.attention import SLOPE
     saved = (at._leaky, torch.relu, at.GATConv.forward,
-             at.GATv2Conv.forward, norm.MaskedBatchNorm.forward)
-    queue = iter(masks)
+             at.GATv2Conv.forward, egc.conv_aggregate,
+             segment._segment_max_raw)
+    kinks, extrema = masks.setdefault("kinks", []), \
+        masks.setdefault("extrema", [])
+    queues = {"kinks": iter(kinks), "extrema": iter(extrema)}
 
-    def take(z):
-        m = next(queue, None)
+    def take(z, queue="kinks"):
+        m = next(queues[queue], None)
         check(m is not None and m.shape == z.shape,
               f"replayed branches: {None if m is None else m.shape} for "
               f"{tuple(z.shape)}")
@@ -1586,7 +1964,7 @@ def _same_branches(masks: list, replay: bool):
             def project(xx):
                 out = type(self).project(self, xx)
                 s, r = g.senders.long(), g.receivers.long()
-                masks.extend((z >= 0).cpu() for z in sums(out, s, r))
+                kinks.extend((z >= 0).cpu() for z in sums(out, s, r))
                 return out
             self.project = project
             try:
@@ -1595,27 +1973,62 @@ def _same_branches(masks: list, replay: bool):
                 del self.project
         return fwd
 
-    def bn(self, x, mask=None):
-        y = saved[4](self, x, mask)
-        masks.append((y > 0).cpu())
-        return y
+    def relu(t):
+        kinks.append((t > 0).cpu())
+        return saved[1](t)
+
+    def record_extrema(g, x, aggrs, **kw):
+        out = saved[4](g, x, aggrs, **kw)
+        ys = out if isinstance(out, tuple) else out.unbind(1)
+        s, r = g.senders.long(), g.receivers.long()
+        valid = g.edge_mask[:, None]
+        for a, y in zip(aggrs, ys):
+            if segment.canonical_aggr(a) in ("max", "min"):
+                extrema.append(((x[s] == y[r]) & valid).cpu())
+        return out
+
+    class ReplayedMax(torch.autograd.Function):
+        """The segment max, its cotangent to the recorded edges."""
+
+        @staticmethod
+        def forward(ctx, data, ids, num_segments, held):
+            ctx.save_for_backward(ids, held)
+            return saved[5](data.detach(), ids, num_segments)
+
+        @staticmethod
+        def backward(ctx, ct):
+            ids, held = ctx.saved_tensors
+            safe = torch.clamp(ids, max=ct.shape[0] - 1)
+            return torch.where(held, ct[safe], torch.zeros_like(held,
+                               dtype=ct.dtype)), None, None, None
+
+    def replay_extrema(g, x, aggrs, **kw):
+        segment._segment_max_raw = lambda data, ids, n: ReplayedMax.apply(
+            data, ids, n, take(data, "extrema"))
+        try:
+            return saved[4](g, x, aggrs, **kw)
+        finally:
+            segment._segment_max_raw = saved[5]
 
     if replay:
         at._leaky = lambda z: torch.where(take(z), z, SLOPE * z)
         torch.relu = lambda t: torch.where(take(t), t, torch.zeros_like(t))
+        egc.conv_aggregate = replay_extrema
     else:   # GAT: a_src[s] + a_dst[r]; GATv2: hl[s] + hr[r]; then self
         at.GATConv.forward = recording(
             saved[2], lambda o, s, r: (o[1][s] + o[2][r], o[1] + o[2]))
         at.GATv2Conv.forward = recording(
             saved[3], lambda o, s, r: (o[0][s] + o[1][r], o[0] + o[1]))
-        norm.MaskedBatchNorm.forward = bn
+        torch.relu = relu
+        egc.conv_aggregate = record_extrema
     try:
         yield
     finally:
         (at._leaky, torch.relu, at.GATConv.forward, at.GATv2Conv.forward,
-         norm.MaskedBatchNorm.forward) = saved
+         egc.conv_aggregate, segment._segment_max_raw) = saved
     if replay:
-        check(next(queue, None) is None, "replayed branches left over")
+        check(all(next(q, None) is None for q in queues.values()),
+              "replayed branches left over")
 
 
 def _graphs_per_step(loader, steps: int) -> list:
@@ -1628,48 +2041,78 @@ def _graphs_per_step(loader, steps: int) -> list:
 
 def phase_code_path(path: str, net: dict) -> dict:
     """One ogbg-code2 path ("code_gat": CodeNet GAT h304 H8, "code_gatv2":
-    GATv2 h296 H8; 4 layers, vocab 5000, 10,030 attributes, batch 128)
-    through ``train_batched`` on ``synthetic_code(900)`` with the loader's
-    prefetch: one step on the card against the CPU step that takes the
-    card's branch at every kink (and, printed, the plain CPU step), then
-    ``CODE_STEPS`` steps with the launch counters (each kernel of the
-    path 4 per step, every other kernel never), a val pass (sequence F1),
-    and a profiler table of two steps split into the host's batch fetch,
-    its step enqueue, its wait on the card, and the card's busy time."""
-    import torch
-    from egc_tpu_torch.exp.batched import CodeConfig, evaluate, train_batched
-    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-
+    GATv2 h296 H8; 4 layers, vocab 5000, 10,030 attributes, batch 128) on
+    ``synthetic_code(900)``, ``CODE_STEPS`` steps (``_batched_path``)."""
+    from egc_tpu_torch.exp.batched import CodeConfig
     cfg = CodeConfig(net["kind"], net["hidden"], heads=net["heads"],
                      **CODE_DATA)
+    return _batched_path(path, cfg, CODE_HP, CODE_STEPS)
+
+
+def phase_batched_path(path: str, net: dict) -> dict:
+    """One EGC-M path of a batched task (``BATCHED_NETS``: zinc h124, cifar
+    h128, hiv h224; H4 B4, 4 layers) through its config on the config's
+    synthetic set, at the main table's hyperparameters: 2 warm-up steps
+    and one whole epoch timed (``_batched_path``)."""
+    from egc_tpu_torch.exp import batched
+    cfg = getattr(batched, net["config"])("egc", net["hidden"], heads=4,
+                                          bases=4, aggrs=net["aggrs"])
+    epoch = math.ceil(len(cfg.load_graphs()["train"])
+                      / net["hp"]["batch_size"])
+    return _batched_path(path, cfg, net["hp"], STEPS_WARMUP + epoch)
+
+
+def _batched_path(path: str, cfg, hp: dict, steps: int) -> dict:
+    """A batched path through ``train_batched`` with the loader's prefetch:
+    one dropout-0 step on the card against the CPU step that takes the
+    card's branch at every kink (and, printed, the plain CPU step), then
+    ``steps`` steps with the launch counters (each kernel of the path once
+    a layer a step, every other kernel never; an EGC path's gather-reduce
+    and head-mix instantiations the ones phase 3 held), a val pass (the
+    config's metric), and a profiler table of two steps split into the
+    host's batch fetch, its step enqueue, its wait on the card, and the
+    card's busy time."""
+    import torch
+    from egc_tpu_torch.exp.batched import evaluate, train_batched
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    check_hp = {**hp, "dropout": 0.0} if "dropout" in hp else hp
     t0 = time.perf_counter()
-    cpu_branches, branches = [], []
+    cpu_branches, branches = {}, {}
     with _same_branches(cpu_branches, replay=False):
-        cpu = train_batched(cfg, CODE_HP, steps=1, device="cpu")
+        cpu = train_batched(cfg, check_hp, steps=1, device="cpu")
     cpu_s = time.perf_counter() - t0
-    pert = _code_noise_steps(cfg, CODE_HP)
+    pert = _batched_noise_steps(cfg, check_hp)
     with _same_branches(branches, replay=False):
-        gpu = train_batched(cfg, CODE_HP, steps=1)
+        gpu = train_batched(cfg, check_hp, steps=1)
     with _same_branches(branches, replay=True):
-        same = train_batched(cfg, CODE_HP, steps=1, device="cpu")
-    # where the card step and the CPU step part: kinks per layer as (edge
-    # leaky_relu, self leaky_relu, ReLU after the BN)
-    flips = [int((a != b).sum()) for a, b in zip(branches, cpu_branches)]
-    flips = [flips[i:i + 3] for i in range(0, len(flips), 3)]
+        same = train_batched(cfg, check_hp, steps=1, device="cpu")
+    # where the card step and the CPU step part, kink site by site (code2:
+    # per layer, (edge leaky_relu, self leaky_relu, ReLU)), and at how many
+    # (edge, column) the max / min is held by other in-edges
+    flips = [int((a != b).sum()) for a, b in zip(branches["kinks"],
+                                                 cpu_branches["kinks"])]
+    sizes = [int(m.numel()) for m in branches["kinks"]]
+    if path.startswith("code"):
+        flips = [flips[i:i + 3] for i in range(0, len(flips), 3)]
+        sizes = sizes[:3]
+    held = [int((a != b).sum()) for a, b in zip(branches["extrema"],
+                                                cpu_branches["extrema"])]
     log(f"[{path}] kinks where the card step and the CPU step take other "
-        f"branches, per layer (edge leaky_relu, self leaky_relu, ReLU; "
-        f"padding rows included): "
-        f"{flips} of {[int(m.numel()) for m in branches[:3]]}")
+        f"branches (padding rows included): {flips} of {sizes}; max / min "
+        f"held by other in-edges at {held} (edge, column) pairs of "
+        f"{[int(m.numel()) for m in branches['extrema']]}")
     step_cmp = _step_vs_cpu(path, gpu.step_losses[0], gpu.model,
                             cpu.step_losses[0], cpu.model, pert, cpu_s,
                             same=(same.step_losses[0], same.model))
-    step_cmp["branches_apart_per_layer"] = flips
+    step_cmp["branches_apart"] = flips
+    step_cmp["extrema_apart"] = held
     del cpu, gpu, pert, same, branches, cpu_branches
 
-    steps = CODE_STEPS
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    run = train_batched(cfg, CODE_HP, steps=steps)
+    with _instantiations() as seen:
+        run = train_batched(cfg, hp, steps=steps)
     counts = launch_counts()
     data = run.data
     peak = torch.cuda.max_memory_allocated()
@@ -1678,17 +2121,21 @@ def phase_code_path(path: str, net: dict) -> dict:
             else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
+    _check_held(path, seen)
+    if path in PATH_GATHER:
+        _check_path_instantiation(path, seen)
     check(all(math.isfinite(x) for x in run.step_losses), "non-finite loss")
-    val = evaluate(cfg, run.model, data["val"], "val")["val_metric"]
-    check(0.0 <= val <= 1.0, f"[{path}] val F1 {val}")
+    val = evaluate(cfg, run.model, data["val"], "val")
+    check(all(math.isfinite(v) and (0.0 <= v <= 1.0
+                                    or not k.endswith("_metric"))
+              for k, v in val.items()), f"[{path}] val {val}")
     # the step time is the whole timed window over its steps (CUDA events
     # at the step boundaries, no host synchronise in the loop), with and
     # without the steps that open an epoch (a new prefetch pool whose first
-    # batch the step waits for, and the last epoch's losses read): an
-    # epoch of synthetic_code(900) is 5 batches, of ogbg-code2 ~3,200
+    # batch the step waits for, and the last epoch's losses read)
     epoch = len(data["train"])
-    check(steps % epoch == 0 and steps - STEPS_WARMUP >= epoch,
-          f"{steps} steps: not whole epochs, or under one timed")
+    check(steps - STEPS_WARMUP >= epoch,
+          f"{steps} steps: under one epoch of {epoch} timed")
     graphs = _graphs_per_step(data["train"], steps)
     timed = list(range(STEPS_WARMUP, steps))
     inner = [i for i in timed if i % epoch]
@@ -1699,9 +2146,10 @@ def phase_code_path(path: str, net: dict) -> dict:
                 "median_s": statistics.median(sec),
                 "graphs_per_s": sum(graphs[i] for i in idx) / sum(sec)}
 
-    whole, mid = window(timed), window(inner)
+    whole = window(timed)
+    mid = window(inner) if inner else whole
     step_s = whole["mean_s"]
-    res = {"net": net, "steps": steps, "epoch_batches": epoch,
+    res = {"hparams": hp, "steps": steps, "epoch_batches": epoch,
            "step_seconds_mean": step_s,
            "step_seconds_median": whole["median_s"],
            "step_seconds": run.step_seconds[STEPS_WARMUP:],
@@ -1709,11 +2157,11 @@ def phase_code_path(path: str, net: dict) -> dict:
            "without_epoch_starts": mid,
            "budget": data["train"].budget, "peak_memory_bytes": peak,
            "build_seconds_per_batch": data["train"].build_seconds / steps,
-           "launches": counts, "losses": run.step_losses, "val_f1": val,
+           "launches": counts, "losses": run.step_losses, "val": val,
            "step_vs_cpu": step_cmp}
     sec = res["step_seconds"]
     log(f"[{path}] {steps} steps: losses "
-        f"{[round(x, 4) for x in run.step_losses]}; val F1 {val:.4f}")
+        f"{[round(x, 4) for x in run.step_losses]}; val {val}")
     log(f"[{path}] step {step_s * 1e3:.3f} ms (whole window over "
         f"{len(timed)} steps after {STEPS_WARMUP} warm-up, epochs of "
         f"{epoch} batches; median {whole['median_s'] * 1e3:.3f}, min "
@@ -1726,6 +2174,159 @@ def phase_code_path(path: str, net: dict) -> dict:
         f"and plan build {res['build_seconds_per_batch'] * 1e3:.3f} ms a "
         f"batch on the prefetch threads, launches {counts}")
     res["profile"], res["split"] = _profile_code(run, cfg, data, path)
+    return res
+
+
+def mag_data(dev):
+    """The mag path's graph (``MAG_GRAPH``), generated on the host, and its
+    card data through ``MagConfig.data`` (padding, symnorm weights, the
+    kernel plan: two ``lexsort``s over every edge): the config, the raw
+    graph and the data, with the seconds of each part."""
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.exp import fullgraph
+
+    class MagAtSize(fullgraph.MagConfig):
+        def load_full_graph(self):
+            return self.raw
+
+    t0 = time.perf_counter()
+    raw = synthetic_full_graph(**MAG_GRAPH)
+    gen_s = time.perf_counter() - t0
+    cfg = MagAtSize("egc", MAG_NET["hidden"], heads=MAG_NET["heads"],
+                    bases=MAG_NET["bases"], aggrs=MAG_NET["aggrs"],
+                    device=dev)
+    cfg.raw = raw
+    plan_s, build = [], fullgraph.build_kernel_plan
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            plan_s.append(time.perf_counter() - t)
+
+    fullgraph.build_kernel_plan = timed_build
+    t0 = time.perf_counter()
+    try:
+        data = cfg.data(MAG_NET["hp"])
+    finally:
+        fullgraph.build_kernel_plan = build
+    data_s = time.perf_counter() - t0
+    secs = {"generate_s": gen_s, "data_s": data_s, "plan_s": plan_s[0]}
+    log(f"[mag] synthetic_full_graph({MAG_GRAPH}): {raw['x'].shape[0]} "
+        f"nodes, {data['num_edges']} directed edges ({gen_s:.1f} s on the "
+        f"host); MagConfig.data {data_s:.1f} s, of it the host plan build "
+        f"(two lexsorts) {plan_s[0]:.1f} s")
+    return cfg, raw, data, secs
+
+
+def phase_mag(cfg, raw, data, secs: dict, main_cpu_s: float,
+              elapsed: float) -> dict:
+    """Homogeneous ogbn-mag through ``MagConfig``'s hooks (``model``,
+    ``init_state``, ``train``): MagNet h352 H8 B4 symnorm, 2 layers, lr
+    0.01, wd 1e-5, dropout 0.3 on the ``MAG_GRAPH`` graph. One dropout-0
+    ``train`` iteration on the card against the same on the CPU, on a
+    graph of 1/8 the nodes when the full-size CPU steps would end past
+    ``MAG_BUDGET_S``; then 2 warm-up and 10 timed iterations (host clock
+    around each, which ends in the loss read) with the launch counters
+    (each EGC kernel twice a step, every other kernel never) and the
+    gather-reduce and head-mix instantiations, edges/s, peak memory, and a
+    profiler table of two steps."""
+    import types
+    import torch
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    path, hp = "mag", MAG_NET["hp"]
+    hp0 = {**hp, "dropout": 0.0}
+    # a mag step gathers 2 x 11 M edges x 176 columns; main's 3 x 2.4 M x
+    # 128: the CPU step scales with that
+    work = 2 * data["num_edges"] * 176 / (3 * NUM_EDGES * 128)
+    projected = elapsed + 2 * work * main_cpu_s
+    c_cfg, c_raw, c_data = cfg, raw, data
+    if projected > MAG_BUDGET_S:
+        c_raw = synthetic_full_graph(**{**MAG_GRAPH,
+                                        "num_nodes": MAG_GRAPH["num_nodes"]
+                                        // 8})
+        c_cfg = type(cfg)("egc", MAG_NET["hidden"], heads=MAG_NET["heads"],
+                          bases=MAG_NET["bases"], aggrs=MAG_NET["aggrs"])
+        c_cfg.raw = c_raw
+        c_data = c_cfg.data(hp0)
+        log(f"[mag] step check on a graph of 1/8 the nodes "
+            f"({c_raw['x'].shape[0]} nodes, {c_data['num_edges']} edges, "
+            f"average degree 15): two full-size CPU steps would take the "
+            f"script to ~{projected:.0f} s, past {MAG_BUDGET_S} s; the timed "
+            f"steps and the kernel rows stay at full size")
+    else:
+        log(f"[mag] step check on the full graph (projected "
+            f"{projected:.0f} s <= {MAG_BUDGET_S} s)")
+    cpu_cfg = type(cfg)("egc", MAG_NET["hidden"], heads=MAG_NET["heads"],
+                        bases=MAG_NET["bases"], aggrs=MAG_NET["aggrs"],
+                        device="cpu")
+    cpu_cfg.raw = c_raw
+    d_cpu = cpu_cfg.data(hp0)
+
+    def one_step(config, d):
+        model = config.model(hp0, seed=0)
+        state = config.init_state(model, hp0, d, 0)
+        _, row = config.train(model, state, d, config.rng(0), 0)
+        return row["train_loss"], model
+
+    t0 = time.perf_counter()
+    loss_cpu, model_cpu = one_step(cpu_cfg, d_cpu)
+    cpu_s = time.perf_counter() - t0
+    g = d_cpu["graph"]
+    noise = torch.randn(g.nodes.shape,
+                        generator=torch.Generator().manual_seed(1))
+    _, model_pert = one_step(cpu_cfg, {
+        **d_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))})
+    loss_card, model_card = one_step(c_cfg, c_data)
+    step_cmp = _step_vs_cpu(path, loss_card, model_card, loss_cpu,
+                            model_cpu, [model_pert], cpu_s)
+    step_cmp["graph_nodes"] = c_raw["x"].shape[0]
+    step_cmp["graph_edges"] = c_data["num_edges"]
+    del d_cpu, model_cpu, model_pert, model_card, c_data, g, noise
+
+    steps = STEPS_WARMUP + STEPS_TIMED
+    model = cfg.model(hp, seed=0)
+    state = cfg.init_state(model, hp, data, 0)
+    rng = cfg.rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, seconds = [], []
+    with _instantiations() as seen:
+        for it in range(steps):
+            t0 = time.perf_counter()
+            state, row = cfg.train(model, state, data, rng, it)
+            seconds.append(time.perf_counter() - t0)   # the loss was read
+            losses.append(row["train_loss"])
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_held(path, seen)
+    _check_path_instantiation(path, seen)
+    for name, c in counts.items():
+        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
+            else 0
+        check(c == want, f"[{path}] {name} launched {c} times in {steps} "
+                         f"steps, expected {want}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    timed = seconds[STEPS_WARMUP:]
+    step_s = sum(timed) / len(timed)
+    res = {"net": {k: v for k, v in MAG_NET.items()}, **secs,
+           "step_seconds_mean": step_s,
+           "step_seconds_median": statistics.median(timed),
+           "step_seconds": timed,
+           "edges_per_s": data["num_edges"] / step_s,
+           "num_edges": data["num_edges"], "num_nodes": raw["x"].shape[0],
+           "peak_memory_bytes": peak, "launches": counts, "losses": losses,
+           "step_vs_cpu": step_cmp}
+    log(f"[{path}] {steps} steps: losses {[round(x, 4) for x in losses]}")
+    log(f"[{path}] step {step_s * 1e3:.3f} ms (mean over {len(timed)} timed "
+        f"steps; median {res['step_seconds_median'] * 1e3:.3f}, min "
+        f"{min(timed) * 1e3:.3f}, max {max(timed) * 1e3:.3f}), "
+        f"{res['edges_per_s'] / 1e6:.3f} M edges/s, peak memory "
+        f"{peak / 2**30:.3f} GiB, launches {counts}")
+    res["profile"] = _profile(types.SimpleNamespace(
+        model=model, optimizer=state), data, path)
     return res
 
 
@@ -1897,6 +2498,21 @@ def phase_trial(raw, main_step_s: float) -> dict:
     return res
 
 
+def _run_cli(argv: list) -> tuple:
+    """``python -m egc_tpu_torch``'s ``main`` on ``argv``, in process:
+    ``(printed lines, seconds)``. Fails unless every kernel instantiation
+    the run launched is one that phase 3 held (``_check_held``)."""
+    import io
+    from egc_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), _instantiations() as seen:
+        cli.main(argv)
+    sec = time.perf_counter() - t0
+    _check_held(f"cli {' '.join(argv[1:3])}", seen)
+    return buf.getvalue().strip().splitlines(), sec
+
+
 def phase_cli() -> dict:
     """``python -m egc_tpu_torch``'s ``main``, in process on the card:
     ``--check --check-epochs 3`` of every kind at its reference arxiv
@@ -1905,28 +2521,22 @@ def phase_cli() -> dict:
     kernels launched, every other kernel not) and finite metrics in the
     dict it prints; then one EGC-M ``--use-default-hparams --final-runs
     1`` run, whose ``final/run_0`` ``restore_trial`` must give the val
-    accuracy its ``result.json`` recorded."""
+    accuracy its ``result.json`` recorded. Every run launches only
+    instantiations that phase 3 held (``_run_cli``)."""
     import ast
-    import io
     import tempfile
     from pathlib import Path
     import torch
     from egc_tpu_torch import cli
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    def run(argv):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli.main(argv)
-        return buf.getvalue().strip().splitlines(), time.perf_counter() - t0
-
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for model, args in CLI_RUNS.items():
             reset_launch_counts()
-            lines, sec = run([f"{tmp}/{model}", model, "arxiv", *args,
-                              "--check", "--check-epochs", str(CLI_EPOCHS)])
+            lines, sec = _run_cli([f"{tmp}/{model}", model, "arxiv", *args,
+                                   "--check", "--check-epochs",
+                                   str(CLI_EPOCHS)])
             counts = launch_counts()
             printed = ast.literal_eval(lines[-1])
             values = [printed["best_val"], *printed["test"].values()]
@@ -1942,8 +2552,8 @@ def phase_cli() -> dict:
                 f"{CLI_EPOCHS}: {printed}; launches "
                 f"{ {k: v for k, v in counts.items() if v} } ({sec:.1f} s)")
         d = Path(tmp) / "egc_final"
-        lines, sec = run([str(d), "egc", "arxiv", *CLI_RUNS["egc"],
-                          "--use-default-hparams", "--final-runs", "1"])
+        lines, sec = _run_cli([str(d), "egc", "arxiv", *CLI_RUNS["egc"],
+                               "--use-default-hparams", "--final-runs", "1"])
         run_dir = d / "final" / "run_0"
         result = json.loads((run_dir / "result.json").read_text())
         history = json.loads((run_dir / "history.json").read_text())
@@ -1965,6 +2575,84 @@ def phase_cli() -> dict:
                             "restored": restored, "hparams": hp,
                             "seconds": sec}
         log(f"[cli] egc --use-default-hparams --final-runs 1: "
+            f"{len(history)} iterations in {sec:.1f} s, best val "
+            f"{result['best_val']:.4f} at {result['best_iter']}, final "
+            f"{result['test']}; restore_trial of final/run_0 gives "
+            f"{restored}")
+    return res
+
+
+def phase_cli_datasets() -> dict:
+    """``python -m egc_tpu_torch``'s ``main`` on the card for every other
+    dataset but rmag: ``--check --check-epochs 2`` of each SUPPORTED
+    (dataset, kind) at its main-table width (``CLI_DATASET_RUNS``) on the
+    config's synthetic set, each with the launch counters (the kind's
+    kernels launched, every other kernel not) and finite metrics (accuracy,
+    ROC-AUC and F1 in [0, 1]); then one zinc EGC-M h124 ``--use-default-
+    hparams --final-runs 1`` run, whose ``final/run_0`` ``restore_trial``
+    must give the test metrics its ``result.json`` recorded. Every run
+    launches only instantiations that phase 3 held (``_run_cli``)."""
+    import ast
+    import tempfile
+    from pathlib import Path
+    import torch
+    from egc_tpu_torch import cli
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dataset, model, args in CLI_DATASET_RUNS:
+            key = f"{dataset}/{model}"
+            reset_launch_counts()
+            lines, sec = _run_cli([f"{tmp}/{dataset}_{model}", model,
+                                   dataset, *args, "--check",
+                                   "--check-epochs",
+                                   str(CLI_DATASET_EPOCHS)])
+            counts = launch_counts()
+            printed = ast.literal_eval(lines[-1])
+            values = {"best_val": printed["best_val"], **printed["test"]}
+            check(all(math.isfinite(v) and (
+                0.0 <= v <= 1.0 or not k.endswith(("_acc", "_metric")))
+                for k, v in values.items()),
+                f"[cli] {key}: metrics {printed}")
+            kernels = CLI_KERNELS.get(model, GATHER)
+            for name, c in counts.items():
+                check(c > 0 if name in kernels else c == 0,
+                      f"[cli] {key}: {name} launched {c} times")
+            res[key] = {"printed": printed, "launches": counts,
+                        "seconds": sec}
+            log(f"[cli] {key} {' '.join(args)} --check --check-epochs "
+                f"{CLI_DATASET_EPOCHS}: {printed}; launches "
+                f"{ {k: v for k, v in counts.items() if v} } ({sec:.1f} s)")
+        args = CLI_DATASET_RUNS[0][2]
+        d = Path(tmp) / "zinc_final"
+        lines, sec = _run_cli([str(d), "egc", "zinc", *args,
+                               "--use-default-hparams", "--final-runs", "1"])
+        run_dir = d / "final" / "run_0"
+        result = json.loads((run_dir / "result.json").read_text())
+        history = json.loads((run_dir / "history.json").read_text())
+        config = cli.build_config("zinc", "egc", hidden=124, heads=4,
+                                  bases=4, aggrs="add,std,max",
+                                  num_samples=50)
+        model, state, _, hp, data = config.restore_trial(run_dir)
+        restored = config.test(model, state, data)
+        # the readout's mean pool sums by index_add, whose atomics add in
+        # another order each run: the eval is reproducible to rounding
+        check(restored.keys() == result["test"].keys() and all(
+            abs(v - result["test"][k]) <= RESTORE_RTOL * abs(
+                result["test"][k]) for k, v in restored.items()),
+              f"[cli] zinc: restored test metrics {restored} vs recorded "
+              f"{result['test']}, beyond rtol {RESTORE_RTOL}")
+        g, _ = next(iter(data["val"]))
+        fresh = config.model(hp, seed=0).eval()
+        with torch.no_grad():
+            check(not torch.equal(fresh(g), model.eval()(g)),
+                  "[cli] zinc: the restored net computes what a fresh one "
+                  "does")
+        res["zinc_final"] = {"result": result, "iterations": len(history),
+                             "restored": restored, "hparams": hp,
+                             "seconds": sec}
+        log(f"[cli] zinc egc --use-default-hparams --final-runs 1: "
             f"{len(history)} iterations in {sec:.1f} s, best val "
             f"{result['best_val']:.4f} at {result['best_iter']}, final "
             f"{result['test']}; restore_trial of final/run_0 gives "
@@ -2009,7 +2697,8 @@ def main(argv=None) -> int:
     results["segment_gather_reduce"] = check_segment_gather_reduce(data)
     rows += kernels_gat_main_shapes(data)
     rows += kernels_gatv2_main_shapes(data)
-    wide = kernels_code_shapes(code_batch(data["device"]))
+    code_g = code_batch(data["device"])
+    wide = kernels_code_shapes(code_g)
     zoo = kernels_zoo_shapes(data)
     for row in rows:
         for key, per_shape in (("wide", wide), ("zoo", zoo)):
@@ -2021,6 +2710,22 @@ def main(argv=None) -> int:
     kernels_gat_small(data["device"])
     kernels_gatv2_small(data["device"])
     phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mag = mag_data(data["device"])
+    plans = batch_plans()
+    per_key = {"paths": kernels_path_shapes(plans,
+                                            mag[2]["graph"].kernel_plan),
+               "cli": kernels_cli_shapes({
+                   "arxiv": data["graph"].kernel_plan,
+                   "hiv": plans["hiv_egc"], "code": code_g.kernel_plan})}
+    del plans, code_g
+    for row in rows:
+        for key, per_shape in per_key.items():
+            if row["name"] in per_shape:
+                row[key] = per_shape[row["name"]]
+                row["max_abs_err"] = max([row["max_abs_err"]] + [
+                    sh["max_abs_err"] for sh in row[key]])
+    phases["path kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     d_cpu = full_graph_to_device_dict(raw, "cpu")
     for path, net in (("main", {}), ("gat", GAT_NET), ("gatv2", GATV2_NET)):
@@ -2045,7 +2750,18 @@ def main(argv=None) -> int:
         results[path] = phase_code_path(path, net)
     phases["code2 paths"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    results["mag"] = phase_mag(
+        *mag, main_cpu_s=results["main"]["step_vs_cpu"]["cpu_step_seconds"],
+        elapsed=time.perf_counter() - t_start)
+    del mag
+    phases["mag path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path, net in BATCHED_NETS.items():
+        results[path] = phase_batched_path(path, net)
+    phases["batched paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     results["cli"] = phase_cli()
+    results["cli_datasets"] = phase_cli_datasets()
     phases["cli"] = time.perf_counter() - t0
     for row in rows:   # each path's timed steps, counted on their own
         row["launches_by_path"] = {
@@ -2070,13 +2786,19 @@ def main(argv=None) -> int:
              "tied_rows")   # the gather-reduce rows
     zoo_keys = ("path", "f", "prims", "masks", "ms", "plain_ms",
                 "bound_ms", "floor_ms", "max_abs_err")
+    mix_keys = ("path", "H", "B", "A", "L", "variant", "ms", "plain_ms",
+                "bound_ms", "library_ms", "max_abs_err")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r},
          **({"wide": [{k: sh.get(k) for k in wide_keys}   # floor: null
                       for sh in r["wide"]]}
             if "wide" in r else {}),
          **({"zoo": [{k: sh[k] for k in zoo_keys} for sh in r["zoo"]]}
-            if "zoo" in r else {})} for r in rows]}))
+            if "zoo" in r else {}),
+         **{key: [{k: sh[k] for k in (
+             mix_keys if r["name"].startswith("headmix") else zoo_keys)}
+             for sh in r[key]] for key in ("paths", "cli") if key in r}}
+        for r in rows]}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))

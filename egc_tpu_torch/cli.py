@@ -10,8 +10,10 @@ PyTorch path). Modes: ``--check`` (a short smoke trial), ``--hparams``
 to the seeded final runs, else a hyperparameter search first (in
 process), then the final runs.
 
-This port runs the ``arxiv`` dataset, all nine model kinds. The other
-datasets and ``--pretrained``, ``--partitions``, ``--sampled``,
+This port runs every dataset but ``rmag`` with every model kind the
+reference supports on it (``SUPPORTED``): zinc, cifar, hiv and code as
+batched tasks, arxiv and mag (homogeneous) on the full graph. ``rmag``
+and ``--pretrained``, ``--partitions``, ``--sampled``,
 ``--device-sampler`` and ``--search-workers`` > 1 raise, naming their
 ROADMAP.md item.
 """
@@ -45,11 +47,6 @@ SUPPORTED = {
 # where each dataset and option this port does not run yet stands in
 # ROADMAP.md's queue A
 NOT_PORTED = {
-    "zinc": "A12 (batched tasks: ZincConfig)",
-    "cifar": "A12 (batched tasks: CifarConfig)",
-    "hiv": "A12 (batched tasks: MolConfig)",
-    "code": "A12 (CodeConfig onto the ExperimentConfig surface)",
-    "mag": "A11 (mag homogeneous)",
     "rmag": "A13 (hetero rmag)",
     "--pretrained": "A15 (the pretrained registry)",
     "--partitions": "A16 (distributed)",
@@ -102,9 +99,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _conv_kwargs(model, heads, bases, aggrs):
+    """``main._conv_kwargs``: EGC's heads (8), bases (4) and aggregators."""
+    if model != "egc":
+        return {}
+    if aggrs is None:
+        raise UsageError("--aggrs is required for egc")
+    return dict(heads=heads or 8, bases=bases or 4,
+                aggrs=tuple(aggrs.split(",")))
+
+
 def build_config(dataset, model, *, hidden, heads, bases, aggrs,
-                 num_samples, synthetic=True, partitions=0, sampled=False,
-                 device_sampler=False, device=None):
+                 num_samples, synthetic=True, use_old_code_dataset=False,
+                 partitions=0, sampled=False, device_sampler=False,
+                 device=None):
     """``main.build_config`` for the datasets this port runs."""
     if model not in SUPPORTED[dataset]:
         raise UsageError(f"{model!r} not supported for {dataset!r} "
@@ -114,17 +122,32 @@ def build_config(dataset, model, *, hidden, heads, bases, aggrs,
             "--sampled/--device-sampler apply to the mag dataset only")
     if hidden is None:
         raise UsageError("--hidden is required")
-    if model == "egc" and aggrs is None:
-        raise UsageError("--aggrs is required for egc")
-    if dataset != "arxiv":
+    kw = _conv_kwargs(model, heads, bases, aggrs)
+    if dataset == "rmag":
         raise _not_ported(dataset)
-    if partitions:
-        raise _not_ported("--partitions")
-    from egc_tpu_torch.exp.fullgraph import ArxivConfig
-    cfg = ArxivConfig(model, hidden, heads=heads or 8, bases=bases or 8,
-                      aggrs=tuple(aggrs.split(",")) if aggrs else None,
-                      gat_version=2 if model == "gatv2" else 1,
-                      device=device)
+    from egc_tpu_torch.exp import batched, fullgraph
+    if dataset in ("zinc", "cifar", "hiv"):
+        ctor = {"zinc": batched.ZincConfig, "cifar": batched.CifarConfig,
+                "hiv": batched.MolConfig}[dataset]
+        cfg = ctor(model, hidden, device=device, **kw)
+    elif dataset == "code":
+        cfg = batched.CodeConfig(model, hidden, device=device,
+                                 use_old_code_dataset=use_old_code_dataset,
+                                 **kw)
+    elif dataset == "arxiv":
+        if partitions:
+            raise _not_ported("--partitions")
+        cfg = fullgraph.ArxivConfig(
+            model, hidden, heads=heads or 8, bases=bases or 8,
+            aggrs=tuple(aggrs.split(",")) if aggrs else None,
+            gat_version=2 if model == "gatv2" else 1, device=device)
+    else:   # mag
+        if sampled or device_sampler:
+            raise _not_ported("--sampled")
+        cfg = fullgraph.MagConfig(
+            model, hidden, heads=heads or 8, bases=bases or 4,
+            aggrs=tuple(aggrs.split(",")) if aggrs else ("symnorm",),
+            device=device)
     cfg.synthetic = synthetic
     cfg._num_samples = num_samples
     return cfg
@@ -155,7 +178,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     config = build_config(a.dataset, a.model, hidden=a.hidden,
                           heads=a.egc_num_heads, bases=a.egc_num_bases,
                           aggrs=a.aggrs, num_samples=a.num_samples,
-                          synthetic=a.synthetic, partitions=a.partitions,
+                          synthetic=a.synthetic,
+                          use_old_code_dataset=a.use_old_code_dataset,
+                          partitions=a.partitions,
                           sampled=a.sampled,
                           device_sampler=a.device_sampler, device=a.device)
 

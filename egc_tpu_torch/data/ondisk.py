@@ -1,21 +1,37 @@
 """On-disk readers for the real datasets (counterpart of
-``egc_tpu.data.ondisk``): the ogbn-arxiv reader.
+``egc_tpu.data.ondisk``).
 
-They read local files only, already in the standard OGB layout under
+They read local files only, already in the standard layouts under
 ``data_location()`` (``$DATASET_LOC``, default ``~/datasets``, the
-reference's key, ``experiments/utils.py:20-27``): ogbn-arxiv as
-``<root>/ogbn_arxiv/raw/{edge,node-feat,node-label}.csv.gz`` and
-``split/time/{train,valid,test}.csv.gz``. The CSV parse is numpy only,
-and the first parse of a file leaves a ``<file>.npy`` cache beside it.
+reference's key, ``experiments/utils.py:20-27``):
+
+- OGB node property sets: ogbn-arxiv as ``<root>/ogbn_arxiv/raw/{edge,
+  node-feat,node-label}.csv.gz`` and ``split/time/{train,valid,test}
+  .csv.gz``; ogbn-mag's paper-cites-paper graph as ``<root>/ogbn_mag/raw/
+  node-feat/paper``, ``node-label/paper``, ``relations/
+  paper___cites___paper`` and ``split/time/paper``;
+- OGB graph property sets (``ogbg_molhiv``, ``ogbg_code2``): ``raw/``
+  ``num-node-list``, ``num-edge-list``, ``edge``, ``node-feat`` and
+  ``graph-label`` (code2 also ``node_is_attributed`` and ``node_depth``),
+  with the ``scaffold`` / ``project`` splits;
+- ZINC as PyG's raw ``ZINC/raw/{train,val,test}.pickle`` with the subset
+  index files; CIFAR10 superpixels as ``CIFAR10/raw/CIFAR10_{train,val,
+  test}.pt``.
+
+The CSV parse is numpy only, and the first parse of a file leaves a
+``<file>.npy`` cache beside it. code2's preprocessing is the reference's
+(``experiments/code/utils.py``): the top-5000 vocabulary of the train
+targets (+ UNK, + EOS), the AST edge augmentation and the 5-token target.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import warnings
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -100,3 +116,216 @@ def load_ogbn_arxiv(root: Optional[Path] = None) -> Dict:
     return {"x": x, "y": y, "senders": s, "receivers": r,
             "train_idx": splits["train"], "val_idx": splits["val"],
             "test_idx": splits["test"], "num_classes": int(y.max()) + 1}
+
+
+def load_ogbn_mag_homogeneous(root: Optional[Path] = None) -> Dict:
+    """ogbn-mag's paper-cites-paper graph, symmetrised (reference
+    ``mag/configs.py:77-88``), as a host full-graph dict like
+    ``load_ogbn_arxiv``'s."""
+    root = (root or data_location()) / "ogbn_mag"
+    raw = root / "raw"
+    x = _read_csv_gz(raw / "node-feat" / "paper" / "node-feat.csv.gz",
+                     np.float32)
+    y = _read_csv_gz(raw / "node-label" / "paper" / "node-label.csv.gz"
+                     ).reshape(-1).astype(np.int32)
+    edges = _read_csv_gz(
+        raw / "relations" / "paper___cites___paper" / "edge.csv.gz")
+    n = x.shape[0]
+    s, r = to_undirected_np(edges[:, 0].astype(np.int32),
+                            edges[:, 1].astype(np.int32), n)
+    splits = _load_split(root, "time/paper")
+    return {"x": x, "y": y, "senders": s, "receivers": r,
+            "train_idx": splits["train"], "val_idx": splits["val"],
+            "test_idx": splits["test"], "num_classes": int(y.max()) + 1}
+
+
+def _load_ogbg_raw(root: Path):
+    """The graph-property layout's per-graph node and edge offsets."""
+    raw = root / "raw"
+    num_nodes = _read_csv_gz(raw / "num-node-list.csv.gz").reshape(-1)
+    num_edges = _read_csv_gz(raw / "num-edge-list.csv.gz").reshape(-1)
+    edges = _read_csv_gz(raw / "edge.csv.gz")
+    node_feat = _read_csv_gz(raw / "node-feat.csv.gz")
+    node_off = np.concatenate([[0], np.cumsum(num_nodes)])
+    edge_off = np.concatenate([[0], np.cumsum(num_edges)])
+    return raw, num_nodes, edges, node_feat, node_off, edge_off
+
+
+def _load_split(root: Path, split_type: str) -> Dict[str, np.ndarray]:
+    split_dir = root / "split" / split_type
+    return {k: _read_csv_gz(split_dir / f"{v}.csv.gz").reshape(-1)
+            for k, v in (("train", "train"), ("val", "valid"),
+                         ("test", "test"))}
+
+
+def _by_split(graphs: List[dict], split) -> Dict[str, List[dict]]:
+    return {k: [graphs[i] for i in split[k]] for k in ("train", "val",
+                                                      "test")}
+
+
+def load_ogbg_molhiv(root: Optional[Path] = None) -> Dict[str, List[dict]]:
+    """ogbg-molhiv: per graph its 9 atom features, local edge ids and the
+    label, split by scaffold."""
+    root = (root or data_location()) / "ogbg_molhiv"
+    raw, num_nodes, edges, node_feat, node_off, edge_off = \
+        _load_ogbg_raw(root)
+    labels = _read_csv_gz(raw / "graph-label.csv.gz").reshape(-1)
+    graphs = []
+    for i in range(len(num_nodes)):
+        ns, ne = node_off[i], node_off[i + 1]
+        es, ee = edge_off[i], edge_off[i + 1]
+        graphs.append({
+            "nodes": node_feat[ns:ne].astype(np.int32),
+            "senders": edges[es:ee, 0].astype(np.int32),
+            "receivers": edges[es:ee, 1].astype(np.int32),
+            "y": np.array([labels[i]], np.int32),
+        })
+    return _by_split(graphs, _load_split(root, "scaffold"))
+
+
+def augment_ast_edges_np(senders, receivers, is_attributed):
+    """Reference ``augment_edge`` (``code/utils.py:74-145``), connectivity
+    only: AST + inverse-AST + next-token + inverse-next-token edges (nodes
+    are in DFS order)."""
+    att = np.where(is_attributed.reshape(-1) == 1)[0].astype(np.int32)
+    nt_s, nt_r = att[:-1], att[1:]
+    s = np.concatenate([senders, receivers, nt_s, nt_r])
+    r = np.concatenate([receivers, senders, nt_r, nt_s])
+    return s.astype(np.int32), r.astype(np.int32)
+
+
+def build_vocab(train_seqs: List[List[str]], num_vocab: int = 5000):
+    """Reference ``get_vocab_mapping`` (``code/utils.py:31-71``): the
+    ``num_vocab`` most frequent words, ties in order of first appearance,
+    then ``__UNK__`` and ``__EOS__``."""
+    vocab_cnt: Dict[str, int] = {}
+    vocab_list: List[str] = []
+    for seq in train_seqs:
+        for w in seq:
+            if w in vocab_cnt:
+                vocab_cnt[w] += 1
+            else:
+                vocab_cnt[w] = 1
+                vocab_list.append(w)
+    cnt = np.array([vocab_cnt[w] for w in vocab_list])
+    top = np.argsort(-cnt, kind="stable")[:num_vocab]
+    idx2vocab = [vocab_list[i] for i in top] + ["__UNK__", "__EOS__"]
+    vocab2idx = {w: i for i, w in enumerate(idx2vocab)}
+    return vocab2idx, idx2vocab
+
+
+def encode_seq(seq: List[str], vocab2idx, seq_len: int = 5) -> np.ndarray:
+    """The first ``seq_len`` words as ids (``__UNK__`` for unknown ones),
+    padded with ``__EOS__``."""
+    unk = vocab2idx["__UNK__"]
+    out = seq[:seq_len] + ["__EOS__"] * max(0, seq_len - len(seq))
+    return np.array([vocab2idx.get(w, unk) for w in out], np.int32)
+
+
+def decode_arr(arr, idx2vocab) -> List[str]:
+    """Reference ``decode_arr_to_seq``: the words up to the first
+    ``__EOS__``."""
+    eos = len(idx2vocab) - 1
+    out = []
+    for t in arr:
+        if int(t) == eos:
+            break
+        out.append(idx2vocab[int(t)])
+    return out
+
+
+def load_ogbg_code2(root: Optional[Path] = None, num_vocab: int = 5000,
+                    seq_len: int = 5) -> Dict:
+    """ogbg-code2: per graph the (type, attribute, depth clamped to 20)
+    node rows, the augmented AST edges, the encoded target and its words
+    (``y_raw``), split by project; with the vocabulary both ways."""
+    root = (root or data_location()) / "ogbg_code2"
+    raw, num_nodes, edges, node_feat, node_off, edge_off = \
+        _load_ogbg_raw(root)
+    is_att = _read_csv_gz(raw / "node_is_attributed.csv.gz").reshape(-1)
+    depth = _read_csv_gz(raw / "node_depth.csv.gz").reshape(-1)
+    # one method name per graph, its subtokens comma-separated
+    with gzip.open(raw / "graph-label.csv.gz", "rt") as f:
+        seqs = [line.strip().split(",") for line in f]
+    split = _load_split(root, "project")
+    vocab2idx, idx2vocab = build_vocab(
+        [seqs[i] for i in split["train"]], num_vocab)
+    graphs = []
+    for i in range(len(num_nodes)):
+        ns, ne = node_off[i], node_off[i + 1]
+        es, ee = edge_off[i], edge_off[i + 1]
+        s, r = augment_ast_edges_np(
+            edges[es:ee, 0].astype(np.int32),
+            edges[es:ee, 1].astype(np.int32), is_att[ns:ne])
+        nodes = np.stack([
+            node_feat[ns:ne, 0], node_feat[ns:ne, 1],
+            np.minimum(depth[ns:ne], 20)], axis=1).astype(np.int32)
+        graphs.append({
+            "nodes": nodes, "senders": s, "receivers": r,
+            "y": encode_seq(seqs[i], vocab2idx, seq_len),
+            "y_raw": seqs[i],
+        })
+    return {"splits": _by_split(graphs, split), "vocab2idx": vocab2idx,
+            "idx2vocab": idx2vocab}
+
+
+def load_cifar10_superpixels(root: Optional[Path] = None
+                             ) -> Dict[str, List[dict]]:
+    """CIFAR10 superpixel graphs (reference ``cifar/configs.py:37-45``:
+    ``GNNBenchmarkDataset`` with ``pos`` concatenated onto ``x``, 5
+    features). Each ``CIFAR10_{split}.pt`` is a list of per-graph dicts or
+    objects with ``x`` [N, 3], ``pos`` [N, 2], ``edge_index`` [2, E] and
+    ``y``."""
+    import torch
+
+    raw = (root or data_location()) / "CIFAR10" / "raw"
+    out: Dict[str, List[dict]] = {}
+    for split in ("train", "val", "test"):
+        items = torch.load(raw / f"CIFAR10_{split}.pt", map_location="cpu",
+                           weights_only=False)
+        graphs = []
+        for it in items:
+            get = it.get if isinstance(it, dict) else \
+                (lambda k, _it=it: getattr(_it, k, None))
+            x = np.asarray(get("x"), np.float32)
+            pos = np.asarray(get("pos"), np.float32)
+            ei = np.asarray(get("edge_index"), np.int64)
+            graphs.append({
+                "nodes": np.concatenate([x, pos], axis=1),
+                "senders": ei[0].astype(np.int32),
+                "receivers": ei[1].astype(np.int32),
+                "y": np.asarray(get("y")).reshape(-1)[:1].astype(np.int32),
+            })
+        out[split] = graphs
+    return out
+
+
+def load_zinc(root: Optional[Path] = None, subset: bool = True
+              ) -> Dict[str, List[dict]]:
+    """ZINC from PyG's raw pickles (``atom_type``, the ``bond_type``
+    adjacency and ``logP_SA_cycle_normalized`` a molecule), the 12 k
+    subset by the ``{split}.index`` files unless ``subset=False``."""
+    import torch  # noqa: F401 -- the pickles hold torch tensors
+
+    raw = (root or data_location()) / "ZINC" / "raw"
+    out = {}
+    for split in ("train", "val", "test"):
+        with open(raw / f"{split}.pickle", "rb") as f:
+            mols = pickle.load(f)
+        if subset:
+            idx = [int(line) for line in
+                   (raw / f"{split}.index").read_text().split(",")]
+            mols = [mols[i] for i in idx]
+        graphs = []
+        for mol in mols:
+            s, r = np.nonzero(np.asarray(mol["bond_type"]))
+            graphs.append({
+                "nodes": np.asarray(mol["atom_type"], np.int32).reshape(-1,
+                                                                       1),
+                "senders": s.astype(np.int32),
+                "receivers": r.astype(np.int32),
+                "y": np.array([float(mol["logP_SA_cycle_normalized"])],
+                              np.float32),
+            })
+        out[split] = graphs
+    return out

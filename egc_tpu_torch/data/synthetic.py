@@ -1,12 +1,17 @@
 """Synthetic datasets (counterpart of ``egc_tpu.data.synthetic``).
 
-Copies, in numpy, of ``synthetic_full_graph`` and ``synthetic_code`` (with
-its ``_split``): the same seed gives arrays equal to the JAX package's, so
-both packages train on the same data.
+Copies, in numpy, of ``synthetic_full_graph``, ``synthetic_code``,
+``synthetic_zinc``, ``synthetic_cifar`` and ``synthetic_molhiv`` (with
+``_random_molecule`` and ``_split``): the same seed gives arrays equal to
+the JAX package's, so both packages train on the same data.
 ``synthetic_full_graph(num_nodes=169_343, avg_degree=14, seed=0)`` is the
 ogbn-arxiv-shaped graph of the full-graph paths (2,368,458 directed
 edges); ``synthetic_code(vocab_size=5000, num_attrs=10030)`` has
-ogbg-code2's vocabulary and attribute count.
+ogbg-code2's vocabulary and attribute count. The molecule-shaped sets
+(``egc_tpu/data/synthetic.py:33-101``): zinc, 1,200 graphs of 10-37 atoms
+of 28 types and a scalar target; cifar, 900 graphs of 80-149 superpixels
+with 5 features and 10 classes; molhiv, 1,200 graphs of 10-39 atoms with
+the 9 OGB atom features and a binary label; each split 70/15/15 in order.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from egc_tpu_torch.graph.transforms import to_undirected_np
+from egc_tpu_torch.models.encoders import ATOM_FEATURE_DIMS
 
 
 def synthetic_full_graph(num_nodes=4000, avg_degree=12, num_classes=40,
@@ -57,6 +63,81 @@ def _same_class_partner(rng, labels, src, num_classes):
     span = np.maximum(ends[c] - starts[c], 1)
     pick = starts[c] + (rng.random(len(src)) * span).astype(np.int64)
     return order[np.minimum(pick, len(order) - 1)]
+
+
+def _random_molecule(rng, n, num_types, extra_edge_frac=0.3):
+    """Connected molecule-like graph: a ring + random chords, undirected."""
+    types = rng.integers(0, num_types, n)
+    ring_s = np.arange(n, dtype=np.int32)
+    ring_r = (ring_s + 1) % n
+    n_extra = max(int(n * extra_edge_frac), 1)
+    ex_s = rng.integers(0, n, n_extra).astype(np.int32)
+    ex_r = rng.integers(0, n, n_extra).astype(np.int32)
+    s = np.concatenate([ring_s, ex_s])
+    r = np.concatenate([ring_r, ex_r])
+    keep = s != r
+    s, r = to_undirected_np(s[keep], r[keep], n)
+    return types, s, r
+
+
+def synthetic_zinc(num_graphs=1200, seed=0, num_types=28):
+    """ZINC stand-in: atom types ``[N, 1]`` int32 and a learnable scalar
+    target from the type and degree statistics."""
+    rng = np.random.default_rng(seed)
+    type_w = np.random.default_rng(99).normal(size=(num_types,))
+    graphs = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(10, 38))
+        types, s, r = _random_molecule(rng, n, num_types)
+        deg = np.zeros(n)
+        np.add.at(deg, r, 1.0)
+        y = float(type_w[types].mean() + 0.2 * deg.std() + 0.1 * len(s) / n)
+        graphs.append({
+            "nodes": types.astype(np.int32).reshape(n, 1),
+            "senders": s, "receivers": r,
+            "y": np.array([y], np.float32),
+        })
+    return _split(graphs)
+
+
+def synthetic_cifar(num_graphs=900, seed=0):
+    """CIFAR10-superpixel stand-in: 5 float features (colour and position)
+    a node, dense chords, the class a linear function of the mean
+    feature."""
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(7).normal(size=(5, 10))
+    graphs = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(80, 150))
+        feats = rng.normal(size=(n, 5)).astype(np.float32)
+        _, s, r = _random_molecule(rng, n, 2, extra_edge_frac=3.0)
+        label = int(np.argmax(feats.mean(0) @ w))
+        graphs.append({
+            "nodes": feats, "senders": s, "receivers": r,
+            "y": np.array([label], np.int32),
+        })
+    return _split(graphs)
+
+
+def synthetic_molhiv(num_graphs=1200, seed=0):
+    """ogbg-molhiv stand-in: the 9 categorical OGB atom features ``[N, 9]``
+    int32 and a balanced binary label."""
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(13).normal(size=(len(ATOM_FEATURE_DIMS),))
+    graphs = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(10, 40))
+        feats = np.stack(
+            [rng.integers(0, d, n) for d in ATOM_FEATURE_DIMS], axis=1
+        ).astype(np.int32)
+        _, s, r = _random_molecule(rng, n, 2)
+        score = ((feats.mean(0) / np.asarray(ATOM_FEATURE_DIMS)) - 0.5) @ w
+        label = int(score > 0.0)
+        graphs.append({
+            "nodes": feats, "senders": s, "receivers": r,
+            "y": np.array([label], np.int32),
+        })
+    return _split(graphs)
 
 
 def synthetic_code(num_graphs=900, seed=0, vocab_size=120, seq_len=5,

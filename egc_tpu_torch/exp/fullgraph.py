@@ -18,7 +18,12 @@ as the reference and ``egc_tpu.train.optim`` do).
 ``ArxivConfig`` follows the JAX one: the synthetic graph of 4,000 nodes
 at degree 12 and 40 classes (or ``load_ogbn_arxiv`` with ``synthetic =
 False``), its search space, grid (10 x 2 x 2), plateau (patience 40) and
-stopper (80, 1000). The TPU plan knobs (``wide_aggrs``, PNA's
+stopper (80, 1000). ``MagConfig`` is homogeneous ogbn-mag (reference
+``mag/configs.py``): ``MagNet`` (2 optimized EGC layers, symnorm unless
+told otherwise), the synthetic graph of 6,000 nodes at degree 10 and 349
+classes (or ``load_ogbn_mag_homogeneous``), fixed hyperparameters (an
+empty grid), plateau patience 10, stopper (50, 200), no checkpoint at a
+trial's end. The TPU plan knobs (``wide_aggrs``, PNA's
 ``bwd_narrow_window_rows``) are layout machinery and are not carried over.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
@@ -44,7 +49,7 @@ from egc_tpu_torch.exp.hyperparams import (
 )
 from egc_tpu_torch.graph.structure import Graph, pad_graph
 from egc_tpu_torch.graph.transforms import symnorm_weight
-from egc_tpu_torch.models.nets import ArxivNet, ConvSpec
+from egc_tpu_torch.models.nets import ArxivNet, ConvSpec, MagNet
 from egc_tpu_torch.nn.conv.pna import avg_log_degree
 from egc_tpu_torch.ops.dispatch import build_kernel_plan
 from egc_tpu_torch.train.losses import gather_label_scores
@@ -181,12 +186,14 @@ class FullGraphConfig(ExperimentConfig):
     num_layers: int = 3
 
     def __init__(self, model_kind: str, hidden: int, *, heads: int = 8,
-                 bases: int = 8, aggrs: Optional[Sequence[str]] = None,
+                 bases: int = 8, softmax: bool = False,
+                 aggrs: Optional[Sequence[str]] = None,
                  gat_version: int = 1, device: DeviceLike = None):
         self.model_kind = model_kind
         self.hidden = hidden
         self.heads = heads
         self.bases = bases
+        self.softmax = softmax
         self.aggrs = tuple(aggrs) if aggrs else None
         self.gat_version = gat_version
         self.device = resolve_device(device)
@@ -207,7 +214,8 @@ class FullGraphConfig(ExperimentConfig):
         if kind in ("gat", "gatv2"):
             kind = "gat" if self.gat_version == 1 else "gatv2"
         return ConvSpec(kind=kind, heads=self.heads, bases=self.bases,
-                        aggrs=self.aggrs, avg_log_deg=self._avg_log_deg)
+                        softmax=self.softmax, aggrs=self.aggrs,
+                        avg_log_deg=self._avg_log_deg)
 
     def train(self, model, state, data, rng, iteration: int):
         loss = train_step(model, state, data, rng)
@@ -269,3 +277,57 @@ class ArxivConfig(FullGraphConfig):
                          dropout=float(hparams.get("dropout", 0.2)),
                          num_features=self._num_features, seed=seed,
                          device=self.device)
+
+
+class MagConfig(FullGraphConfig):
+    """Homogeneous ogbn-mag (paper-cites-paper) with ``MagNet``; fixed
+    hyperparameters (an empty grid, reference mag/configs.py:108-109)."""
+
+    name = "mag"
+    num_layers = 2                     # reference mag/configs.py:25
+
+    def settings(self):
+        return ExperimentSettings("mag", final_repeats=10,
+                                  final_max_iterations=200,
+                                  checkpoint_at_end=False)
+
+    def stoppers(self):
+        return StopperSpec(patience=50, max_iters=200)
+
+    def trial_metric(self):
+        return Metric("val_acc", "max")
+
+    def search_strategy(self):
+        from egc_tpu_torch.exp.search import GridSearchStrategy
+        return GridSearchStrategy({})
+
+    def hyperparams(self):
+        return {
+            "lr": LogUniformHyperParam(0.001, 0.05, default=0.01),
+            "wd": LogUniformHyperParam(0.0001, 0.001, default=0.0),
+            "dropout": UniformHyperParam(0.0, 0.5, default=0.5),
+        }
+
+    def plateau(self, hparams):
+        # ReduceLROnPlateau(patience=10): reference mag/configs.py:140-142
+        return plateau_init(hparams["lr"], mode="max", factor=0.5,
+                            patience=10, min_lr=1e-5)
+
+    def load_full_graph(self):
+        if self.synthetic:
+            return synthetic.synthetic_full_graph(
+                num_nodes=6000, avg_degree=10, num_classes=349,
+                num_features=128)
+        from egc_tpu_torch.data.ondisk import load_ogbn_mag_homogeneous
+        return load_ogbn_mag_homogeneous()
+
+    def model(self, hparams, *, seed: int = 0):
+        """``MagNet``, initialised from ``seed`` on the CPU and moved to
+        the config's device."""
+        net = MagNet(self.hidden, num_layers=self.num_layers,
+                     dropout=float(hparams.get("dropout", 0.5)),
+                     heads=self.heads, bases=self.bases,
+                     aggrs=self.aggrs or ("symnorm",),
+                     num_features=self._num_features,
+                     generator=torch.Generator().manual_seed(seed))
+        return net.to(self.device)

@@ -1,13 +1,15 @@
 """JAX variables -> the port's state dict (counterpart of
 ``egc_tpu.exp.weight_port``).
 
-``arxiv_state_dict_from_jax`` and ``code_state_dict_from_jax`` apply the
-arxiv and code rules of the JAX package's ``build_rules`` to a flax
-``{"params", "batch_stats"}`` tree given as nested dicts of numpy arrays,
-and return the reference-named state dict that ``ArxivNet`` /
-``CodeNet.load_state_dict(strict=True)`` takes. The conv and BN rules are
-shared; only their key prefixes differ (``convs.{i}.`` / ``bns.{i}.`` and
-``graph_layers.{i}.0.`` / ``graph_layers.{i}.1.``):
+``arxiv_state_dict_from_jax``, ``batched_state_dict_from_jax`` (zinc,
+cifar, hiv, code) and ``mag_state_dict_from_jax`` apply the rules of the
+JAX package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
+given as nested dicts of numpy arrays, and return the reference-named
+state dict, key for key and in order ``export_model_state``'s, that the
+port's net takes with ``load_state_dict(strict=True)``. The conv and BN
+rules are shared; only their key prefixes differ (``convs.{i}.`` /
+``bns.{i}.``; ``graph_layers.{i}.0.`` / ``.1.``, cifar's ``.1.`` / ``.2.``
+behind its per-layer dropout):
 
 - Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
 - EGConv ``bases.kernel`` [in, B*L] -> ``bases_weight.{b}`` [in, L];
@@ -32,9 +34,17 @@ shared; only their key prefixes differ (``convs.{i}.`` / ``bns.{i}.`` and
   (``weight_port.py:158-172``), then ``lin``;
 - MaskedBatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
   ``running_mean/running_var``, plus ``num_batches_tracked`` = 0;
-- code: the ASTNodeEncoder's ``type`` / ``attr`` / ``depth`` embeddings and
-  the fused ``token_predictors`` Dense, split into its 5 heads
-  (``weight_port.py:346-384``).
+- the batched readout ``MLP_{m}`` (``Dense_k`` -> ``mlp.{4k}.``, its
+  ``MaskedBatchNorm_k`` -> ``mlp.{4k+1}.``), then the embedding: zinc's
+  ``embedding.weight``, cifar's Linear, hiv's AtomEncoder tables
+  ``embedding.atom_embedding_list.{i}.weight``; code: the ASTNodeEncoder's
+  ``type`` / ``attr`` / ``depth`` embeddings and the fused
+  ``token_predictors`` Dense, split into its 5 heads
+  (``weight_port.py:234-243, 335-384``);
+- mag: the optimized EGConv (``weight_port.py:139-155``): ``bases.kernel``
+  as ``bases_weight`` [in, B*L], the ``comb`` columns taken from (h, b, a)
+  to the reference's aggregator-major (h, a*B + b) order
+  (``nn.conv.egc.comb_perm``), ``bias``; no BatchNorm.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from egc_tpu_torch.nn.conv.egc import comb_perm
 
 
 def _module_indices(params: Dict[str, Any], cls: str) -> List[int]:
@@ -188,28 +200,88 @@ def arxiv_state_dict_from_jax(variables: Dict[str, Any], *,
     return _finish(sd)
 
 
+def _mlp_rules(sd, variables, m: int) -> None:
+    """The readout ``MLP_{m}``: ``Dense_k`` at ``mlp.{4k}.`` and its
+    ``MaskedBatchNorm_k`` at ``mlp.{4k+1}.``, in the JAX export's order."""
+    p = variables["params"][f"MLP_{m}"]
+    stats = variables.get("batch_stats", {}).get(f"MLP_{m}", {})
+    dense = _module_indices(p, "Dense")
+    for k in dense:
+        _linear(sd, f"mlp.{4 * k}.", p[f"Dense_{k}"])
+        if k < len(dense) - 1:
+            _batchnorm_rules(sd, {f"MaskedBatchNorm_{k}":
+                                  p[f"MaskedBatchNorm_{k}"]},
+                             {f"MaskedBatchNorm_{k}":
+                              stats.get(f"MaskedBatchNorm_{k}")},
+                             lambda _, k=k: f"mlp.{4 * k + 1}.")
+
+
+def batched_state_dict_from_jax(dataset: str, variables: Dict[str, Any], *,
+                                bases: int = 4
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX ``ZincNet`` / ``CifarNet`` / ``HIVNet`` / ``CodeNet``'s
+    variables -> the state dict that the port's net of ``dataset`` takes:
+    conv i under ``graph_layers.{i}.{slot}.`` and its BN under
+    ``graph_layers.{i}.{slot + 1}.`` (slot 1 for cifar, else 0), the
+    readout ``mlp`` (not code's), then the embedding (and code's token
+    heads)."""
+    if dataset not in ("zinc", "cifar", "hiv", "code"):
+        raise ValueError(f"no batched rules for {dataset!r}")
+    params = variables["params"]
+    slot = 1 if dataset == "cifar" else 0
+    sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    _conv_rules(sd, params, lambda i: f"graph_layers.{i}.{slot}.", bases)
+    _batchnorm_rules(sd, params, variables.get("batch_stats", {}),
+                     lambda i: f"graph_layers.{i}.{slot + 1}.")
+    _gin_net_rules(sd, params, lambda i: f"graph_layers.{i}.{slot}.")
+    gin = len(_module_indices(params, "GINConv"))
+    for m in _module_indices(params, "MLP"):
+        if m >= gin:     # GIN's conv nets are MLP_0 .. MLP_{L-1}
+            _mlp_rules(sd, variables, m)
+    emb = params["embedding"]
+    if dataset == "zinc":
+        sd["embedding.weight"] = np.asarray(emb["embedding"])
+    elif dataset == "cifar":
+        _linear(sd, "embedding.", emb)
+    elif dataset == "hiv":
+        for i in sorted(int(k.rsplit("_", 1)[1]) for k in emb):
+            sd[f"embedding.atom_embedding_list.{i}.weight"] = \
+                np.asarray(emb[f"atom_emb_{i}"]["embedding"])
+    else:
+        for ours, theirs in (("type", "type_encoder"),
+                             ("attr", "attribute_encoder"),
+                             ("depth", "depth_encoder")):
+            sd[f"embedding.{theirs}.weight"] = np.asarray(
+                emb[ours]["embedding"])
+        tp = params["token_predictors"]   # 5 heads (code/models.py:95-98)
+        for s, w in enumerate(np.split(np.asarray(tp["kernel"]), 5, 1)):
+            sd[f"token_predictors.{s}.weight"] = _t(w)
+        for s, b in enumerate(np.split(np.asarray(tp["bias"]), 5)):
+            sd[f"token_predictors.{s}.bias"] = b
+    return _finish(sd)
+
+
 def code_state_dict_from_jax(variables: Dict[str, Any], *, bases: int = 4
                              ) -> "OrderedDict[str, torch.Tensor]":
-    """The JAX ``CodeNet``'s variables -> the state dict that the port's
-    ``CodeNet.load_state_dict(strict=True)`` takes: conv i under
-    ``graph_layers.{i}.0.`` and its BN under ``graph_layers.{i}.1.``; the
-    ``type``, ``attr`` and ``depth`` embeddings as ``embedding.
-    {type,attribute,depth}_encoder.weight``; the fused token Dense
-    [h, S*(V+2)] split into ``token_predictors.{s}`` Linears."""
+    """``batched_state_dict_from_jax("code", ...)``: the JAX ``CodeNet``'s
+    variables -> the port's ``CodeNet`` state dict."""
+    return batched_state_dict_from_jax("code", variables, bases=bases)
+
+
+def mag_state_dict_from_jax(variables: Dict[str, Any], *, heads: int,
+                            bases: int, num_aggrs: int
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX ``MagNet``'s variables -> the port's ``MagNet`` state dict:
+    EGConv i at ``convs.{i}.`` under the optimized EGConv's names, its
+    ``comb`` columns in the reference's aggregator-major order."""
     params = variables["params"]
+    inv = np.argsort(comb_perm(heads, bases, num_aggrs))
     sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
-    _conv_rules(sd, params, lambda i: f"graph_layers.{i}.0.", bases)
-    _batchnorm_rules(sd, params, variables.get("batch_stats", {}),
-                     lambda i: f"graph_layers.{i}.1.")
-    _gin_net_rules(sd, params, lambda i: f"graph_layers.{i}.0.")
-    emb = params["embedding"]
-    for ours, theirs in (("type", "type_encoder"),
-                         ("attr", "attribute_encoder"),
-                         ("depth", "depth_encoder")):
-        sd[f"embedding.{theirs}.weight"] = np.asarray(emb[ours]["embedding"])
-    tp = params["token_predictors"]     # 5 heads (code/models.py:95-98)
-    for s, w in enumerate(np.split(np.asarray(tp["kernel"]), 5, 1)):
-        sd[f"token_predictors.{s}.weight"] = _t(w)
-    for s, b in enumerate(np.split(np.asarray(tp["bias"]), 5)):
-        sd[f"token_predictors.{s}.bias"] = b
+    for i in _module_indices(params, "EGConv"):
+        p, tp = params[f"EGConv_{i}"], f"convs.{i}."
+        sd[tp + "bases_weight"] = np.asarray(p["bases"]["kernel"])
+        sd[tp + "comb_weight.weight"] = _t(np.asarray(
+            p["comb"]["kernel"])[:, inv])
+        sd[tp + "comb_weight.bias"] = np.asarray(p["comb"]["bias"])[inv]
+        sd[tp + "bias"] = np.asarray(p["bias"])
     return _finish(sd)

@@ -130,6 +130,37 @@ def segment_min(data, segment_ids, num_segments: int, *, mask=None):
     return -segment_max(-data, segment_ids, num_segments, mask=mask)
 
 
+def segment_var(data, segment_ids, num_segments: int, *, mask=None):
+    """``E[x^2] - E[x]^2`` over each segment's (unmasked) rows, with
+    autograd's backward, as in ``multi_aggregate``; an empty segment
+    gives 0."""
+    m = segment_mean(data, segment_ids, num_segments, mask=mask)
+    msq = segment_mean(data * data, segment_ids, num_segments, mask=mask)
+    return _var_from_moments(msq, m)
+
+
+def segment_std(data, segment_ids, num_segments: int, *, mask=None):
+    """``sqrt(relu(var) + 1e-5)`` (reference ``experiments/layers.py:
+    214-216``); an empty segment gives sqrt(1e-5)."""
+    return torch.sqrt(torch.relu(segment_var(
+        data, segment_ids, num_segments, mask=mask)) + 1e-5)
+
+
+def segment_softmax(logits, segment_ids, num_segments: int, *, mask=None):
+    """Softmax of ``logits`` [E, ...] within each segment, shifted by the
+    segment's max. A masked entry gets probability 0, and a segment with
+    no unmasked entry gives zeros."""
+    ids = _masked_ids(segment_ids, num_segments, mask)
+    seg = segment_ids.long()
+    mx = _segment_max_raw(logits, ids, num_segments)   # empty: 0
+    ex = torch.exp(logits - mx[seg])
+    if mask is not None:
+        ex = torch.where(_bcast(mask, ex.ndim), ex, torch.zeros_like(ex))
+    denom = torch.clamp(_segment_sum_ids(ex, ids, num_segments),
+                        min=torch.finfo(logits.dtype).tiny)
+    return ex / denom[seg]
+
+
 def multi_aggregate(
     node_vals: torch.Tensor,              # [N, F]
     senders: torch.Tensor,                # [E]

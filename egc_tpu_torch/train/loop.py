@@ -11,6 +11,12 @@ The consuming thread's two parts of a step are ``record_function`` ranges,
 ``egc.batch`` (waiting for the next batch and its copy to the device) and
 ``egc.step`` (forward, backward and optimizer step, enqueued), so a
 ``torch.profiler`` trace splits the host's time between them.
+
+Dropout draws from an explicit ``torch.Generator``: ``fold_in`` derives an
+iteration's generator from the trial's, as the JAX loop folds the trial
+key with the iteration (``egc_tpu/exp/batched.py:137-140``), and the steps
+of the epoch draw from it in turn. The two frameworks' streams differ, so
+the same seed gives other dropout masks than the JAX package's.
 """
 
 from __future__ import annotations
@@ -57,13 +63,25 @@ class StepClock:
         return out
 
 
+def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new generator on ``generator``'s device, seeded from its seed and
+    ``data`` (``jax.random.fold_in``'s role; ``generator``'s state is left
+    as it is)."""
+    seed = np.random.SeedSequence(
+        [generator.initial_seed(), int(data)]).generate_state(1, np.uint64)
+    return torch.Generator(device=generator.device).manual_seed(
+        int(seed[0]) >> 1)
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               loss_fn: Callable, graph, y: torch.Tensor) -> torch.Tensor:
+               loss_fn: Callable, graph, y: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One step on one batch; returns the loss (a device scalar). The
-    parameters' ``.grad`` hold this step's gradients afterwards."""
+    parameters' ``.grad`` hold this step's gradients afterwards. Dropout
+    draws from ``generator``."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model(graph), y, graph)
+    loss = loss_fn(model(graph, generator=generator), y, graph)
     loss.backward()
     optimizer.step()
     return loss.detach()
@@ -72,11 +90,13 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 loss_fn: Callable, loader: Iterable, *,
                 steps: Optional[int] = None,
-                clock: Optional[StepClock] = None) -> np.ndarray:
+                clock: Optional[StepClock] = None,
+                generator: Optional[torch.Generator] = None) -> np.ndarray:
     """One pass over ``loader`` (its first ``steps`` batches, when given);
     returns the per-step losses, read from the device once at the end (the
     JAX loop returns their mean). ``loss_fn(out, y, graph)`` must respect
-    the batch's masks. ``clock`` is marked after each step."""
+    the batch's masks. ``clock`` is marked after each step; the steps'
+    dropout draws from ``generator``."""
     losses = []
     it = iter(loader)
     while steps is None or len(losses) < steps:
@@ -85,7 +105,8 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if batch is None:
             break
         with record_function("egc.step"):
-            losses.append(train_step(model, optimizer, loss_fn, *batch))
+            losses.append(train_step(model, optimizer, loss_fn, *batch,
+                                     generator=generator))
         if clock is not None:
             clock.mark()
     if not losses:

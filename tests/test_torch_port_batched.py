@@ -511,13 +511,19 @@ def test_code_loss_and_eval_metrics_equal_jax():
         jcfg.eval_metrics(collected, "val")
 
 
-def test_code_config_defaults_follow_jax():
+def test_code_config_defaults_follow_jax(tmp_path, monkeypatch):
     for synthetic, vocab, attrs in ((True, 120, 500), (False, 5000, 10030)):
         cfg = CodeConfig("gat", 304, synthetic=synthetic)
         assert (cfg.vocab_size, cfg.num_nodeattributes) == (vocab, attrs)
     cfg = CodeConfig("gat", 304, vocab_size=5000, num_nodeattributes=10030)
     assert (cfg.vocab_size, cfg.num_nodeattributes) == (5000, 10030)
-    with pytest.raises(NotImplementedError, match="A12"):
+    cfg = CodeConfig("gat", 304, synthetic=False, use_old_code_dataset=True)
+    assert cfg.num_nodeattributes == 10003
+    # the real data comes from the ogbg-code2 reader, which names the
+    # file it misses under an empty $DATASET_LOC
+    monkeypatch.setenv("DATASET_LOC", str(tmp_path))
+    with pytest.raises(FileNotFoundError,
+                       match=r"ogbg_code2/raw/num-node-list\.csv\.gz"):
         CodeConfig("gat", 304, synthetic=False).load_graphs()
 
 
