@@ -100,7 +100,21 @@ Phases, each of which raises (exit code 1) on any failed check:
    one (on a graph of 1/8 the nodes when the full size would end past
    ``MAG_BUDGET_S``), 2 warm-up and 10 timed iterations with the
    counters (each EGC kernel twice a step), edges/s, peak memory, a
-   profiler table. Then the batched EGC-M paths of ``BATCHED_NETS``
+   profiler table. Then "rmag": heterogeneous ogbn-mag, REGCNet h64 H4
+   B4 (2 layers, lr 0.01, wd 0.001, dropout 0.7) through
+   ``RMagConfig``'s hooks on a graph of ogbn-mag's node and edge counts
+   (``rmag_raw``: 736,389 papers, 1,134,649 authors, 8,740 institutions,
+   59,965 fields of study; 42.2 M edges in seven relations), its host
+   plan build timed; first kernels 1-4 in its bipartite instantiations
+   (gather-reduce F 64 sum / max with and without the max mask and sum
+   alone, beside ``torch.sparse.mm``, on every relation; head mix (4, 4,
+   1, 16) and (4, 8, 1, 16) on the paper and author rows), then one
+   dropout-0 iteration on a graph of 1/8 the counts against the CPU one
+   on the card's branches (every ReLU and max holder), 2 warm-up and 10
+   timed iterations (each EGC kernel ``RMAG_LAUNCHES`` = 9 times a step,
+   just the instantiations held), edges/s, peak memory, an eval pass and
+   the profiler's busy and idle shares. Then the batched EGC-M paths of
+   ``BATCHED_NETS``
    ("zinc_egc" h124 ``add,std,max`` batch 64, "cifar_egc" h128
    ``symadd,std,max`` batch 32 dropout 0.081, "hiv_egc" h224
    ``add,mean,max`` batch 32 dropout 0.2; H4 B4, 4 layers, the main
@@ -121,10 +135,10 @@ Phases, each of which raises (exit code 1) on any failed check:
    (metrics finite, the kind's kernels launched and no other), then one
    EGC-M h136 ``--use-default-hparams --final-runs 1`` run whose
    ``restore_trial`` gives the accuracies its ``result.json`` recorded;
-   then ``--check --check-epochs 2`` of each of the 22 supported (dataset,
-   kind) pairs of zinc, cifar, hiv, code and mag at its main-table width
-   (``CLI_DATASET_RUNS``), and one zinc EGC-M h124 final run restored the
-   same way.
+   then ``--check --check-epochs 2`` of each of the 23 supported (dataset,
+   kind) pairs of zinc, cifar, hiv, code, mag and rmag at its main-table
+   width (``CLI_DATASET_RUNS``), and one zinc EGC-M h124 final run
+   restored the same way.
 Each phase's seconds are printed at the end.
 
 Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
@@ -142,7 +156,9 @@ gather-reduce rows also give the bytes each edge gathers in their floor
 rows it re-sweeps), and ``zoo`` their times, bound and floor in each
 conv-zoo path's instantiation, and ``paths`` those of the kernels 1-4
 in each phase-4 EGC path's (a batch's gathered floor is null: it fits in
-L2). Without a
+L2), ``rmag`` those of rmag's bipartite instantiations (each side's rows,
+the edges, and for a sum alone the ``torch.sparse.mm`` time as
+``library_ms``). Without a
 CUDA device, or outside the repository, it exits nonzero and prints no
 result. ``--out`` writes every measured number to a JSON file.
 """
@@ -221,6 +237,35 @@ MAG_GRAPH = dict(num_nodes=736_389, avg_degree=15, num_classes=349,
 # the mag step check moves to a graph of 1/8 the nodes when its two CPU
 # steps (projected from the main path's) would end past this
 MAG_BUDGET_S = 330
+# heterogeneous ogbn-mag: REGCNet h64 H4 B4, 2 layers (a REGConv with
+# {mean, max} a relation, then an RGCNConv to the 349 classes) at the main
+# table's hyperparameters (scripts/train_main_table.sh:61), on a synthetic
+# graph of ogbn-mag's published node and edge counts (OGB's dataset
+# table): the paper graph is MAG_GRAPH's (its features, labels, split and
+# 11,022,944 cites edges), the other three relations uniform coalesced
+# random edges, each with its reverse ("to"): 42.2 M directed edges in
+# seven relations
+RMAG_NET = dict(hidden=64, heads=4, bases=4,
+                hp={"lr": 0.01, "wd": 0.001, "dropout": 0.7})
+RMAG_TYPES = {"paper": 736_389, "author": 1_134_649, "institution": 8_740,
+              "field_of_study": 59_965}
+RMAG_RELATIONS = {("author", "writes", "paper"): 7_145_660,
+                  ("author", "affiliated_with", "institution"): 1_043_998,
+                  ("paper", "has_topic", "field_of_study"): 7_505_078}
+# its kernel instantiations: the REGConv's {mean, max} (sum and max, the
+# max mask in training), the RGCNConv's mean (sum), both at F = B*L = 64;
+# the REGConv's root head mixes (H4, B4) and relation mixes (H4, K = A*B =
+# 8), each at A = 1 and L = 16. A step launches each of the four kernels
+# 9 times: the loss reads the paper rows of the last layer only, so it
+# aggregates the 3 relations into paper there, and the 6 relations into
+# paper, author and field_of_study (the types those read) in the first,
+# with 3 root mixes; what reaches no loss is not computed (REGCNet's
+# ``layer_out_types``)
+RMAG_GATHER = {"regc": (64, ("sum", "max"), ("max",)),
+               "rgcn": (64, ("sum",), ())}
+RMAG_HEADMIX = {"root": (4, 4, 1, 16), "rel": (4, 8, 1, 16)}
+RMAG_LAUNCHES = 9
+L2_BYTES = 50 << 20            # H100 SXM L2 cache
 # each new EGC path's gather-reduce (F = B*L, primitives, masks) and head
 # mix (H, B, A, L); the batched ones H4 B4 A3 (hiv A3 too: add, mean, max)
 NEW_GATHER = {"zinc_egc": (124, ("sum", "sumsq", "max"), ("max",)),
@@ -254,7 +299,8 @@ ZERO_GRAD = {"sage": r"convs\.\d+\.lin_l\.bias",
              "mag": r"(?!)",
              "zinc_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias",
              "cifar_egc": r"graph_layers\.\d+\.1\.bias|mlp\.[04]\.bias",
-             "hiv_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias"}
+             "hiv_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias",
+             "rmag": r"(?!)"}
 # the step check of the zoo paths moves to a graph of 1/8 the nodes (same
 # average degree) when its CPU steps would take the script past this
 ZOO_BUDGET_S = 420
@@ -283,10 +329,12 @@ PATH_KERNELS = {
     "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
     **{path: GATHER for path in ZOO_NETS},
     "mag": EGC_KERNELS, **{path: EGC_KERNELS for path in BATCHED_NETS},
+    "rmag": EGC_KERNELS,
 }
 PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
                "code_gatv2": 4, **{path: 3 for path in ZOO_NETS},
-               "mag": 2, **{path: 4 for path in BATCHED_NETS}}
+               "mag": 2, **{path: 4 for path in BATCHED_NETS},
+               "rmag": RMAG_LAUNCHES}
 #   launches of each path kernel per step
 CLI_KERNELS = {"gat": PATH_KERNELS["gat"], "gatv2": PATH_KERNELS["gatv2"],
                "egc": PATH_KERNELS["main"]}   # the others: GATHER
@@ -315,7 +363,9 @@ CLI_DATASET_RUNS = [
     ("code", "mpnn-sum", ["--hidden", "292"]),
     ("code", "pna", ["--hidden", "272"]),
     ("mag", "egc", ["--hidden", "352", "--egc-num-heads", "8",
-                    "--egc-num-bases", "4", "--aggrs", "symnorm"])]
+                    "--egc-num-bases", "4", "--aggrs", "symnorm"]),
+    ("rmag", "egc", ["--hidden", "64", "--egc-num-heads", "4",
+                     "--egc-num-bases", "4"])]
 CLI_DATASET_EPOCHS = 2
 # the kernel instantiations that the CLI runs launch beyond the timed
 # paths', by dataset and kind: gather-reduce (F, primitives, masks) and
@@ -344,6 +394,14 @@ CLI_GATV2_SHAPES = ((8, 13), (1, 104), (8, 23), (1, 184))
 HELD = {"gather": set(), "headmix": set(), "gat": set(), "gatv2": set()}
 # tolerances, with why:
 SUM_RTOL = SUM_ATOL = 1e-5     # f32 sums of <= ~40 terms in another order
+#   rmag's receivers sum up to ~200 terms (author -> institution: ~119 on
+#   average), where an element that cancels to near 0 differs between two
+#   summation orders by more than 1e-5; its sums are held instead to the
+#   worst-case f32 bound of two orders, 2 gamma_d sum |terms| element by
+#   element (gamma_d = d u / (1 - d u), u = 2^-24, d the receiver's
+#   in-degree: ``_close_sums``), in which one term too few or too many
+#   shows
+F32_U = 2.0 ** -24
 GRAD_REL_L2 = 1e-4             # autograd vs kernel backward; var/std
 #                                cancel two large terms
 STEP_LOSS_RTOL = 1e-5          # card vs CPU step: cuBLAS vs CPU matmul
@@ -394,8 +452,9 @@ def floor_ms(nbytes: float, row_bytes: float, n: int, e: int,
     each of the e edges reads its ``row_bytes`` from device memory, since
     the gathered arrays (76-347 MB at the arxiv shape) exceed the 50 MB L2.
     Per-head arrays (5.4 MB) fit in L2 and stay counted once. A dense
-    kernel (``row_bytes`` 0) keeps its compulsory bound."""
-    return bound_ms(nbytes + (e - n) * row_bytes, flops)[0]
+    kernel (``row_bytes`` 0), or a gather of fewer edges than rows (a
+    bipartite relation), keeps its compulsory bound."""
+    return bound_ms(nbytes + max(e - n, 0) * row_bytes, flops)[0]
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -468,6 +527,19 @@ def _close(name, got, ref, exact=False):
         check(torch.allclose(got, ref, rtol=SUM_RTOL, atol=SUM_ATOL),
               f"{name}: max abs err {err} beyond rtol/atol {SUM_RTOL}")
     return err
+
+
+def _close_sums(name, got, ref, abs_sums, deg):
+    """``got`` and ``ref``, two f32 sums of each receiver's ``deg`` terms
+    in other orders, within twice the worst-case error of one: 2 gamma_d
+    times ``abs_sums``, the sum of the terms' magnitudes."""
+    gamma = deg * F32_U / (1 - deg * F32_U)
+    err = (got - ref).abs()
+    over = err > 2 * gamma[:, None] * abs_sums
+    check(not bool(over.any()),
+          f"{name}: {int(over.sum())} sums beyond 2 gamma_d sum |terms| "
+          f"(max abs err {float(err.max())})")
+    return float(err.max())
 
 
 def kernels_main_shapes(data, H=4, B=4, A=3) -> list:
@@ -854,24 +926,31 @@ def kernels_zoo_shapes(data) -> dict:
     return _gather_entries(data["graph"].kernel_plan, ZOO_SHAPES, gen)
 
 
-def _gather_entries(plan, shapes: dict, gen, gathered: bool = True,
-                    out: dict = None) -> dict:
+def _gather_entries(plan, shapes: dict, gen, out: dict = None,
+                    long_sums: bool = False) -> dict:
     """Kernels 1 and 2 against their plain versions on ``plan`` in each
     instantiation of ``shapes`` (path -> (F, primitives, masks)): the
     values at ``SUM_RTOL``, the extrema and masks bitwise, the backward
     from the path's coefficients (and masks) at ``GRAD_REL_L2``, two
-    launches of each bitwise; timed, with the bound and, for a graph
-    whose gathered rows exceed the L2 (``gathered``), the gathered-bytes
-    floor (else null). Appends the entries by kernel to ``out``."""
+    launches of each bitwise; timed, with the bound and, in a direction
+    whose gathered rows exceed the L2 (``L2_BYTES``; not a batch's, nor
+    rmag's institution or field_of_study rows), the gathered-bytes floor
+    (else null). A bipartite plan gathers its
+    ``src_rows`` sender rows into its ``num_nodes`` receiver rows. A sum
+    (or wsum) alone is one sparse product: ``torch.sparse.mm`` of the
+    plan's CSR (CSC for the backward) is timed beside it as
+    ``library_ms`` (else null). ``long_sums``: the sums are held to their
+    f32 error bound (``_close_sums``) in place of ``SUM_RTOL``. Appends
+    the entries by kernel to ``out``."""
     import torch
     from egc_tpu_torch.ops.cuda import gather_reduce as gr
-    n, e = plan.num_nodes, plan.num_edges
+    n_src, n, e = plan.src_rows, plan.num_nodes, plan.num_edges
     dev = plan.rowptr.device
     out = out if out is not None else \
         {"gather_reduce_fwd": [], "gather_reduce_bwd": []}
     for path, (f, prims, masks) in shapes.items():
         label = f"{path} F={f} {'/'.join(prims)}"
-        vals = torch.randn(n, f, generator=gen, device=dev)
+        vals = torch.randn(n_src, f, generator=gen, device=dev)
         ew_f = ew_b = None
         if "wsum" in prims:
             ew_f, ew_b = plan.fwd_w, plan.bwd_w
@@ -887,9 +966,20 @@ def _gather_entries(plan, shapes: dict, gen, gathered: bool = True,
         got = gr.gather_reduce_fwd(*args, **mkw)
         ref = gr.gather_reduce_fwd_plain(*args, **mkw)
         names = prims + tuple(f"{m} mask" for m in masks)
-        err = max(_close(f"gather_reduce_fwd[{label}: {p}]", o, r,
-                         exact=p not in ("sum", "wsum", "sumsq"))
+        sums = ("sum", "wsum", "sumsq")
+        if long_sums:
+            deg = (plan.rowptr[1:] - plan.rowptr[:-1]).double()
+            sum_prims = tuple(p for p in prims if p in sums)
+            abs_sums = dict(zip(sum_prims, gr.gather_reduce_fwd_plain(
+                vals.abs(), plan.rowptr, plan.fwd_senders,
+                None if ew_f is None else ew_f.abs(), sum_prims)))
+        err = max(_close_sums(f"gather_reduce_fwd[{label}: {p}]", o, r,
+                              abs_sums[p], deg)
+                  if long_sums and p in sums else
+                  _close(f"gather_reduce_fwd[{label}: {p}]", o, r,
+                         exact=p not in sums)
                   for p, o, r in zip(names, got, ref))
+        abs_sums = deg = None
         check(all(torch.equal(a, b) for a, b in
                   zip(got, gr.gather_reduce_fwd(*args, **mkw))),
               f"gather_reduce_fwd[{label}]: two launches differ")
@@ -900,18 +990,20 @@ def _gather_entries(plan, shapes: dict, gen, gathered: bool = True,
         w = 1 if ew_f is not None else 0
         # vals, rowptr, senders (and weights), the outputs, fwd_to_bwd once
         # (one CSC position an edge serves every mask), the mask words
-        nbytes = 4 * (n * f + (n + 1) + (1 + w) * e + len(prims) * n * f
-                      + (e if masks else 0) + words * e * len(masks))
+        nbytes = 4 * (n_src * f + (n + 1) + (1 + w) * e
+                      + len(prims) * n * f + (e if masks else 0)
+                      + words * e * len(masks))
         ops = sum(_PRIM_OPS[p] for p in prims) * e * f
         b_ms, b_by = bound_ms(nbytes, ops)
+        fwd_floor = 4 * n_src * f > L2_BYTES
         fwd = dict(path=path, f=f, prims=list(prims), masks=list(masks),
-                   max_abs_err=err,
+                   n_src=n_src, n_dst=n, edges=e, max_abs_err=err,
                    ms=time_ms(lambda: gr.gather_reduce_fwd(*args, **mkw)),
                    plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(
                        *args, **mkw)),
                    bound_ms=b_ms, bound_by=b_by,
-                   floor_ms=floor_ms(nbytes, 4 * f, n, e, ops) if gathered
-                   else None)
+                   floor_ms=floor_ms(nbytes, 4 * f, n_src, e, ops)
+                   if fwd_floor else None, library_ms=None)
         out["gather_reduce_fwd"].append(fwd)
 
         coeffs = {_COEFF[p]: torch.randn(n, f, generator=gen, device=dev)
@@ -932,8 +1024,8 @@ def _gather_entries(plan, shapes: dict, gen, gathered: bool = True,
               f"gather_reduce_bwd[{label}]: two launches differ")
         # the coefficients, colptr, receivers (and weights), vals (sumsq),
         # d_vals, the masks
-        nbytes = 4 * (len(coeffs) * n * f + (n + 1) + (1 + w) * e
-                      + ("sumsq" in prims) * n * f + n * f
+        nbytes = 4 * (len(coeffs) * n * f + (n_src + 1) + (1 + w) * e
+                      + ("sumsq" in prims) * n_src * f + n_src * f
                       + words * e * len(masks))
         ops = 2.0 * len(coeffs) * e * f
         b_ms, b_by = bound_ms(nbytes, ops)
@@ -947,30 +1039,63 @@ def _gather_entries(plan, shapes: dict, gen, gathered: bool = True,
             bits = torch.nn.functional.pad(bits, (0, -f % 8))
             sectors += int(bits.view(e, -1, 8).any(-1).sum())
             del bits
-        out["gather_reduce_bwd"].append(dict(
+        bwd_floor = 4 * n * f * max(dense, 1) > L2_BYTES
+        bwd = dict(
             path=path, f=f, prims=list(prims), masks=list(masks),
+            n_src=n_src, n_dst=n, edges=e,
             max_abs_err=float((d_vals - d_ref).abs().max()), rel_l2=r,
             ms=time_ms(lambda: gr.gather_reduce_bwd(*bargs, **bkw)),
             plain_ms=time_ms(lambda: gr.gather_reduce_bwd_plain(
                 *bargs, **bkw)),
             bound_ms=b_ms, bound_by=b_by,
             floor_ms=floor_ms(nbytes + 32 * sectors - 4 * n * f * len(masks),
-                              4 * f * dense, n, e, ops) if gathered
+                              4 * f * dense, n, e, ops) if bwd_floor
             else None,
             gathered_bytes_per_edge=4 * f * dense + 32 * sectors / e
-            + 4 * words * len(masks)))
+            + 4 * words * len(masks), library_ms=None)
+        out["gather_reduce_bwd"].append(bwd)
+        if prims in (("sum",), ("wsum",)) and not masks:
+            _library_entries(plan, prims[0], ew_f, ew_b, vals, got[0],
+                             coeffs[_COEFF[prims[0]]], d_vals, fwd, bwd)
         HELD["gather"] |= {(f, tuple(prims), tuple(masks)),
                            (f, tuple(prims), ())}
         for name in GATHER:
             sh = out[name][-1]
             floor = "null" if sh["floor_ms"] is None \
                 else f"{sh['floor_ms']:.4f}"
-            log(f"[kernels] {name} {label} (n {n}, E {e}): {sh['ms']:.4f} "
-                f"ms (plain {sh['plain_ms']:.4f}, bound "
+            lib = "" if sh["library_ms"] is None \
+                else f", torch.sparse.mm {sh['library_ms']:.4f}"
+            log(f"[kernels] {name} {label} (rows {n_src} -> {n}, E {e}): "
+                f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.4f}{lib}, bound "
                 f"{sh['bound_ms']:.4f} by {sh['bound_by']}, floor {floor}), "
                 f"max abs err {sh['max_abs_err']:.3e}")
         del vals, got, ref, coeffs, bkw, d_vals, d_ref
     return out
+
+
+def _library_entries(plan, prim, ew_f, ew_b, vals, out, coeff, d_vals,
+                     fwd: dict, bwd: dict) -> None:
+    """A sum or wsum alone is a sparse product: ``torch.sparse.mm`` of the
+    plan's CSR [receivers, senders] with ``vals`` is the forward, of its
+    CSC (the transposed CSR) with the coefficient the backward. Both are
+    held against the kernels' results (relative L2 ``GRAD_REL_L2``) and
+    timed into the entries' ``library_ms``."""
+    import torch
+    n_src, n, e = plan.src_rows, plan.num_nodes, plan.num_edges
+    ones = torch.ones(e, device=vals.device)
+    a = torch.sparse_csr_tensor(
+        plan.rowptr.long(), plan.fwd_senders.long(),
+        ew_f if prim == "wsum" else ones, size=(n, n_src))
+    at = torch.sparse_csr_tensor(
+        plan.colptr.long(), plan.bwd_receivers.long(),
+        ew_b if prim == "wsum" else ones, size=(n_src, n))
+    for label, mat, x, want, entry in (("fwd", a, vals, out, fwd),
+                                       ("bwd", at, coeff, d_vals, bwd)):
+        r = rel_l2(torch.sparse.mm(mat, x), want)
+        check(r <= GRAD_REL_L2,
+              f"torch.sparse.mm ({label}, {entry['path']}) vs the kernel: "
+              f"rel L2 {r}")
+        entry["library_ms"] = time_ms(lambda: torch.sparse.mm(mat, x))
 
 
 def _headmix_entries(path: str, n: int, shape, gen, dev) -> tuple:
@@ -1063,8 +1188,7 @@ def kernels_path_shapes(batches: dict, mag_plan) -> dict:
     for path, plan in list(batches.items()) + [("mag", mag_plan)]:
         # a batch's gathered rows (<= 7 k x 224 f32) fit in the 50 MB L2:
         # no gathered floor; mag's (736 k x 176 f32, 518 MB) do not
-        _gather_entries(plan, {path: NEW_GATHER[path]}, gen,
-                        gathered=path == "mag", out=out)
+        _gather_entries(plan, {path: NEW_GATHER[path]}, gen, out=out)
         fwd, bwd = _headmix_entries(path, plan.num_nodes,
                                     PATH_HEADMIX[path], gen, dev)
         out["headmix_fwd"].append(fwd)
@@ -1088,9 +1212,128 @@ def kernels_cli_shapes(plans: dict) -> dict:
         # arxiv's gathered rows (169 k x 136 f32, 92 MB) exceed the L2
         _gather_entries(plan, {f"{dataset}/{kind}": inst for kind, inst
                                in CLI_GATHER[dataset].items()}, gen,
-                        gathered=dataset == "arxiv", out=out)
+                        out=out)
         for kind, shape in CLI_HEADMIX.get(dataset, {}).items():
             fwd, bwd = _headmix_entries(f"{dataset}/{kind}", plan.num_nodes,
+                                        shape, gen, dev)
+            out["headmix_fwd"].append(fwd)
+            out["headmix_bwd"].append(bwd)
+    torch.cuda.synchronize()
+    return out
+
+
+def _coalesced_edges(rng, n_src: int, n_dst: int, count: int):
+    """``count`` distinct uniform random (sender, receiver) pairs."""
+    import numpy as np
+    check(count <= n_src * n_dst, "more edges than pairs")
+    keys = np.zeros(0, np.int64)
+    while len(keys) < count:
+        keys = np.union1d(keys, rng.integers(
+            0, n_src * n_dst, count - len(keys) + count // 100 + 1024,
+            dtype=np.int64))
+    keys = rng.choice(keys, count, replace=False)
+    return (keys // n_dst).astype(np.int32), (keys % n_dst).astype(np.int32)
+
+
+def rmag_raw(paper: dict, scale: int = 1, seed: int = 0) -> dict:
+    """The rmag graph in ``synthetic_rmag``'s layout at 1/``scale`` of
+    ogbn-mag's counts (``RMAG_TYPES``, ``RMAG_RELATIONS``): the papers,
+    their labels, split and cites edges from ``paper`` (a
+    ``synthetic_full_graph`` of the paper count), each other relation
+    uniform coalesced random edges and its reverse."""
+    import numpy as np
+    from egc_tpu_torch.graph.hetero import rel_key
+    rng = np.random.default_rng(seed)
+    n = {t: c // scale for t, c in RMAG_TYPES.items()}
+    check(paper["x"].shape[0] == n["paper"], "paper graph of another size")
+    edges = {rel_key("paper", "cites", "paper"): (paper["senders"],
+                                                  paper["receivers"])}
+    for (src, rel, dst), count in RMAG_RELATIONS.items():
+        s, r = _coalesced_edges(rng, n[src], n[dst], count // scale)
+        edges[rel_key(src, rel, dst)] = (s, r)
+        edges[rel_key(dst, "to", src)] = (r, s)
+    nodes = {"paper": paper["x"], **{
+        t: np.zeros((n[t], 0), np.float32) for t in RMAG_TYPES
+        if t != "paper"}}
+    return {"nodes": nodes, "edges": edges, "y": paper["y"],
+            "train_idx": paper["train_idx"], "val_idx": paper["val_idx"],
+            "test_idx": paper["test_idx"],
+            "num_classes": paper["num_classes"]}
+
+
+def rmag_config(raw: dict, device=None):
+    """An ``RMagConfig`` (``RMAG_NET``) whose data is ``raw``."""
+    from egc_tpu_torch.exp.hetero import RMagConfig
+
+    class RMagAtSize(RMagConfig):
+        def load_hetero(self):
+            return raw
+
+    return RMagAtSize(RMAG_NET["hidden"], heads=RMAG_NET["heads"],
+                      bases=RMAG_NET["bases"], device=device)
+
+
+def rmag_data(dev, paper: dict):
+    """The rmag path's graph at ogbn-mag's counts (``rmag_raw`` of the mag
+    path's papers), generated on the host, and its card data through
+    ``RMagConfig.data`` (padding, one bipartite kernel plan a relation,
+    built on the host: two ``lexsort``s over each relation's edges): the
+    config, the raw graph and the data, with the seconds of each part."""
+    from egc_tpu_torch.exp import hetero
+    t0 = time.perf_counter()
+    raw = rmag_raw(paper)
+    gen_s = time.perf_counter() - t0
+    cfg = rmag_config(raw, dev)
+    plan_s, attach = [], hetero.attach_hetero_kernel_plans
+
+    def timed_attach(hg):
+        t = time.perf_counter()
+        try:
+            return attach(hg)
+        finally:
+            plan_s.append(time.perf_counter() - t)
+
+    hetero.attach_hetero_kernel_plans = timed_attach
+    t0 = time.perf_counter()
+    try:
+        data = cfg.data(RMAG_NET["hp"])
+    finally:
+        hetero.attach_hetero_kernel_plans = attach
+    data_s = time.perf_counter() - t0
+    secs = {"generate_s": gen_s, "data_s": data_s, "plan_s": plan_s[0]}
+    hg = data["hetero"]
+    log(f"[rmag] {dict((t, hg.num_nodes(t)) for t in hg.node_types)} "
+        f"padded rows; {data['num_edges']} directed edges in "
+        f"{len(hg.relations)} relations "
+        f"{ {k: len(v[0]) for k, v in raw['edges'].items()} } "
+        f"({gen_s:.1f} s on the host); RMagConfig.data {data_s:.1f} s, of "
+        f"it the host plan build {plan_s[0]:.1f} s")
+    return cfg, raw, data, secs
+
+
+def kernels_rmag_shapes(data) -> dict:
+    """Kernels 1-4 in rmag's bipartite instantiations at full size: the
+    gather-reduce pair (``RMAG_GATHER``: sum / max with the max mask, and
+    without it as the eval launches it; sum alone, with
+    ``torch.sparse.mm`` beside it) on every relation's plan, from 8,740
+    institution rows to 1,134,656 author rows and back; the head mix
+    (``RMAG_HEADMIX``) on the paper and the author rows, as
+    ``kernels_path_shapes`` does (the institution, 2.2 MB, and
+    field_of_study rows, 15 MB, fit in the L2: no floor there). Returns the entries by kernel (the rows' ``rmag``)."""
+    import torch
+    hg = data["hetero"]
+    dev = data["device"]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {"gather_reduce_fwd": [], "gather_reduce_bwd": [],
+           "headmix_fwd": [], "headmix_bwd": []}
+    for key in hg.relations:
+        _gather_entries(hg.kernel_plans[key],
+                        {f"{key}/{conv}": inst
+                         for conv, inst in RMAG_GATHER.items()},
+                        gen, out=out, long_sums=True)
+    for t in ("paper", "author"):
+        for mix, shape in RMAG_HEADMIX.items():
+            fwd, bwd = _headmix_entries(f"rmag {mix} {t}", hg.num_nodes(t),
                                         shape, gen, dev)
             out["headmix_fwd"].append(fwd)
             out["headmix_bwd"].append(bwd)
@@ -1759,8 +2002,9 @@ def _instantiations():
     ``gather_reduce_fwd`` call that ``ops/dispatch`` makes (each names the
     forward and, with its masks, the backward instantiation); ``headmix``,
     the ``(H, B, A, L)`` of every head mix of the EGC convs; ``gat`` and
-    ``gatv2``, the ``(H, C)`` of every attention call of the convs."""
-    from egc_tpu_torch.nn.conv import attention, egc
+    ``gatv2``, the ``(H, C)`` of every attention call of the convs (the
+    head mixes of the hetero convs too)."""
+    from egc_tpu_torch.nn.conv import attention, egc, hetero
     from egc_tpu_torch.ops import dispatch
     seen = {"gather": set(), "headmix": set(), "gat": set(), "gatv2": set()}
     launch, mix = dispatch.gather_reduce_fwd, egc.head_mix_fused
@@ -1785,12 +2029,14 @@ def _instantiations():
         return gatv2(hl, *args)
 
     dispatch.gather_reduce_fwd, egc.head_mix_fused = record, record_mix
+    hetero.head_mix_fused = record_mix
     attention.gat_attention = record_gat
     attention.gatv2_attention = record_gatv2
     try:
         yield seen
     finally:
         dispatch.gather_reduce_fwd, egc.head_mix_fused = launch, mix
+        hetero.head_mix_fused = mix
         attention.gat_attention, attention.gatv2_attention = gat, gatv2
 
 
@@ -1929,11 +2175,12 @@ def _batched_noise_steps(cfg, hp) -> list:
 
 @contextlib.contextmanager
 def _same_branches(masks: dict, replay: bool):
-    """The branch a batched step takes at every kink: each GAT / GATv2
-    conv's leaky_relu on its edges and on its self term, and every
-    ``torch.relu`` (the ReLU after each BatchNorm and in the readout MLP,
-    std's gate on var), in the order the step meets them (``masks
-    ["kinks"]``); and which in-edges hold each EGC conv's max / min
+    """The branch a batched step (or an rmag step) takes at every kink:
+    each GAT / GATv2 conv's leaky_relu on its edges and on its self term,
+    and every ``torch.relu`` (the ReLU after each BatchNorm and in the
+    readout MLP, std's gate on var; rmag's after its REGConv), in the
+    order the step meets them (``masks["kinks"]``); and which in-edges
+    hold each EGC conv's and each REGConv relation's max / min
     (``masks["extrema"]``, [E, F] in edge order). ``replay=False``
     appends each branch's mask (from the same f32 sums the card's kernels
     form); ``replay=True`` makes the CPU step take them, the extrema's
@@ -1942,12 +2189,12 @@ def _same_branches(masks: dict, replay: bool):
     rounding alone."""
     import torch
     from egc_tpu_torch.nn.conv import attention as at
-    from egc_tpu_torch.nn.conv import egc
+    from egc_tpu_torch.nn.conv import egc, hetero
     from egc_tpu_torch.ops import segment
     from egc_tpu_torch.ops.cuda.attention import SLOPE
     saved = (at._leaky, torch.relu, at.GATConv.forward,
              at.GATv2Conv.forward, egc.conv_aggregate,
-             segment._segment_max_raw)
+             segment._segment_max_raw, hetero._rel_multi_aggregate)
     kinks, extrema = masks.setdefault("kinks", []), \
         masks.setdefault("extrema", [])
     queues = {"kinks": iter(kinks), "extrema": iter(extrema)}
@@ -2002,18 +2249,37 @@ def _same_branches(masks: dict, replay: bool):
             return torch.where(held, ct[safe], torch.zeros_like(held,
                                dtype=ct.dtype)), None, None, None
 
-    def replay_extrema(g, x, aggrs, **kw):
+    @contextlib.contextmanager
+    def replayed_max():
         segment._segment_max_raw = lambda data, ids, n: ReplayedMax.apply(
             data, ids, n, take(data, "extrema"))
         try:
-            return saved[4](g, x, aggrs, **kw)
+            yield
         finally:
             segment._segment_max_raw = saved[5]
+
+    def replay_extrema(g, x, aggrs, **kw):
+        with replayed_max():
+            return saved[4](g, x, aggrs, **kw)
+
+    def record_rel(hg, key, x_src, n_dst, aggrs):
+        out = saved[6](hg, key, x_src, n_dst, aggrs)
+        s, r = hg.senders[key].long(), hg.receivers[key].long()
+        valid = hg.edge_mask[key][:, None]
+        for a, name in enumerate(aggrs):
+            if name in ("max", "min"):
+                extrema.append(((x_src[s] == out[r, a]) & valid).cpu())
+        return out
+
+    def replay_rel(hg, key, x_src, n_dst, aggrs):
+        with replayed_max():
+            return saved[6](hg, key, x_src, n_dst, aggrs)
 
     if replay:
         at._leaky = lambda z: torch.where(take(z), z, SLOPE * z)
         torch.relu = lambda t: torch.where(take(t), t, torch.zeros_like(t))
         egc.conv_aggregate = replay_extrema
+        hetero._rel_multi_aggregate = replay_rel
     else:   # GAT: a_src[s] + a_dst[r]; GATv2: hl[s] + hr[r]; then self
         at.GATConv.forward = recording(
             saved[2], lambda o, s, r: (o[1][s] + o[2][r], o[1] + o[2]))
@@ -2021,11 +2287,13 @@ def _same_branches(masks: dict, replay: bool):
             saved[3], lambda o, s, r: (o[0][s] + o[1][r], o[0] + o[1]))
         torch.relu = relu
         egc.conv_aggregate = record_extrema
+        hetero._rel_multi_aggregate = record_rel
     try:
         yield
     finally:
         (at._leaky, torch.relu, at.GATConv.forward, at.GATv2Conv.forward,
-         egc.conv_aggregate, segment._segment_max_raw) = saved
+         egc.conv_aggregate, segment._segment_max_raw,
+         hetero._rel_multi_aggregate) = saved
     if replay:
         check(all(next(q, None) is None for q in queues.values()),
               "replayed branches left over")
@@ -2330,6 +2598,160 @@ def phase_mag(cfg, raw, data, secs: dict, main_cpu_s: float,
     return res
 
 
+def phase_rmag(cfg, raw, data, secs: dict) -> dict:
+    """Heterogeneous ogbn-mag through ``RMagConfig``'s hooks (``model``,
+    ``init_state``, ``train``, ``val``): REGCNet h64 H4 B4, 2 layers, lr
+    0.01, wd 0.001, dropout 0.7 on the ``rmag_raw`` graph (42.2 M edges in
+    seven relations). One dropout-0 iteration on the card against the CPU
+    iteration that replays the card's branches (every ReLU, every
+    relation's max holders; the plain CPU step's gap printed beside it),
+    on a graph of 1/8 the counts; then 2 warm-up and 10 timed iterations
+    (host clock around each, which ends in the loss read) with the launch
+    counters (each EGC kernel ``RMAG_LAUNCHES`` times a step, every other
+    kernel never) and the instantiations (``RMAG_GATHER``,
+    ``RMAG_HEADMIX``), edges/s, peak memory; an eval pass
+    (``RMagConfig.val``); and a profiler window of two steps: the device's
+    busy and idle shares and its table."""
+    import torch
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    path, hp = "rmag", RMAG_NET["hp"]
+    hp0 = {**hp, "dropout": 0.0}
+
+    c_raw = rmag_raw(synthetic_full_graph(**{
+        **MAG_GRAPH, "num_nodes": MAG_GRAPH["num_nodes"] // 8}), scale=8)
+    c_cfg, cpu_cfg = rmag_config(c_raw), rmag_config(c_raw, "cpu")
+    c_data, d_cpu = c_cfg.data(hp0), cpu_cfg.data(hp0)
+    c_edges = c_data["num_edges"]
+    log(f"[rmag] step check on a graph of 1/8 the counts "
+        f"({ {t: x.shape[0] for t, x in c_raw['nodes'].items()} } nodes, "
+        f"{c_edges} edges); the timed steps and the kernel rows stay at "
+        f"full size")
+
+    def one_step(config, d):
+        model = config.model(hp0, seed=0)
+        state = config.init_state(model, hp0, d, 0)
+        _, row = config.train(model, state, d, config.rng(0), 0)
+        return row["train_loss"], model
+
+    cpu_branches, branches = {}, {}
+    t0 = time.perf_counter()
+    with _same_branches(cpu_branches, replay=False):
+        loss_cpu, model_cpu = one_step(cpu_cfg, d_cpu)
+    cpu_s = time.perf_counter() - t0
+    hg = d_cpu["hetero"]
+    noise = torch.randn(hg.nodes["paper"].shape,
+                        generator=torch.Generator().manual_seed(1))
+    _, model_pert = one_step(cpu_cfg, {**d_cpu, "hetero": hg.replace(
+        nodes={**hg.nodes, "paper": hg.nodes["paper"] * (1 + 1e-7 * noise)})})
+    with _same_branches(branches, replay=False):
+        loss_card, model_card = one_step(c_cfg, c_data)
+    with _same_branches(branches, replay=True):
+        loss_same, model_same = one_step(cpu_cfg, d_cpu)
+    flips = [int((a != b).sum()) for a, b in zip(branches["kinks"],
+                                                 cpu_branches["kinks"])]
+    held = [int((a != b).sum()) for a, b in zip(branches["extrema"],
+                                                cpu_branches["extrema"])]
+    log(f"[{path}] ReLUs where the card step and the CPU step take other "
+        f"branches (padding rows included): {flips} of "
+        f"{[int(m.numel()) for m in branches['kinks']]}; max held by other "
+        f"in-edges at {held} (edge, column) pairs of "
+        f"{[int(m.numel()) for m in branches['extrema']]}")
+    step_cmp = _step_vs_cpu(path, loss_card, model_card, loss_cpu,
+                            model_cpu, [model_pert], cpu_s,
+                            same=(loss_same, model_same))
+    step_cmp.update(branches_apart=flips, extrema_apart=held,
+                    graph_edges=c_edges)
+    del c_data, d_cpu, hg, noise, model_cpu, model_pert, model_card
+    del model_same, branches, cpu_branches
+
+    steps = STEPS_WARMUP + STEPS_TIMED
+    model = cfg.model(hp, seed=0)
+    state = cfg.init_state(model, hp, data, 0)
+    rng = cfg.rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, seconds = [], []
+    with _instantiations() as seen:
+        for it in range(steps):
+            t0 = time.perf_counter()
+            state, row = cfg.train(model, state, data, rng, it)
+            seconds.append(time.perf_counter() - t0)   # the loss was read
+            losses.append(row["train_loss"])
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_held(path, seen)
+    check(seen["gather"] == {RMAG_GATHER["regc"], RMAG_GATHER["rgcn"]}
+          and seen["headmix"] == set(RMAG_HEADMIX.values()),
+          f"[{path}] launched gather-reduce {sorted(seen['gather'])} and "
+          f"head mix {sorted(seen['headmix'])}")
+    for name, c in counts.items():
+        want = RMAG_LAUNCHES * steps if name in PATH_KERNELS[path] else 0
+        check(c == want, f"[{path}] {name} launched {c} times in {steps} "
+                         f"steps, expected {want}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    t0 = time.perf_counter()
+    with _instantiations() as seen_eval:
+        accs = cfg.val(model, state, data)
+    val_s = time.perf_counter() - t0
+    _check_held(f"{path} eval", seen_eval)
+    check(all(0.0 <= v <= 1.0 for v in accs.values()),
+          f"[{path}] accuracies {accs}")
+    timed = seconds[STEPS_WARMUP:]
+    step_s = sum(timed) / len(timed)
+    res = {"net": dict(RMAG_NET), **secs, "step_seconds_mean": step_s,
+           "step_seconds_median": statistics.median(timed),
+           "step_seconds": timed,
+           "edges_per_s": data["num_edges"] / step_s,
+           "num_edges": data["num_edges"],
+           "num_nodes": {t: x.shape[0] for t, x in raw["nodes"].items()},
+           "peak_memory_bytes": peak, "launches": counts, "losses": losses,
+           "val": accs, "val_seconds": val_s, "step_vs_cpu": step_cmp}
+    log(f"[{path}] {steps} steps: losses {[round(x, 4) for x in losses]}; "
+        f"eval {accs} in {val_s * 1e3:.1f} ms")
+    log(f"[{path}] step {step_s * 1e3:.3f} ms (mean over {len(timed)} timed "
+        f"steps; median {res['step_seconds_median'] * 1e3:.3f}, min "
+        f"{min(timed) * 1e3:.3f}, max {max(timed) * 1e3:.3f}), "
+        f"{res['edges_per_s'] / 1e6:.3f} M edges/s, peak memory "
+        f"{peak / 2**30:.3f} GiB, host plan build {secs['plan_s']:.1f} s; "
+        f"launches a step "
+        f"{ {k: v / steps for k, v in counts.items() if v} }")
+    res["profile"], res["split"] = _profile_rmag(cfg, model, state, data)
+    return res
+
+
+def _profile_rmag(cfg, model, state, data):
+    """A torch.profiler window of two rmag steps: its table, and the
+    window beside the device's busy time (kernels and copies) and idle
+    share, per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = torch.Generator(device=data["device"]).manual_seed(1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(2):
+            cfg.train(model, state, data, rng, it)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    averages = prof.key_averages()
+    busy = sum((getattr(evt, "self_device_time_total", None)
+                or getattr(evt, "self_cuda_time_total", 0.0)) / 1e6
+               for evt in averages if evt.device_type == DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False))
+    check(busy > 0, "[rmag] the profiler saw no device time")
+    split = {"window_s": window / 2, "device_busy_s": busy / 2,
+             "busy_share": busy / window, "idle_share": 1 - busy / window}
+    table = averages.table(sort_by="cuda_time_total", row_limit=25)
+    log("[profile] rmag, two steps:\n" + table)
+    log(f"[profile] rmag per step (under the profiler): window "
+        f"{split['window_s'] * 1e3:.3f} ms, device busy "
+        f"{split['device_busy_s'] * 1e3:.3f} ms (busy share "
+        f"{split['busy_share']:.3f}, idle share {split['idle_share']:.3f})")
+    return table, split
+
+
 def _profile_code(run, cfg, data, path):
     """A torch.profiler table of two code2 steps in the middle of an epoch
     (the loader's prefetch running), and the window split into the host's
@@ -2584,7 +3006,7 @@ def phase_cli() -> dict:
 
 def phase_cli_datasets() -> dict:
     """``python -m egc_tpu_torch``'s ``main`` on the card for every other
-    dataset but rmag: ``--check --check-epochs 2`` of each SUPPORTED
+    dataset: ``--check --check-epochs 2`` of each SUPPORTED
     (dataset, kind) at its main-table width (``CLI_DATASET_RUNS``) on the
     config's synthetic set, each with the launch counters (the kind's
     kernels launched, every other kernel not) and finite metrics (accuracy,
@@ -2660,6 +3082,17 @@ def phase_cli_datasets() -> dict:
     return res
 
 
+def _attach(rows: list, per_key: dict) -> None:
+    """Each kernel row takes its entries of ``per_key`` (key -> entries by
+    kernel name) under the key, and their largest error."""
+    for row in rows:
+        for key, per_shape in per_key.items():
+            if row["name"] in per_shape:
+                row[key] = per_shape[row["name"]]
+                row["max_abs_err"] = max([row["max_abs_err"]] + [
+                    sh["max_abs_err"] for sh in row[key]])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
@@ -2699,13 +3132,7 @@ def main(argv=None) -> int:
     rows += kernels_gatv2_main_shapes(data)
     code_g = code_batch(data["device"])
     wide = kernels_code_shapes(code_g)
-    zoo = kernels_zoo_shapes(data)
-    for row in rows:
-        for key, per_shape in (("wide", wide), ("zoo", zoo)):
-            if row["name"] in per_shape:
-                row[key] = per_shape[row["name"]]
-                row["max_abs_err"] = max([row["max_abs_err"]] + [
-                    sh["max_abs_err"] for sh in row[key]])
+    _attach(rows, {"wide": wide, "zoo": kernels_zoo_shapes(data)})
     kernels_small(data["device"])
     kernels_gat_small(data["device"])
     kernels_gatv2_small(data["device"])
@@ -2719,12 +3146,7 @@ def main(argv=None) -> int:
                    "arxiv": data["graph"].kernel_plan,
                    "hiv": plans["hiv_egc"], "code": code_g.kernel_plan})}
     del plans, code_g
-    for row in rows:
-        for key, per_shape in per_key.items():
-            if row["name"] in per_shape:
-                row[key] = per_shape[row["name"]]
-                row["max_abs_err"] = max([row["max_abs_err"]] + [
-                    sh["max_abs_err"] for sh in row[key]])
+    _attach(rows, per_key)
     phases["path kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     d_cpu = full_graph_to_device_dict(raw, "cpu")
@@ -2753,8 +3175,15 @@ def main(argv=None) -> int:
     results["mag"] = phase_mag(
         *mag, main_cpu_s=results["main"]["step_vs_cpu"]["cpu_step_seconds"],
         elapsed=time.perf_counter() - t_start)
+    paper = mag[1]
     del mag
     phases["mag path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rmag = rmag_data(torch.device("cuda"), paper)
+    _attach(rows, {"rmag": kernels_rmag_shapes(rmag[2])})
+    results["rmag"] = phase_rmag(*rmag)
+    del rmag, paper
+    phases["rmag path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for path, net in BATCHED_NETS.items():
         results[path] = phase_batched_path(path, net)
@@ -2788,6 +3217,9 @@ def main(argv=None) -> int:
                 "bound_ms", "floor_ms", "max_abs_err")
     mix_keys = ("path", "H", "B", "A", "L", "variant", "ms", "plain_ms",
                 "bound_ms", "library_ms", "max_abs_err")
+    # rmag's bipartite entries: the rows of each side, the edges, and the
+    # torch.sparse.mm time of the sum alone
+    bip_keys = zoo_keys + ("n_src", "n_dst", "edges", "library_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r},
          **({"wide": [{k: sh.get(k) for k in wide_keys}   # floor: null
@@ -2796,8 +3228,10 @@ def main(argv=None) -> int:
          **({"zoo": [{k: sh[k] for k in zoo_keys} for sh in r["zoo"]]}
             if "zoo" in r else {}),
          **{key: [{k: sh[k] for k in (
-             mix_keys if r["name"].startswith("headmix") else zoo_keys)}
-             for sh in r[key]] for key in ("paths", "cli") if key in r}}
+             mix_keys if r["name"].startswith("headmix")
+             else bip_keys if key == "rmag" else zoo_keys)}
+             for sh in r[key]] for key in ("paths", "cli", "rmag")
+            if key in r}}
         for r in rows]}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

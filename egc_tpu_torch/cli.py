@@ -10,10 +10,10 @@ PyTorch path). Modes: ``--check`` (a short smoke trial), ``--hparams``
 to the seeded final runs, else a hyperparameter search first (in
 process), then the final runs.
 
-This port runs every dataset but ``rmag`` with every model kind the
-reference supports on it (``SUPPORTED``): zinc, cifar, hiv and code as
-batched tasks, arxiv and mag (homogeneous) on the full graph. ``rmag``
-and ``--pretrained``, ``--partitions``, ``--sampled``,
+This port runs every dataset with every model kind the reference
+supports on it (``SUPPORTED``): zinc, cifar, hiv and code as batched
+tasks, arxiv, mag (homogeneous) and rmag (heterogeneous ogbn-mag, REGC) on
+the full graph. ``--pretrained``, ``--partitions``, ``--sampled``,
 ``--device-sampler`` and ``--search-workers`` > 1 raise, naming their
 ROADMAP.md item.
 """
@@ -47,7 +47,6 @@ SUPPORTED = {
 # where each dataset and option this port does not run yet stands in
 # ROADMAP.md's queue A
 NOT_PORTED = {
-    "rmag": "A13 (hetero rmag)",
     "--pretrained": "A15 (the pretrained registry)",
     "--partitions": "A16 (distributed)",
     "--sampled": "A14 (sampling)",
@@ -122,9 +121,17 @@ def build_config(dataset, model, *, hidden, heads, bases, aggrs,
             "--sampled/--device-sampler apply to the mag dataset only")
     if hidden is None:
         raise UsageError("--hidden is required")
-    kw = _conv_kwargs(model, heads, bases, aggrs)
     if dataset == "rmag":
-        raise _not_ported(dataset)
+        # main.py:111-119: REGC heads and bases, no --aggrs
+        if partitions:
+            raise _not_ported("--partitions")
+        from egc_tpu_torch.exp.hetero import RMagConfig
+        cfg = RMagConfig(hidden, heads=heads or 4, bases=bases or 4,
+                         device=device)
+        cfg.synthetic = synthetic
+        cfg._num_samples = num_samples
+        return cfg
+    kw = _conv_kwargs(model, heads, bases, aggrs)
     from egc_tpu_torch.exp import batched, fullgraph
     if dataset in ("zinc", "cifar", "hiv"):
         ctor = {"zinc": batched.ZincConfig, "cifar": batched.CifarConfig,

@@ -9,7 +9,9 @@ reference's key, ``experiments/utils.py:20-27``):
   node-feat,node-label}.csv.gz`` and ``split/time/{train,valid,test}
   .csv.gz``; ogbn-mag's paper-cites-paper graph as ``<root>/ogbn_mag/raw/
   node-feat/paper``, ``node-label/paper``, ``relations/
-  paper___cites___paper`` and ``split/time/paper``;
+  paper___cites___paper`` and ``split/time/paper``, and the whole
+  heterogeneous set (``load_ogbn_mag_hetero``: the four relations under
+  ``relations/``, ``num-node-dict.json``);
 - OGB graph property sets (``ogbg_molhiv``, ``ogbg_code2``): ``raw/``
   ``num-node-list``, ``num-edge-list``, ``edge``, ``node-feat`` and
   ``graph-label`` (code2 also ``node_is_attributed`` and ``node_depth``),
@@ -27,6 +29,7 @@ targets (+ UNK, + EOS), the AST edge augmentation and the 5-token target.
 from __future__ import annotations
 
 import gzip
+import json
 import os
 import pickle
 import warnings
@@ -35,6 +38,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from egc_tpu_torch.graph.hetero import rel_key
 from egc_tpu_torch.graph.transforms import to_undirected_np
 
 
@@ -137,6 +141,50 @@ def load_ogbn_mag_homogeneous(root: Optional[Path] = None) -> Dict:
     return {"x": x, "y": y, "senders": s, "receivers": r,
             "train_idx": splits["train"], "val_idx": splits["val"],
             "test_idx": splits["test"], "num_classes": int(y.max()) + 1}
+
+
+def load_ogbn_mag_hetero(root: Optional[Path] = None) -> Dict:
+    """The whole heterogeneous ogbn-mag (reference ``rmag/configs.py``), as
+    ``egc_tpu.data.ondisk.load_ogbn_mag_hetero`` gives it: paper features,
+    three featureless types (``[n, 0]``), the four raw relations and the
+    reverse ("to") of each, paper-cites-paper symmetrised within its own
+    key; labels, the time split and the class count."""
+    root = (root or data_location()) / "ogbn_mag"
+    raw = root / "raw"
+    x_paper = _read_csv_gz(raw / "node-feat" / "paper" / "node-feat.csv.gz",
+                           np.float32)
+    y_paper = _read_csv_gz(raw / "node-label" / "paper" / "node-label.csv.gz"
+                           ).reshape(-1).astype(np.int32)
+    nodes_file = raw / "num-node-dict.json"
+    counts = {k: int(v) for k, v in json.loads(
+        nodes_file.read_text()).items()} if nodes_file.exists() else {}
+    rels = (("author", "affiliated_with", "institution"),
+            ("author", "writes", "paper"), ("paper", "cites", "paper"),
+            ("paper", "has_topic", "field_of_study"))
+    edges, max_id = {}, {}
+    for src, rel, dst in rels:
+        e = _read_csv_gz(raw / "relations" / f"{src}___{rel}___{dst}"
+                         / "edge.csv.gz")
+        s, r = e[:, 0].astype(np.int32), e[:, 1].astype(np.int32)
+        max_id[src] = max(max_id.get(src, 0), int(s.max()) + 1)
+        max_id[dst] = max(max_id.get(dst, 0), int(r.max()) + 1)
+        if src == dst:
+            edges[rel_key(src, rel, dst)] = (
+                np.concatenate([s, r]), np.concatenate([r, s]))
+        else:
+            edges[rel_key(src, rel, dst)] = (s, r)
+            edges[rel_key(dst, "to", src)] = (r, s)
+    n_of = {t: counts.get(t, max_id.get(t, 1)) for t in
+            ("paper", "author", "institution", "field_of_study")}
+    n_of["paper"] = max(n_of["paper"], x_paper.shape[0])
+    nodes = {"paper": x_paper}
+    for t in ("author", "institution", "field_of_study"):
+        nodes[t] = np.zeros((n_of[t], 0), np.float32)
+    splits = _load_split(root, "time/paper")
+    return {"nodes": nodes, "edges": edges, "y": y_paper,
+            "train_idx": splits["train"], "val_idx": splits["val"],
+            "test_idx": splits["test"],
+            "num_classes": int(y_paper.max()) + 1}
 
 
 def _load_ogbg_raw(root: Path):

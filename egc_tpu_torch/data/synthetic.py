@@ -12,12 +12,18 @@ ogbg-code2's vocabulary and attribute count. The molecule-shaped sets
 of 28 types and a scalar target; cifar, 900 graphs of 80-149 superpixels
 with 5 features and 10 classes; molhiv, 1,200 graphs of 10-39 atoms with
 the 9 OGB atom features and a binary label; each split 70/15/15 in order.
+``synthetic_rmag`` is the heterogeneous ogbn-mag stand-in: four node types
+(paper with features, featureless author, institution and
+field_of_study) and the seven relations of the reference
+(``rmag/models.py:18-26``), coalesced random edges beside a homophilous
+paper-cites-paper graph.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from egc_tpu_torch.graph.hetero import rel_key
 from egc_tpu_torch.graph.transforms import to_undirected_np
 from egc_tpu_torch.models.encoders import ATOM_FEATURE_DIMS
 
@@ -50,6 +56,49 @@ def synthetic_full_graph(num_nodes=4000, avg_degree=12, num_classes=40,
         "val_idx": np.sort(idx[n_tr:n_tr + n_va]),
         "test_idx": np.sort(idx[n_tr + n_va:]),
         "num_classes": num_classes,
+    }
+
+
+def synthetic_rmag(num_paper=800, num_author=400, num_inst=40, num_fos=80,
+                   num_classes=20, num_features=64, seed=0):
+    """Hetero ogbn-mag stand-in (``egc_tpu.data.synthetic.synthetic_rmag``,
+    array for array): ``nodes`` (featureless types as ``[n, 0]``),
+    ``edges`` by relation key, paper labels and splits."""
+    rng = np.random.default_rng(seed)
+    base = synthetic_full_graph(num_nodes=num_paper, avg_degree=8,
+                                num_classes=num_classes,
+                                num_features=num_features, seed=seed)
+
+    def rand_edges(n_src, n_dst, count):
+        # coalesced, like the real OGB relations: the max backward gives
+        # the full cotangent to every tied edge
+        s = rng.integers(0, n_src, count).astype(np.int32)
+        r = rng.integers(0, n_dst, count).astype(np.int32)
+        return tuple(np.unique(np.stack([s, r]), axis=1))
+
+    aw_s, aw_r = rand_edges(num_author, num_paper, num_paper * 3)
+    ai_s, ai_r = rand_edges(num_author, num_inst, num_author)
+    ht_s, ht_r = rand_edges(num_paper, num_fos, num_paper * 2)
+    edges = {
+        rel_key("author", "affiliated_with", "institution"): (ai_s, ai_r),
+        rel_key("institution", "to", "author"): (ai_r, ai_s),
+        rel_key("author", "writes", "paper"): (aw_s, aw_r),
+        rel_key("paper", "to", "author"): (aw_r, aw_s),
+        rel_key("paper", "cites", "paper"): (base["senders"],
+                                             base["receivers"]),
+        rel_key("paper", "has_topic", "field_of_study"): (ht_s, ht_r),
+        rel_key("field_of_study", "to", "paper"): (ht_r, ht_s),
+    }
+    nodes = {
+        "paper": base["x"],
+        "author": np.zeros((num_author, 0), np.float32),
+        "institution": np.zeros((num_inst, 0), np.float32),
+        "field_of_study": np.zeros((num_fos, 0), np.float32),
+    }
+    return {
+        "nodes": nodes, "edges": edges, "y": base["y"],
+        "train_idx": base["train_idx"], "val_idx": base["val_idx"],
+        "test_idx": base["test_idx"], "num_classes": num_classes,
     }
 
 

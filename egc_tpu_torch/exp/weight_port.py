@@ -2,7 +2,8 @@
 ``egc_tpu.exp.weight_port``).
 
 ``arxiv_state_dict_from_jax``, ``batched_state_dict_from_jax`` (zinc,
-cifar, hiv, code) and ``mag_state_dict_from_jax`` apply the rules of the
+cifar, hiv, code), ``mag_state_dict_from_jax`` and
+``rmag_state_dict_from_jax`` apply the rules of the
 JAX package's ``build_rules`` to a flax ``{"params", "batch_stats"}`` tree
 given as nested dicts of numpy arrays, and return the reference-named
 state dict, key for key and in order ``export_model_state``'s, that the
@@ -45,6 +46,12 @@ behind its per-layer dropout):
   as ``bases_weight`` [in, B*L], the ``comb`` columns taken from (h, b, a)
   to the reference's aggregator-major (h, a*B + b) order
   (``nn.conv.egc.comb_perm``), ``bias``; no BatchNorm.
+- rmag (``rmag_state_dict_from_jax``, ``weight_port.py:387-430``):
+  ``emb_{t}`` -> ``embs.{t}``; REGConv i's ``bases.kernel`` as
+  ``convs.{i}.bases_weight``, ``root_comb_{t}`` -> ``root_combs.{t}``,
+  ``rel_comb_{key}`` -> ``rel_combs.{src_rel_dst}``; RGCNConv's
+  ``root_{t}`` -> ``root_lins.{t}`` and ``rel_{key}`` -> ``rel_lins.
+  {src_rel_dst}`` (no bias), the final one after the REGConvs.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ import numpy as np
 import torch
 
 from egc_tpu_torch.nn.conv.egc import comb_perm
+from egc_tpu_torch.nn.conv.hetero import torch_rel_key
 
 
 def _module_indices(params: Dict[str, Any], cls: str) -> List[int]:
@@ -284,4 +292,38 @@ def mag_state_dict_from_jax(variables: Dict[str, Any], *, heads: int,
             p["comb"]["kernel"])[:, inv])
         sd[tp + "comb_weight.bias"] = np.asarray(p["comb"]["bias"])[inv]
         sd[tp + "bias"] = np.asarray(p["bias"])
+    return _finish(sd)
+
+
+def rmag_state_dict_from_jax(variables: Dict[str, Any], *,
+                             relations, node_types, featureless_types=(),
+                             model_kind: str = "egc"
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX ``REGCNet``'s variables -> the port's ``REGCNet`` state
+    dict, key for key and in order ``export_model_state("rmag", ...)``'s
+    for the same ``relations``, ``node_types`` and ``featureless_types``
+    (``model_kind`` "egc" / "regc", or "rgcn" for a stack of RGCNConvs)."""
+    params = variables["params"]
+    sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    for t in featureless_types:
+        sd[f"embs.{t}"] = np.asarray(params[f"emb_{t}"])
+    regc = _module_indices(params, "REGConv")
+    rgcn = _module_indices(params, "RGCNConv")
+    for i in regc:
+        p, tp = params[f"REGConv_{i}"], f"convs.{i}."
+        sd[tp + "bases_weight"] = np.asarray(p["bases"]["kernel"])
+        for t in node_types:
+            _linear(sd, f"{tp}root_combs.{t}.", p[f"root_comb_{t}"])
+        for rel in relations:
+            _linear(sd, f"{tp}rel_combs.{torch_rel_key(rel)}.",
+                    p[f"rel_comb_{rel}"])
+    n_inner = len(regc) if model_kind in ("egc", "regc") else len(rgcn) - 1
+    for j in rgcn:
+        p = params[f"RGCNConv_{j}"]
+        tp = f"convs.{j if model_kind == 'rgcn' else n_inner + j}."
+        for t in node_types:
+            _linear(sd, f"{tp}root_lins.{t}.", p[f"root_{t}"])
+        for rel in relations:
+            _linear(sd, f"{tp}rel_lins.{torch_rel_key(rel)}.",
+                    p[f"rel_{rel}"], bias=False)
     return _finish(sd)

@@ -21,6 +21,13 @@ no gradient.
 ``conv_aggregate`` is what convs call. Dispatch follows the device: a CUDA
 tensor with a plan goes to the kernels, a CUDA tensor without one raises,
 and a CPU tensor goes to ``ops.segment.multi_aggregate``.
+
+``build_bipartite_kernel_plan`` and ``bipartite_multi_aggregate`` are the
+same over two node spaces (a relation of a hetero graph): senders index
+``num_src`` source rows, receivers ``num_dst`` destination rows. The
+kernels take their output rows from ``rowptr`` / ``colptr`` and their
+input rows from the tensors, so the bipartite mode is a plan whose CSR
+spans the destination rows and whose CSC spans the source rows.
 """
 
 from __future__ import annotations
@@ -41,9 +48,11 @@ from egc_tpu_torch.ops.segment import (
 
 @dataclasses.dataclass
 class KernelPlan:
-    """Static CSR/CSC edge layouts of one graph over ``num_nodes`` rows."""
+    """Static CSR/CSC edge layouts of one graph over ``num_nodes`` rows;
+    a bipartite plan (``num_src`` set) gathers from ``num_src`` source
+    rows into ``num_nodes`` destination rows."""
 
-    num_nodes: int
+    num_nodes: int              # receiver (CSR) rows
     rowptr: torch.Tensor        # [N+1] int32, forward CSR by receiver
     fwd_senders: torch.Tensor   # [E'] int32, sender of each CSR edge
     fwd_w: Optional[torch.Tensor]   # [E'] f32, edge weights in CSR order
@@ -54,6 +63,12 @@ class KernelPlan:
     bwd_perm: torch.Tensor      # [E'] int64, original edge index
     fwd_to_bwd: torch.Tensor    # [E'] int32, CSC position of each CSR edge
     deg: torch.Tensor           # [N] f32, in-degree over valid edges
+    num_src: Optional[int] = None   # sender (CSC) rows of a bipartite plan
+
+    @property
+    def src_rows(self) -> int:
+        """Rows of the gathered (sender) side."""
+        return self.num_nodes if self.num_src is None else self.num_src
 
     @property
     def num_edges(self) -> int:
@@ -78,37 +93,58 @@ def build_kernel_plan(senders, receivers, num_nodes: int, *,
                       device=None) -> KernelPlan:
     """Host-side plan build (once per static graph). ``edge_weight`` (in
     original edge order) is pre-permuted into both layouts."""
+    plan = _build_plan(senders, receivers, num_nodes, num_nodes, edge_mask,
+                       edge_weight)
+    return plan if device is None else plan.to(device)
+
+
+def build_bipartite_kernel_plan(senders, receivers, num_src: int,
+                                num_dst: int, *, edge_mask=None,
+                                device=None) -> KernelPlan:
+    """Host-side plan of one relation: a receiver-sorted CSR over
+    ``num_dst`` rows, a sender-sorted CSC over ``num_src`` rows,
+    ``fwd_to_bwd`` and ``deg`` over ``num_dst``. Masked edges are dropped
+    (``egc_tpu``'s default); an endpoint outside its side's rows raises,
+    since the kernels do not check the rows they gather."""
+    plan = _build_plan(senders, receivers, num_src, num_dst, edge_mask,
+                       None)
+    plan.num_src = num_src
+    return plan if device is None else plan.to(device)
+
+
+def _build_plan(senders, receivers, num_src, num_dst, edge_mask,
+                edge_weight) -> KernelPlan:
     s = np.asarray(senders, dtype=np.int64)
     r = np.asarray(receivers, dtype=np.int64)
     kept = np.arange(len(s)) if edge_mask is None \
         else np.nonzero(np.asarray(edge_mask))[0]
     s, r = s[kept], r[kept]
-    if len(s) and (min(s.min(), r.min()) < 0
-                   or max(s.max(), r.max()) >= num_nodes):
-        raise ValueError("edge endpoints out of range [0, num_nodes)")
+    if len(s) and (s.min() < 0 or s.max() >= num_src or r.min() < 0
+                   or r.max() >= num_dst):
+        raise ValueError(f"edge endpoints out of range: senders must lie in "
+                         f"[0, {num_src}), receivers in [0, {num_dst})")
     w = None if edge_weight is None else \
         np.asarray(edge_weight, dtype=np.float32)[kept]
 
-    def layout(major, minor):
+    def layout(major, minor, rows):
         order = np.lexsort((minor, major))     # by major, then minor
-        ptr = np.searchsorted(major[order], np.arange(num_nodes + 1))
+        ptr = np.searchsorted(major[order], np.arange(rows + 1))
         return order, (torch.from_numpy(ptr.astype(np.int32)),
                        torch.from_numpy(minor[order].astype(np.int32)),
                        None if w is None else torch.from_numpy(w[order]),
                        torch.from_numpy(kept[order].astype(np.int64)))
 
-    fwd_order, (rowptr, fwd_s, fwd_w, fwd_perm) = layout(r, s)
-    bwd_order, (colptr, bwd_r, bwd_w, bwd_perm) = layout(s, r)
+    fwd_order, (rowptr, fwd_s, fwd_w, fwd_perm) = layout(r, s, num_dst)
+    bwd_order, (colptr, bwd_r, bwd_w, bwd_perm) = layout(s, r, num_src)
     csc_pos = np.empty(len(s), np.int32)       # CSC position of each edge
     csc_pos[bwd_order] = np.arange(len(s), dtype=np.int32)
     deg = torch.from_numpy(
-        np.bincount(r, minlength=num_nodes).astype(np.float32))
-    plan = KernelPlan(num_nodes=num_nodes, rowptr=rowptr, fwd_senders=fwd_s,
+        np.bincount(r, minlength=num_dst).astype(np.float32))
+    return KernelPlan(num_nodes=num_dst, rowptr=rowptr, fwd_senders=fwd_s,
                       fwd_w=fwd_w, fwd_perm=fwd_perm, colptr=colptr,
                       bwd_receivers=bwd_r, bwd_w=bwd_w, bwd_perm=bwd_perm,
                       fwd_to_bwd=torch.from_numpy(csc_pos[fwd_order]),
                       deg=deg)
-    return plan if device is None else plan.to(device)
 
 
 def _plan_prims(aggrs: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -177,9 +213,12 @@ def fused_multi_aggregate(
     weights, and they win over ``symnorm_edge_w`` (as in ``egc_tpu``);
     ``conv_aggregate`` refuses a graph where the two could differ."""
     aggrs = tuple(canonical_aggr(a) for a in aggrs)
-    if vals.shape[0] != plan.num_nodes:
+    if vals.shape[0] != plan.src_rows:
         raise ValueError(f"vals has {vals.shape[0]} rows, the plan "
-                         f"{plan.num_nodes}")
+                         f"{plan.src_rows}")
+    if plan.num_src is not None and (include_self or "symnorm" in aggrs):
+        raise ValueError("a bipartite plan takes no self term and no "
+                         "symnorm: use bipartite_multi_aggregate")
     prims = _plan_prims(aggrs)
     ew_f = ew_b = None
     if "wsum" in prims:
@@ -234,6 +273,24 @@ def fused_multi_aggregate(
             raise ValueError(a)
         outs.append(out)
     return torch.stack(outs, dim=1) if stacked else tuple(outs)
+
+
+BIPARTITE_AGGRS = ("sum", "mean", "max", "min")
+
+
+def bipartite_multi_aggregate(x_src: torch.Tensor, plan: KernelPlan,
+                              aggrs: Sequence[str]) -> torch.Tensor:
+    """Per-relation aggregation of ``x_src [num_src, F]`` into the plan's
+    destination rows: ``[num_dst, A, F]`` for sum / mean / max / min (an
+    empty destination row gives 0), through the kernels' autograd function
+    (the max / min masks asked for when ``x_src`` needs a gradient), as
+    ``egc_tpu.ops.dispatch.bipartite_multi_aggregate``."""
+    aggrs = tuple(canonical_aggr(a) for a in aggrs)
+    bad = set(aggrs) - set(BIPARTITE_AGGRS)
+    if bad:
+        raise ValueError(f"bipartite aggregation does not support "
+                         f"{sorted(bad)}")
+    return fused_multi_aggregate(x_src, plan, aggrs)
 
 
 def conv_aggregate(g, x, aggrs, *, include_self: bool = False,

@@ -1,7 +1,7 @@
 """The port's command line, ``python -m egc_tpu_torch`` (``cli.py``),
 against the JAX package's ``main.py``: the same options and defaults,
-``--check`` of all nine kinds on the CPU and of every other dataset but
-rmag, the final runs' files, and the dataset and options this port does
+``--check`` of all nine kinds on the CPU and of every other dataset,
+rmag's config, the final runs' files, and the options this port does
 not run yet."""
 
 import ast
@@ -124,7 +124,7 @@ def test_check_runs_each_dataset_on_the_cpu(tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["egc", "rmag"], "A13"),
+    (["egc", "rmag", "--partitions", "2"], "A16"),
     (["gcn", "arxiv", "--pretrained"], "A15"),
     (["gcn", "arxiv", "--partitions", "4"], "A16"),
     (["gcn", "arxiv", "--search-workers", "2"], "A15"),
@@ -159,8 +159,56 @@ def test_the_card_is_the_default(tmp_path, monkeypatch):
 
 def test_module_entry_point_exits_2_on_what_it_cannot_run(tmp_path):
     res = subprocess.run(
-        [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "egc",
-         "rmag", "--hidden", "8", "--aggrs", "symnorm", "--device", "cpu"],
+        [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "gcn",
+         "arxiv", "--hidden", "8", "--pretrained", "--device", "cpu"],
         capture_output=True, text=True, timeout=120,
         cwd=pathlib.Path(__file__).resolve().parents[1])
-    assert res.returncode == 2 and "A13" in res.stderr
+    assert res.returncode == 2 and "A15" in res.stderr
+
+
+@pytest.mark.parametrize("opts,want", [
+    ([], (4, 4)), (["--egc-num-heads", "2"], (2, 4)),
+    (["--egc-num-heads", "8", "--egc-num-bases", "2"], (8, 2))])
+def test_rmag_options_build_the_config_of_main(opts, want):
+    """``rmag``'s options give the RMagConfig that ``main.build_config``
+    gives: hidden, heads (default 4), bases (default 4), the synthetic
+    flag and the sample count. ``main.py`` asks for ``--aggrs`` on every
+    egc run, rmag's too, where no config reads it; the port does not."""
+    heads = int(opts[1]) if opts else None
+    bases = int(opts[3]) if len(opts) > 2 else None
+    kw = dict(hidden=16, heads=heads, bases=bases, num_samples=7,
+              synthetic=False)
+    ref = jmain.build_config("rmag", "egc", aggrs="mean,max", **kw)
+    for aggrs in ("mean,max", None):
+        got = cli.build_config("rmag", "egc", aggrs=aggrs, device="cpu",
+                               **kw)
+        assert type(got).__name__ == type(ref).__name__ == "RMagConfig"
+        assert (got.hidden, got.heads, got.bases, got.use_egc) == \
+            (ref.hidden, ref.heads, ref.bases, ref.use_egc) == \
+            (16, *want, True)
+        assert (got.synthetic, got._num_samples) == \
+            (ref.synthetic, ref._num_samples) == (False, 7)
+        assert got.num_layers == ref.num_layers == 2
+    with pytest.raises(cli.UsageError, match="not supported"):
+        cli.build_config("rmag", "gcn", aggrs=None, device="cpu", **kw)
+
+
+def test_rmag_partitions_raise_with_a16(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A16"):
+        cli.build_config("rmag", "egc", hidden=8, heads=None, bases=None,
+                         aggrs=None, num_samples=1, partitions=2,
+                         device="cpu")
+
+
+def test_rmag_check_runs_on_the_cpu(tmp_path):
+    """``egc rmag --check --check-epochs 2 --device cpu`` on the synthetic
+    set, without ``--aggrs``: the dict ``main.py`` prints, accuracies in
+    [0, 1]."""
+    out = run_cli([str(tmp_path), "egc", "rmag", "--hidden", "16",
+                   "--egc-num-heads", "4", "--egc-num-bases", "2",
+                   "--check", "--check-epochs", "2", "--device", "cpu"])
+    res = ast.literal_eval(out.strip().splitlines()[-1])
+    assert set(res) == {"best_val", "best_iter", "test"}
+    assert set(res["test"]) == {"train_acc", "val_acc", "test_acc"}
+    assert all(0.0 <= v <= 1.0 for v in [res["best_val"],
+                                         *res["test"].values()])
