@@ -100,7 +100,21 @@ Phases, each of which raises (exit code 1) on any failed check:
    one (on a graph of 1/8 the nodes when the full size would end past
    ``MAG_BUDGET_S``), 2 warm-up and 10 timed iterations with the
    counters (each EGC kernel twice a step), edges/s, peak memory, a
-   profiler table. Then "rmag": heterogeneous ogbn-mag, REGCNet h64 H4
+   profiler table. Then ``[sampled_mag]`` on the same graph and card data:
+   ``SampledMagConfig`` (fanouts (15, 10), batch 512: batches of 85,000
+   rows and 84,480 edge slots); on one host-sampled batch the card-built
+   plan (``build_kernel_plan_device``) equal to the host plan field for
+   field on the valid prefix, kernels 1-4 on that plan (F 176 wsum, head
+   mix (8, 4, 1, 44)), and a dropout-0 card step against the CPU step;
+   then each branch, "sampled_host" (the host sampler on 4 prefetch
+   threads, the host plan's build timed beside the card's) and
+   "sampled_device" (the device sampler; its sample and plan timed by
+   CUDA events), 3 warm-up and 20 timed steps through ``batches`` and
+   ``sampled_step`` with the counters (each EGC kernel twice a step),
+   seeds/s, valid sampled edges/s, peak memory, the idle share of a
+   profiler window of two steps; a full-graph ``val``; and ``--sampled``
+   and ``--device-sampler`` ``--check --check-epochs 1`` through the CLI
+   at h352 H8 B4. Then "rmag": heterogeneous ogbn-mag, REGCNet h64 H4
    B4 (2 layers, lr 0.01, wd 0.001, dropout 0.7) through
    ``RMagConfig``'s hooks on a graph of ogbn-mag's node and edge counts
    (``rmag_raw``: 736,389 papers, 1,134,649 authors, 8,740 institutions,
@@ -237,6 +251,15 @@ MAG_GRAPH = dict(num_nodes=736_389, avg_degree=15, num_classes=349,
 # the mag step check moves to a graph of 1/8 the nodes when its two CPU
 # steps (projected from the main path's) would end past this
 MAG_BUDGET_S = 330
+# neighbour-sampled mag (SampledMagConfig's defaults, egc_tpu/exp/
+# fullgraph.py:409-438) on the same graph: batches of 85,000 rows (the
+# budget of 84,993 rounded up to 8) and 84,480 edge slots, through the
+# host sampler ("sampled_host") and the device sampler ("sampled_device")
+SAMPLED = dict(fanouts=(15, 10), batch_size=512)
+SAMPLED_WARMUP, SAMPLED_TIMED = 3, 20
+SAMPLED_PATHS = ("sampled_host", "sampled_device")
+SAMPLED_CLI = ["--hidden", "352", "--egc-num-heads", "8", "--egc-num-bases",
+               "4", "--aggrs", "symnorm"]
 # heterogeneous ogbn-mag: REGCNet h64 H4 B4, 2 layers (a REGConv with
 # {mean, max} a relation, then an RGCNConv to the 349 classes) at the main
 # table's hyperparameters (scripts/train_main_table.sh:61), on a synthetic
@@ -275,11 +298,13 @@ NEW_GATHER = {"zinc_egc": (124, ("sum", "sumsq", "max"), ("max",)),
               "mag": (176, ("wsum",), ())}
 PATH_HEADMIX = {"main": (4, 4, 3, 32), "zinc_egc": (4, 4, 3, 31),
                 "cifar_egc": (4, 4, 3, 32), "hiv_egc": (4, 4, 3, 56),
-                "mag": (8, 4, 1, 44)}
+                "mag": (8, 4, 1, 44),
+                **{path: (8, 4, 1, 44) for path in SAMPLED_PATHS}}
 #   (held against what ``ops/dispatch`` launches in each path's timed
 #   steps, ``_instantiations``; EGC-M's is the main shape's)
 PATH_GATHER = {"main": (128, ("sum", "wsum", "max"), ("max",)), **ZOO_SHAPES,
-               **NEW_GATHER}
+               **NEW_GATHER, **{path: NEW_GATHER["mag"]
+                                for path in SAMPLED_PATHS}}
 # the parameters of each path, by the whole name, that feed a BatchNorm
 # through affine maps only: BN removes a constant shift, so their true
 # gradient is 0 and both steps hold rounding noise there (MPNN-max's
@@ -296,7 +321,7 @@ ZERO_GRAD = {"sage": r"convs\.\d+\.lin_l\.bias",
              "pna": r"convs\.\d+\.(lin|post_nns\.\d+\.0)\.bias",
              "code_gat": r"graph_layers\.\d+\.0\.bias",
              "code_gatv2": r"graph_layers\.\d+\.0\.bias",
-             "mag": r"(?!)",
+             "mag": r"(?!)", "sampled_host": r"(?!)",
              "zinc_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias",
              "cifar_egc": r"graph_layers\.\d+\.1\.bias|mlp\.[04]\.bias",
              "hiv_egc": r"graph_layers\.\d+\.0\.bias|mlp\.[04]\.bias",
@@ -329,11 +354,12 @@ PATH_KERNELS = {
     "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
     **{path: GATHER for path in ZOO_NETS},
     "mag": EGC_KERNELS, **{path: EGC_KERNELS for path in BATCHED_NETS},
-    "rmag": EGC_KERNELS,
+    "rmag": EGC_KERNELS, **{path: EGC_KERNELS for path in SAMPLED_PATHS},
 }
 PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
                "code_gatv2": 4, **{path: 3 for path in ZOO_NETS},
-               "mag": 2, **{path: 4 for path in BATCHED_NETS},
+               "mag": 2, **{path: 2 for path in SAMPLED_PATHS},
+               **{path: 4 for path in BATCHED_NETS},
                "rmag": RMAG_LAUNCHES}
 #   launches of each path kernel per step
 CLI_KERNELS = {"gat": PATH_KERNELS["gat"], "gatv2": PATH_KERNELS["gatv2"],
@@ -881,7 +907,9 @@ def kernels_small(dev) -> None:
 def check_segment_gather_reduce(data) -> dict:
     """``segment_gather_reduce`` (kernel 1 behind a COO entry, with its row
     pointer build and input checks) against its plain version at the main
-    path's shapes, timed."""
+    path's shapes, timed; beside it ``torch.sparse.mm`` of the plan's CSR
+    (ones) with ``vals``, its default instantiation (a sum), held against
+    the kernel's sum and timed as ``library_ms``."""
     import torch
     from egc_tpu_torch.ops.cuda import gather_reduce as gr
     plan = data["graph"].kernel_plan
@@ -904,9 +932,22 @@ def check_segment_gather_reduce(data) -> dict:
                ms=time_ms(lambda: gr.segment_gather_reduce(*args, **kw)),
                plain_ms=time_ms(lambda: gr.gather_reduce_fwd_plain(
                    vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, ops)))
+    csr = torch.sparse_csr_tensor(plan.rowptr.long(),
+                                  plan.fwd_senders.long(),
+                                  torch.ones(e, device=vals.device),
+                                  size=(n, n))
+    sum_only = gr.segment_gather_reduce(*args, num_out_rows=n)[0]
+    r = rel_l2(torch.sparse.mm(csr, vals), sum_only)
+    check(r <= GRAD_REL_L2, f"torch.sparse.mm vs segment_gather_reduce's "
+                            f"sum: rel L2 {r}")
+    res.update(library_ms=time_ms(lambda: torch.sparse.mm(csr, vals)),
+               sum_ms=time_ms(lambda: gr.segment_gather_reduce(
+                   *args, num_out_rows=n)))
     log(f"[kernels] segment_gather_reduce: {res['ms']:.4f} ms (plain "
         f"{res['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, floor "
-        f"{res['floor_ms']:.4f}), max abs err {err:.3e}")
+        f"{res['floor_ms']:.4f}), max abs err {err:.3e}; its default "
+        f"instantiation (sum) {res['sum_ms']:.4f} ms, torch.sparse.mm "
+        f"{res['library_ms']:.4f} ms (rel L2 {r:.2e})")
     return res
 
 
@@ -940,11 +981,14 @@ def _gather_entries(plan, shapes: dict, gen, out: dict = None,
     (or wsum) alone is one sparse product: ``torch.sparse.mm`` of the
     plan's CSR (CSC for the backward) is timed beside it as
     ``library_ms`` (else null). ``long_sums``: the sums are held to their
-    f32 error bound (``_close_sums``) in place of ``SUM_RTOL``. Appends
-    the entries by kernel to ``out``."""
+    f32 error bound (``_close_sums``) in place of ``SUM_RTOL``. A plan
+    built on the card keeps its masked edges past ``rowptr[N]``: the
+    kernels read the ``e = rowptr[N]`` edges before them, which the
+    bounds count and the masks are held on. Appends the entries by kernel
+    to ``out``."""
     import torch
     from egc_tpu_torch.ops.cuda import gather_reduce as gr
-    n_src, n, e = plan.src_rows, plan.num_nodes, plan.num_edges
+    n_src, n, e = plan.src_rows, plan.num_nodes, int(plan.rowptr[-1])
     dev = plan.rowptr.device
     out = out if out is not None else \
         {"gather_reduce_fwd": [], "gather_reduce_bwd": []}
@@ -966,6 +1010,9 @@ def _gather_entries(plan, shapes: dict, gen, out: dict = None,
         got = gr.gather_reduce_fwd(*args, **mkw)
         ref = gr.gather_reduce_fwd_plain(*args, **mkw)
         names = prims + tuple(f"{m} mask" for m in masks)
+        # a mask's words past the e edges are not the kernel's to write
+        got, ref = ([t[:e] if p.endswith("mask") else t
+                     for p, t in zip(names, res)] for res in (got, ref))
         sums = ("sum", "wsum", "sumsq")
         if long_sums:
             deg = (plan.rowptr[1:] - plan.rowptr[:-1]).double()
@@ -980,7 +1027,7 @@ def _gather_entries(plan, shapes: dict, gen, out: dict = None,
                          exact=p not in sums)
                   for p, o, r in zip(names, got, ref))
         abs_sums = deg = None
-        check(all(torch.equal(a, b) for a, b in
+        check(all(torch.equal(a, b[:a.shape[0]]) for a, b in
                   zip(got, gr.gather_reduce_fwd(*args, **mkw))),
               f"gather_reduce_fwd[{label}]: two launches differ")
         check(all(torch.equal(a, b) for a, b in
@@ -1014,7 +1061,8 @@ def _gather_entries(plan, shapes: dict, gen, out: dict = None,
         if "sumsq" in prims:
             bkw["vals"] = vals
         for m, words_t in zip(masks, got[len(prims):]):
-            bkw[f"{m}_mask"] = words_t
+            bkw[f"{m}_mask"] = torch.nn.functional.pad(
+                words_t, (0, 0, 0, plan.num_edges - e))
         bargs = (plan.colptr, plan.bwd_receivers)
         d_vals = gr.gather_reduce_bwd(*bargs, **bkw)
         d_ref = gr.gather_reduce_bwd_plain(*bargs, **bkw)
@@ -1081,14 +1129,14 @@ def _library_entries(plan, prim, ew_f, ew_b, vals, out, coeff, d_vals,
     held against the kernels' results (relative L2 ``GRAD_REL_L2``) and
     timed into the entries' ``library_ms``."""
     import torch
-    n_src, n, e = plan.src_rows, plan.num_nodes, plan.num_edges
+    n_src, n, e = plan.src_rows, plan.num_nodes, int(plan.rowptr[-1])
     ones = torch.ones(e, device=vals.device)
     a = torch.sparse_csr_tensor(
-        plan.rowptr.long(), plan.fwd_senders.long(),
-        ew_f if prim == "wsum" else ones, size=(n, n_src))
+        plan.rowptr.long(), plan.fwd_senders[:e].long(),
+        ew_f[:e] if prim == "wsum" else ones, size=(n, n_src))
     at = torch.sparse_csr_tensor(
-        plan.colptr.long(), plan.bwd_receivers.long(),
-        ew_b if prim == "wsum" else ones, size=(n_src, n))
+        plan.colptr.long(), plan.bwd_receivers[:e].long(),
+        ew_b[:e] if prim == "wsum" else ones, size=(n_src, n))
     for label, mat, x, want, entry in (("fwd", a, vals, out, fwd),
                                        ("bwd", at, coeff, d_vals, bwd)):
         r = rel_l2(torch.sparse.mm(mat, x), want)
@@ -2598,6 +2646,312 @@ def phase_mag(cfg, raw, data, secs: dict, main_cpu_s: float,
     return res
 
 
+def _sampled_config(device_sampler: bool, device, num_features: int):
+    """``SampledMagConfig`` of MagNet h352 H8 B4 symnorm at ``SAMPLED``'s
+    fanouts and batch; the model reads ``num_features`` (``full_data``
+    records it where the config builds its own data)."""
+    from egc_tpu_torch.exp.fullgraph import SampledMagConfig
+    cfg = SampledMagConfig("egc", MAG_NET["hidden"], heads=MAG_NET["heads"],
+                           bases=MAG_NET["bases"], aggrs=MAG_NET["aggrs"],
+                           device=device, device_sampler=device_sampler,
+                           **SAMPLED)
+    cfg._num_features = num_features
+    return cfg
+
+
+def _sampled_window(path: str, cfg, sdata) -> dict:
+    """``SAMPLED_WARMUP`` + ``SAMPLED_TIMED`` steps of one branch through
+    ``SampledMagConfig.batches`` and ``sampled_step`` (MAG_NET's
+    hyperparameters) with the launch counters reset just before and read
+    just after (each EGC kernel twice a step, no other kernel) and the
+    gather-reduce and head-mix instantiations; the timed window on the host
+    clock to the losses' read (step ms), each step's CUDA-event span
+    (median), the consumer's wait for each batch, seeds/s, valid sampled
+    edges/s, peak memory; then a profiler window of two more steps (device
+    busy and idle share). Returns the results, the model and its
+    optimizer."""
+    import torch
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from egc_tpu_torch.train.loop import StepClock
+    from egc_tpu_torch.utils import device_op_table, profile_trace
+    hp = MAG_NET["hp"]
+    dev = sdata["device"]
+    model = cfg.model(hp, seed=0)
+    opt = cfg.init_state(model, hp, sdata, 0)
+    batches = cfg.batches(sdata, cfg.rng(0), 0)
+    clock = StepClock(dev)
+    steps = SAMPLED_WARMUP + SAMPLED_TIMED
+    losses, edges, waits = [], [], []
+
+    def step():
+        t = time.perf_counter()
+        gen, g, y, m, gids = next(batches)
+        waits.append(time.perf_counter() - t)
+        losses.append(cfg.sampled_step(model, opt, sdata["x_full"], g, y, m,
+                                       gids, generator=gen))
+        edges.append(g.edge_mask.sum())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _instantiations() as seen:
+        for i in range(steps):
+            if i == SAMPLED_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                clock.start()
+            step()
+            if i >= SAMPLED_WARMUP:
+                clock.mark()
+        loss_values = torch.stack(losses).tolist()
+        window = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_held(path, seen)
+    _check_path_instantiation(path, seen)
+    for name, c in counts.items():
+        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
+            else 0
+        check(c == want, f"[{path}] {name} launched {c} times in {steps} "
+                         f"steps, expected {want}")
+    check(all(math.isfinite(x) for x in loss_values), "non-finite loss")
+    timed_edges = int(torch.stack(edges[SAMPLED_WARMUP:]).sum())
+    per_step = clock.seconds()
+    with profile_trace() as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        pwin = time.perf_counter() - t1
+    batches.close()
+    ops = device_op_table(prof)
+    busy = sum(v for _, v in ops) / 1e6
+    check(busy > 0, f"[{path}] the profiler saw no device time")
+    res = {"net": dict(MAG_NET), **SAMPLED, "steps": steps,
+           "step_seconds_mean": window / SAMPLED_TIMED,
+           "step_seconds_median": statistics.median(per_step),
+           "step_seconds": per_step,
+           "seeds_per_s": SAMPLED["batch_size"] * SAMPLED_TIMED / window,
+           "edges_per_s": timed_edges / window,
+           "valid_edges_per_step": timed_edges / SAMPLED_TIMED,
+           "wait_seconds_median": statistics.median(
+               waits[SAMPLED_WARMUP:steps]),
+           "peak_memory_bytes": peak, "launches": counts,
+           "losses": loss_values,
+           "profile": {"window_s": pwin / 2, "device_busy_s": busy / 2,
+                       "busy_share": busy / pwin,
+                       "idle_share": 1 - busy / pwin,
+                       "top_ops_us": ops[:8]}}
+    log(f"[{path}] {steps} steps: losses "
+        f"{[round(x, 4) for x in loss_values]}")
+    log(f"[{path}] step {res['step_seconds_mean'] * 1e3:.3f} ms (the "
+        f"{SAMPLED_TIMED}-step window; median of the CUDA-event spans "
+        f"{res['step_seconds_median'] * 1e3:.3f}), "
+        f"{res['seeds_per_s']:.1f} seeds/s, "
+        f"{res['edges_per_s'] / 1e6:.3f} M valid sampled edges/s "
+        f"({res['valid_edges_per_step']:.0f} a step), consumer wait median "
+        f"{res['wait_seconds_median'] * 1e3:.3f} ms, peak memory "
+        f"{peak / 2**30:.3f} GiB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"[{path}] profiler, two steps: window {pwin / 2 * 1e3:.3f} ms a "
+        f"step, device busy {busy / 2 * 1e3:.3f} (busy share "
+        f"{busy / pwin:.3f}, idle share {1 - busy / pwin:.3f}); top device "
+        f"ops {[(k[:40], round(v / 2e3, 3)) for k, v in ops[:6]]} ms a step")
+    return res, model, opt
+
+
+def phase_sampled_mag(cfg, raw, data) -> dict:
+    """Neighbour-sampled ogbn-mag (``SampledMagConfig``, MagNet h352 H8 B4
+    symnorm at fanouts (15, 10), batch 512) on the mag path's graph and
+    card data (``MAG_GRAPH``; the eval dict, its plan and ``x_full`` are
+    ``MagConfig``'s, not built again). (b) On one host-sampled batch the
+    card-built plan (``build_kernel_plan_device``) equals the host plan
+    field for field on the valid prefix; (c) kernels 1-4 on that plan
+    (``_gather_entries``, ``_headmix_entries``); (d) a dropout-0 card
+    step against the port's CPU step on the same batch. (a, f) Each
+    branch, the host sampler on its prefetch threads and the device
+    sampler, through ``_sampled_window``, with the host branch's build a
+    batch (thread wall time) and the host plan's build beside the card
+    plan's, and the device branch's sample and plan by CUDA events; (e)
+    one full-graph ``val`` on the card; (g) ``--sampled`` and
+    ``--device-sampler`` ``--check --check-epochs 1`` through the CLI.
+    Returns the results by path, the kernel entries, and the rest."""
+    import ast
+    import tempfile
+    import torch
+    from egc_tpu_torch.data.sampling import SampledNodeLoader
+    from egc_tpu_torch.ops import dispatch
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    dev = data["device"]
+    n, nfeat = raw["x"].shape
+    hcfg = _sampled_config(False, dev, nfeat)
+    t0 = time.perf_counter()
+    hdata = hcfg.sampling_data(raw, data)
+    loader = hdata["loader"]
+    sampler = loader.sampler
+    sampler_s = time.perf_counter() - t0
+    log(f"[sampled_mag] host sampler over {data['num_edges']} edges built "
+        f"in {sampler_s:.2f} s; batches of {loader.node_budget} rows and "
+        f"{loader.edge_budget} edge slots")
+
+    # (b) one host-sampled batch: its host plan against the card's
+    plan_s, build = [], dispatch.build_kernel_plan
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            plan_s.append(time.perf_counter() - t)
+
+    planned = SampledNodeLoader(sampler, raw["x"], raw["y"],
+                                raw["train_idx"], SAMPLED["batch_size"],
+                                rng_seed=1, kernel_plans=True,
+                                gather_on_device=True)
+    dispatch.build_kernel_plan = timed_build
+    try:
+        it = iter(planned)
+        host_items = [next(it) for _ in range(3)]
+        it.close()
+    finally:
+        dispatch.build_kernel_plan = build
+    item = tuple(t.to(dev) for t in host_items[0])
+    g = item[0]
+    dplan = dispatch.build_kernel_plan_device(g.senders, g.receivers,
+                                              g.num_nodes,
+                                              edge_mask=g.edge_mask)
+    hplan = g.kernel_plan
+    e = int(hplan.rowptr[-1])
+    for name in ("rowptr", "colptr", "deg", "fwd_senders", "fwd_perm",
+                 "bwd_receivers", "bwd_perm", "fwd_to_bwd"):
+        a, b = getattr(dplan, name), getattr(hplan, name)
+        a = a if name in ("rowptr", "colptr", "deg") else a[:e]
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"[sampled_mag] the card-built plan's {name} differs from the "
+              f"host plan's")
+    check(int(dplan.rowptr[-1]) == int(dplan.colptr[-1]) == e
+          == int(g.edge_mask.sum()), "[sampled_mag] valid edge counts")
+    plan_card_ms = time_ms(lambda: dispatch.build_kernel_plan_device(
+        g.senders, g.receivers, g.num_nodes, edge_mask=g.edge_mask))
+    log(f"[sampled_mag] (b) the card-built plan equals the host plan on "
+        f"the valid prefix ({e} of {g.num_edges} edge slots, {g.num_nodes} "
+        f"rows); plan build: host {[round(x * 1e3, 3) for x in plan_s]} ms "
+        f"(SampledNodeLoader(kernel_plans=True), three batches), card "
+        f"{plan_card_ms:.4f} ms (CUDA events)")
+
+    # (c) kernels 1-4 on that plan
+    gen = torch.Generator(device=dev).manual_seed(15)
+    kernels = _gather_entries(dplan, {"sampled": NEW_GATHER["mag"]}, gen)
+    fwd, bwd = _headmix_entries("sampled", dplan.num_nodes,
+                                PATH_HEADMIX["mag"], gen, dev)
+    kernels.update(headmix_fwd=[fwd], headmix_bwd=[bwd])
+
+    # (d) a dropout-0 card step against the CPU step on the same batch
+    hp0 = {**MAG_NET["hp"], "dropout": 0.0}
+    ccfg = _sampled_config(False, "cpu", nfeat)
+
+    def one_step(config, x_full, batch):
+        model = config.model(hp0, seed=0)
+        opt = config.init_state(model, hp0, None, 0)
+        loss = config.sampled_step(model, opt, x_full, *batch)
+        return float(loss), model
+
+    x_cpu = torch.from_numpy(raw["x"])
+    t1 = time.perf_counter()
+    loss_cpu, model_cpu = one_step(ccfg, x_cpu, host_items[0])
+    cpu_s = time.perf_counter() - t1
+    noise = torch.randn(x_cpu.shape,
+                        generator=torch.Generator().manual_seed(1))
+    _, model_pert = one_step(ccfg, x_cpu * (1 + 1e-7 * noise),
+                             host_items[0])
+    loss_card, model_card = one_step(hcfg, hdata["x_full"], item)
+    step_cmp = _step_vs_cpu("sampled_host", loss_card, model_card, loss_cpu,
+                            model_cpu, [model_pert], cpu_s)
+    del model_cpu, model_pert, model_card, noise, x_cpu, host_items, item
+
+    # (a, e, f) the host branch; its build a batch on the threads
+    build_s, build_batch = [], loader._build
+
+    def timed_batch(*a):
+        t = time.perf_counter()
+        out = build_batch(*a)
+        build_s.append(time.perf_counter() - t)
+        return out
+
+    loader._build = timed_batch
+    res = {}
+    res["sampled_host"], model, _ = _sampled_window("sampled_host", hcfg,
+                                                    hdata)
+    res["sampled_host"].update(
+        build_ms_per_batch=statistics.median(build_s) * 1e3,
+        host_plan_ms=[x * 1e3 for x in plan_s], card_plan_ms=plan_card_ms,
+        step_vs_cpu=step_cmp, sampler_build_s=sampler_s)
+    log(f"[sampled_host] a batch's host build (sample, padding, pinning; "
+        f"thread wall time): median {statistics.median(build_s) * 1e3:.3f} "
+        f"ms over {len(build_s)} builds on "
+        f"{loader.prefetch} threads; a host plan would add "
+        f"{statistics.median(plan_s) * 1e3:.3f} ms, the card's takes "
+        f"{plan_card_ms:.4f}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    accs = hcfg.val(model, None, hdata)
+    eval_s = time.perf_counter() - t1
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in accs.values()),
+          f"[sampled_mag] eval accuracies {accs}")
+    res["sampled_host"].update(eval_ms=eval_s * 1e3, eval=accs)
+    log(f"[sampled_mag] (e) full-graph val on the card after the steps: "
+        f"{accs} in {eval_s * 1e3:.3f} ms")
+    del model, hdata
+
+    # (a, f) the device branch; its sample and plan by CUDA events
+    dcfg = _sampled_config(True, dev, nfeat)
+    t0 = time.perf_counter()
+    ddata = dcfg.sampling_data(raw, data)
+    log(f"[sampled_device] device sampler built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    res["sampled_device"], _, _ = _sampled_window("sampled_device", dcfg,
+                                                  ddata)
+    ds = ddata["dsampler"]
+    seeds = torch.as_tensor(raw["train_idx"][:SAMPLED["batch_size"]],
+                            device=dev)
+    sgen = torch.Generator(device=dev).manual_seed(3)
+    gs, _ = ds.sample_graph(seeds, generator=sgen)
+    res["sampled_device"].update(
+        sample_ms=time_ms(lambda: ds.sample(seeds, generator=sgen)),
+        card_plan_ms=time_ms(lambda: dispatch.build_kernel_plan_device(
+            gs.senders, gs.receivers, gs.num_nodes,
+            edge_mask=gs.edge_mask)))
+    log(f"[sampled_device] a sample {res['sampled_device']['sample_ms']:.4f} "
+        f"ms, its card plan {res['sampled_device']['card_plan_ms']:.4f} ms "
+        f"(CUDA events, median of 10)")
+    del ddata, ds, gs
+
+    # (g) the command line, both branches
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flag in ("--sampled", "--device-sampler"):
+            reset_launch_counts()
+            lines, sec = _run_cli([f"{tmp}/{flag[2:]}", "egc", "mag",
+                                   *SAMPLED_CLI, flag, "--check",
+                                   "--check-epochs", "1"])
+            counts = launch_counts()
+            printed = ast.literal_eval(lines[-1])
+            values = [printed["best_val"], *printed["test"].values()]
+            check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
+                  f"[sampled_mag] cli {flag}: metrics {printed}")
+            for name, c in counts.items():
+                check(c > 0 if name in EGC_KERNELS else c == 0,
+                      f"[sampled_mag] cli {flag}: {name} launched {c} "
+                      f"times")
+            cli[flag] = {"printed": printed, "seconds": sec,
+                         "launches": counts}
+            log(f"[sampled_mag] (g) python -m egc_tpu_torch DIR egc mag "
+                f"{' '.join(SAMPLED_CLI)} {flag} --check --check-epochs 1: "
+                f"{printed} in {sec:.2f} s")
+    return {"paths": res, "kernels": kernels, "cli": cli}
+
+
 def phase_rmag(cfg, raw, data, secs: dict) -> dict:
     """Heterogeneous ogbn-mag through ``RMagConfig``'s hooks (``model``,
     ``init_state``, ``train``, ``val``): REGCNet h64 H4 B4, 2 layers, lr
@@ -3084,11 +3438,12 @@ def phase_cli_datasets() -> dict:
 
 def _attach(rows: list, per_key: dict) -> None:
     """Each kernel row takes its entries of ``per_key`` (key -> entries by
-    kernel name) under the key, and their largest error."""
+    kernel name) under the key, after any it holds there, and their
+    largest error."""
     for row in rows:
         for key, per_shape in per_key.items():
             if row["name"] in per_shape:
-                row[key] = per_shape[row["name"]]
+                row.setdefault(key, []).extend(per_shape[row["name"]])
                 row["max_abs_err"] = max([row["max_abs_err"]] + [
                     sh["max_abs_err"] for sh in row[key]])
 
@@ -3175,9 +3530,15 @@ def main(argv=None) -> int:
     results["mag"] = phase_mag(
         *mag, main_cpu_s=results["main"]["step_vs_cpu"]["cpu_step_seconds"],
         elapsed=time.perf_counter() - t_start)
-    paper = mag[1]
-    del mag
     phases["mag path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampled = phase_sampled_mag(*mag[:3])
+    results.update(sampled["paths"])
+    results["sampled_cli"] = sampled["cli"]
+    _attach(rows, {"paths": sampled["kernels"]})
+    paper = mag[1]
+    del mag, sampled
+    phases["sampled mag"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rmag = rmag_data(torch.device("cuda"), paper)
     _attach(rows, {"rmag": kernels_rmag_shapes(rmag[2])})

@@ -13,9 +13,10 @@ process), then the final runs.
 This port runs every dataset with every model kind the reference
 supports on it (``SUPPORTED``): zinc, cifar, hiv and code as batched
 tasks, arxiv, mag (homogeneous) and rmag (heterogeneous ogbn-mag, REGC) on
-the full graph. ``--pretrained``, ``--partitions``, ``--sampled``,
-``--device-sampler`` and ``--search-workers`` > 1 raise, naming their
-ROADMAP.md item.
+the full graph; mag also on neighbour-sampled batches (``--sampled``,
+and ``--device-sampler``, which samples on the card and implies
+``--sampled``). ``--pretrained``, ``--partitions`` and
+``--search-workers`` > 1 raise, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -49,8 +50,6 @@ SUPPORTED = {
 NOT_PORTED = {
     "--pretrained": "A15 (the pretrained registry)",
     "--partitions": "A16 (distributed)",
-    "--sampled": "A14 (sampling)",
-    "--device-sampler": "A14 (sampling)",
     "--search-workers": "A15 (parallel search)",
 }
 
@@ -149,12 +148,14 @@ def build_config(dataset, model, *, hidden, heads, bases, aggrs,
             aggrs=tuple(aggrs.split(",")) if aggrs else None,
             gat_version=2 if model == "gatv2" else 1, device=device)
     else:   # mag
+        mag_kw = dict(heads=heads or 8, bases=bases or 4,
+                      aggrs=tuple(aggrs.split(",")) if aggrs else
+                      ("symnorm",), device=device)
         if sampled or device_sampler:
-            raise _not_ported("--sampled")
-        cfg = fullgraph.MagConfig(
-            model, hidden, heads=heads or 8, bases=bases or 4,
-            aggrs=tuple(aggrs.split(",")) if aggrs else ("symnorm",),
-            device=device)
+            cfg = fullgraph.SampledMagConfig(
+                model, hidden, device_sampler=device_sampler, **mag_kw)
+        else:
+            cfg = fullgraph.MagConfig(model, hidden, **mag_kw)
     cfg.synthetic = synthetic
     cfg._num_samples = num_samples
     return cfg
@@ -173,9 +174,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     a = build_parser().parse_args(argv)
     for flag, on in (("--pretrained", a.pretrained),
-                     ("--sampled", a.sampled and a.dataset == "mag"),
-                     ("--device-sampler",
-                      a.device_sampler and a.dataset == "mag"),
                      ("--search-workers", a.search_workers > 1)):
         if on:
             raise _not_ported(flag)

@@ -23,8 +23,11 @@ stopper (80, 1000). ``MagConfig`` is homogeneous ogbn-mag (reference
 told otherwise), the synthetic graph of 6,000 nodes at degree 10 and 349
 classes (or ``load_ogbn_mag_homogeneous``), fixed hyperparameters (an
 empty grid), plateau patience 10, stopper (50, 200), no checkpoint at a
-trial's end. The TPU plan knobs (``wide_aggrs``, PNA's
-``bwd_narrow_window_rows``) are layout machinery and are not carried over.
+trial's end. ``SampledMagConfig`` trains the same net on neighbour-sampled
+batches (fanouts (15, 10), batch 512; ``device_sampler`` samples on the
+card) and evaluates on the full graph. The TPU plan knobs (``wide_aggrs``,
+PNA's ``bwd_narrow_window_rows``) are layout machinery and are not
+carried over.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise.
@@ -34,12 +37,17 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from egc_tpu_torch.data import synthetic
+from egc_tpu_torch.data.device_sampling import (
+    DeviceNeighborSampler, epoch_seeds,
+)
+from egc_tpu_torch.data.sampling import NeighborSampler, SampledNodeLoader
 from egc_tpu_torch.device import DeviceLike, resolve_device
 from egc_tpu_torch.exp.config import (
     ExperimentConfig, ExperimentSettings, Metric, StopperSpec,
@@ -51,7 +59,10 @@ from egc_tpu_torch.graph.structure import Graph, pad_graph
 from egc_tpu_torch.graph.transforms import symnorm_weight
 from egc_tpu_torch.models.nets import ArxivNet, ConvSpec, MagNet
 from egc_tpu_torch.nn.conv.pna import avg_log_degree
-from egc_tpu_torch.ops.dispatch import build_kernel_plan
+from egc_tpu_torch.ops.dispatch import (
+    build_kernel_plan, build_kernel_plan_device,
+)
+from egc_tpu_torch.train.loop import fold_in
 from egc_tpu_torch.train.losses import gather_label_scores
 from egc_tpu_torch.train.metrics import split_accuracies
 from egc_tpu_torch.train.optim import plateau_init
@@ -204,7 +215,12 @@ class FullGraphConfig(ExperimentConfig):
         raise NotImplementedError
 
     def data(self, hparams):
-        d = full_graph_to_device_dict(self.load_full_graph(), self.device)
+        return self.full_data(self.load_full_graph())
+
+    def full_data(self, raw: Dict[str, Any]) -> Dict[str, Any]:
+        """``full_graph_to_device_dict`` of ``raw`` on the config's device;
+        records the statistics the model is built from."""
+        d = full_graph_to_device_dict(raw, self.device)
         self._avg_log_deg = d["avg_log_deg"]
         self._num_features = d["graph"].nodes.shape[1]
         return d
@@ -331,3 +347,117 @@ class MagConfig(FullGraphConfig):
                      num_features=self._num_features,
                      generator=torch.Generator().manual_seed(seed))
         return net.to(self.device)
+
+
+class SampledMagConfig(MagConfig):
+    """ogbn-mag (homogeneous) trained on neighbour-sampled mini-batches
+    (BASELINE's "EGC-M on ogbn-mag, neighbor-sampled"; counterpart of
+    ``egc_tpu.exp.fullgraph.SampledMagConfig``).
+
+    Training uses the sampled subgraph's own symnorm weights (GraphSAGE
+    style); evaluation is ``MagConfig``'s deterministic full-graph forward
+    (reference ``mag/configs.py:34``), so the accuracies are exact.
+
+    The feature matrix lives on the device once, as the eval graph's
+    node storage (``x_full`` is a view of it); a step gathers its batch's
+    rows. Batches come from ``data/sampling.SampledNodeLoader`` on host
+    threads (4 ahead on the card, none on the CPU), or, with
+    ``device_sampler=True``, from ``data/device_sampling`` on the device,
+    the host giving only the shuffled seed ids. On the card each batch's
+    kernel plan is built there (``build_kernel_plan_device``), enqueued
+    with the step; on the CPU there is none and the convs take the
+    segment path. The epoch's losses are read once, at its end.
+    """
+
+    def __init__(self, *args, fanouts=(15, 10), batch_size: int = 512,
+                 device_sampler: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fanouts = tuple(fanouts)
+        self.batch_size = batch_size
+        self.device_sampler = device_sampler
+
+    def data(self, hparams):
+        raw = self.load_full_graph()
+        return self.sampling_data(raw, self.full_data(raw))
+
+    def sampling_data(self, raw: Dict[str, Any],
+                      full: Dict[str, Any]) -> Dict[str, Any]:
+        """The data dict over ``full``, ``raw``'s ``full_data``: the eval
+        dict, ``x_full`` (a view of its node storage), and the train
+        split's loader (``loader``) or device sampler (``dsampler``,
+        ``train_ids``, ``y_full``)."""
+        n = raw["x"].shape[0]
+        out = {"full": full, "x_full": full["graph"].nodes[:n],
+               "num_classes": raw["num_classes"], "device": self.device}
+        if self.device_sampler:
+            out["dsampler"] = DeviceNeighborSampler(
+                raw["senders"], raw["receivers"], n, fanouts=self.fanouts,
+                device=self.device)
+            out["train_ids"] = np.asarray(raw["train_idx"])
+            out["y_full"] = full["y"][:n]
+            return out
+        cuda = self.device.type == "cuda"
+        sampler = NeighborSampler(raw["senders"], raw["receivers"], n,
+                                  fanouts=self.fanouts)
+        out["loader"] = SampledNodeLoader(
+            sampler, raw["x"], raw["y"], raw["train_idx"], self.batch_size,
+            rng_seed=zlib.crc32(b"train") % (2 ** 31),
+            prefetch=4 if cuda else 0, gather_on_device=True,
+            pin_memory=cuda)
+        return out
+
+    def sampled_step(self, model, optimizer, x_full: torch.Tensor,
+                     graph: Graph, y: torch.Tensor, seed_mask: torch.Tensor,
+                     gids: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """One step on one sampled batch (on ``x_full``'s device): the
+        batch's rows of ``x_full`` (ids clamped, zero where ``node_mask``
+        is false), on the card its kernel plan, the NLL over the seeds and
+        one Adam step. Returns the loss, a device scalar; the parameters'
+        ``.grad`` hold this step's gradients afterwards."""
+        n = x_full.shape[0]
+        nodes = x_full[gids.long().clamp(max=n - 1)]
+        g = graph.replace(nodes=torch.where(graph.node_mask[:, None], nodes,
+                                            0.0))
+        if nodes.is_cuda:
+            g = g.replace(kernel_plan=build_kernel_plan_device(
+                g.senders, g.receivers, g.num_nodes, edge_mask=g.edge_mask))
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = masked_nll(model(g, generator=generator), y.long(), seed_mask)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    def batches(self, data, rng: torch.Generator, iteration: int):
+        """The epoch's batches on the device, each ``(generator, graph, y,
+        seed_mask, gids)``: ``generator`` is folded from the trial's
+        ``rng``, the iteration and the batch; the device sampler draws its
+        sample from it, and the step its dropout."""
+        epoch_gen = fold_in(rng, iteration)
+        dev = self.device
+        if not self.device_sampler:
+            for i, item in enumerate(data["loader"]):
+                yield (fold_in(epoch_gen, i),
+                       *(t.to(dev, non_blocking=True) for t in item))
+            return
+        ds = data["dsampler"]
+        order = data["train_ids"].copy()
+        np.random.default_rng(epoch_gen.initial_seed()).shuffle(order)
+        for i, seeds in enumerate(epoch_seeds(order, self.batch_size,
+                                              ds.num_nodes, dev)):
+            gen = fold_in(epoch_gen, i)
+            yield (gen, *ds.sample_batch(seeds, data["y_full"],
+                                         generator=gen))
+
+    def train(self, model, state, data, rng, iteration: int):
+        losses = [self.sampled_step(model, state, data["x_full"], g, y,
+                                    seed_mask, gids, generator=gen)
+                  for gen, g, y, seed_mask, gids
+                  in self.batches(data, rng, iteration)]
+        mean = float(torch.stack(losses).mean()) if losses else 0.0
+        return state, {"train_loss": mean}
+
+    def val(self, model, state, data):
+        return super().val(model, state, data["full"])

@@ -103,11 +103,17 @@ def gather_reduce_fwd_plain(vals: torch.Tensor, rowptr: torch.Tensor,
                             ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of kernel 1 (any device). The output has one
     row per CSR row, ``rowptr.shape[0] - 1``, for each of ``prims``, then
-    one ``[E, mask_words(F)]`` mask in CSC order for each of ``masks``."""
+    one ``[E, mask_words(F)]`` mask in CSC order for each of ``masks``.
+    As the kernel, it reads the edges ``[0, rowptr[-1])`` only: a plan
+    built on the card keeps its masked edges past them (their mask words
+    are 0 here, unwritten by the kernel)."""
     _check_masks(prims, masks, fwd_to_bwd)
     n, f = rowptr.shape[0] - 1, vals.shape[1]
     rows = _row_ids(rowptr)
-    g = vals[senders.long()]
+    e = rows.shape[0]
+    g = vals[senders[:e].long()]
+    if edge_w is not None:
+        edge_w = edge_w[:e]
     idx = rows[:, None].expand(-1, f)
     outs = []
     for p in prims:
@@ -128,8 +134,8 @@ def gather_reduce_fwd_plain(vals: torch.Tensor, rowptr: torch.Tensor,
             raise ValueError(f"unknown primitive {p!r}")
     for m in masks:
         words = pack_mask(g == outs[prims.index(m)][rows])
-        csc = torch.empty_like(words)
-        csc[fwd_to_bwd.long()] = words
+        csc = words.new_zeros(senders.shape[0], words.shape[1])
+        csc[fwd_to_bwd[:e].long()] = words
         outs.append(csc)
     return tuple(outs)
 
@@ -141,12 +147,17 @@ def gather_reduce_bwd_plain(colptr: torch.Tensor, receivers: torch.Tensor,
                             ) -> torch.Tensor:
     """Plain PyTorch version of kernel 2 (any device): the gradient of the
     ``colptr.shape[0] - 1`` sender rows from the coefficients given, each
-    ``[rows, F]`` indexed by receiver."""
+    ``[rows, F]`` indexed by receiver, over the edges ``[0, colptr[-1])``
+    as the kernel reads them."""
     coeffs = _check_bwd(colptr, receivers, c_sum, c_wsum, edge_w, c_sumsq2,
                         vals, c_max, max_mask, c_min, min_mask)
     n, f = colptr.shape[0] - 1, coeffs[0].shape[1]
     senders = _row_ids(colptr)
-    r = receivers.long()
+    e = senders.shape[0]
+    r = receivers[:e].long()
+    edge_w = None if edge_w is None else edge_w[:e]
+    max_mask = None if max_mask is None else max_mask[:e]
+    min_mask = None if min_mask is None else min_mask[:e]
     contrib = coeffs[0].new_zeros(r.shape[0], f)
     if c_sum is not None:
         contrib += c_sum[r]

@@ -10,7 +10,10 @@ in-degree over valid edges. The TPU's window/cell layout and its 128-lane
 row padding are not carried over.
 Masked (padding) edges never enter the plan: the JAX package's note on
 pad-row self-loops (``dispatch.py:135-143``) shows what they would do to
-the max/min tie backward.
+the max/min tie backward. ``build_kernel_plan_device`` builds the same
+plan in torch ops on the card, for a graph that changes every step (a
+sampled batch); it keeps the masked edges past ``rowptr[N]`` and
+``colptr[N]``, where no kernel reads.
 
 ``fused_multi_aggregate`` runs the edge-level primitives through one
 autograd function (kernel 1 forward, kernel 2 backward) and assembles the
@@ -72,6 +75,9 @@ class KernelPlan:
 
     @property
     def num_edges(self) -> int:
+        """Edge slots of the layouts (a plan built on the card keeps its
+        masked edges past ``rowptr[N]``: ``rowptr[N]`` counts the valid
+        ones)."""
         return self.fwd_senders.shape[0]
 
     def _map(self, fn) -> "KernelPlan":
@@ -145,6 +151,46 @@ def _build_plan(senders, receivers, num_src, num_dst, edge_mask,
                       bwd_receivers=bwd_r, bwd_w=bwd_w, bwd_perm=bwd_perm,
                       fwd_to_bwd=torch.from_numpy(csc_pos[fwd_order]),
                       deg=deg)
+
+
+def build_kernel_plan_device(senders: torch.Tensor, receivers: torch.Tensor,
+                             num_nodes: int, *,
+                             edge_mask: Optional[torch.Tensor] = None
+                             ) -> KernelPlan:
+    """``build_kernel_plan`` in torch ops on the tensors' own device, for a
+    graph that changes every step (a sampled batch): no host sync, so the
+    plan is enqueued with the step (counterpart of
+    ``egc_tpu.ops.dispatch.build_kernel_plan_jax``).
+
+    Each layout is one stable sort on ``major * (N + 1) + minor`` (int64),
+    ``np.lexsort``'s order. A masked edge gets the sentinel major ``N``:
+    it sorts past ``rowptr[N]`` / ``colptr[N]``, where no kernel reads, so
+    masked edges stay out of the plan as in the host build. On the valid
+    prefix every field equals ``build_kernel_plan``'s; the arrays keep all
+    ``E`` slots. No edge weights are carried (symnorm's are per batch)."""
+    dev = senders.device
+    s, r = senders.long(), receivers.long()
+    s_major, r_major = s, r
+    if edge_mask is not None:
+        s_major = torch.where(edge_mask, s, num_nodes)
+        r_major = torch.where(edge_mask, r, num_nodes)
+    rows = torch.arange(num_nodes + 1, device=dev)
+
+    def layout(major, minor):
+        order = torch.sort(major * (num_nodes + 1) + minor,
+                           stable=True).indices
+        ptr = torch.searchsorted(major[order], rows).to(torch.int32)
+        return order, ptr, minor[order].to(torch.int32)
+
+    fwd_order, rowptr, fwd_s = layout(r_major, s)
+    bwd_order, colptr, bwd_r = layout(s_major, r)
+    csc_pos = torch.empty_like(bwd_order)
+    csc_pos[bwd_order] = torch.arange(bwd_order.shape[0], device=dev)
+    return KernelPlan(num_nodes=num_nodes, rowptr=rowptr, fwd_senders=fwd_s,
+                      fwd_w=None, fwd_perm=fwd_order, colptr=colptr,
+                      bwd_receivers=bwd_r, bwd_w=None, bwd_perm=bwd_order,
+                      fwd_to_bwd=csc_pos[fwd_order].to(torch.int32),
+                      deg=(rowptr[1:] - rowptr[:-1]).float())
 
 
 def _plan_prims(aggrs: Tuple[str, ...]) -> Tuple[str, ...]:

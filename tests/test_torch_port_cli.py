@@ -1,8 +1,8 @@
 """The port's command line, ``python -m egc_tpu_torch`` (``cli.py``),
 against the JAX package's ``main.py``: the same options and defaults,
 ``--check`` of all nine kinds on the CPU and of every other dataset,
-rmag's config, the final runs' files, and the options this port does
-not run yet."""
+rmag's config, sampled mag's, the final runs' files, and the options
+this port does not run yet."""
 
 import ast
 import contextlib
@@ -106,7 +106,9 @@ def test_hparams_are_a_literal(tmp_path):
 
 @pytest.mark.parametrize("argv", [["gcn", "code"], ["egc", "zinc"],
                                   ["gcn", "hiv"], ["egc", "cifar"],
-                                  ["egc", "mag"]])
+                                  ["egc", "mag"],
+                                  ["egc", "mag", "--sampled"],
+                                  ["egc", "mag", "--device-sampler"]])
 def test_check_runs_each_dataset_on_the_cpu(tmp_path, argv):
     """``--check --check-epochs 1 --device cpu`` at width 8 on the batched
     datasets and homogeneous mag (synthetic data): the dict ``main.py``
@@ -128,14 +130,31 @@ def test_check_runs_each_dataset_on_the_cpu(tmp_path, argv):
     (["gcn", "arxiv", "--pretrained"], "A15"),
     (["gcn", "arxiv", "--partitions", "4"], "A16"),
     (["gcn", "arxiv", "--search-workers", "2"], "A15"),
-    (["egc", "mag", "--sampled"], "A14"),
-    (["egc", "mag", "--device-sampler"], "A14"),
 ])
 def test_out_of_scope_raises_with_its_roadmap_item(tmp_path, argv, item):
     full = [str(tmp_path)] + argv + ["--hidden", "8", "--aggrs", "symnorm",
                                       "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         cli.main(full)
+
+
+@pytest.mark.parametrize("flags", [dict(sampled=True),
+                                   dict(device_sampler=True)])
+def test_sampled_options_build_the_config_of_main(flags):
+    """``--sampled`` and ``--device-sampler`` (which implies it) give the
+    SampledMagConfig of ``main.build_config``: its hidden, heads, bases,
+    aggregators, fanouts, batch size and sampler, and the synthetic flag
+    and sample count."""
+    kw = dict(hidden=16, heads=None, bases=2, aggrs="symnorm,max",
+              num_samples=3, synthetic=False, **flags)
+    ref = jmain.build_config("mag", "egc", **kw)
+    got = cli.build_config("mag", "egc", device="cpu", **kw)
+    assert type(got).__name__ == type(ref).__name__ == "SampledMagConfig"
+    for k in ("hidden", "heads", "bases", "aggrs", "fanouts", "batch_size",
+              "device_sampler", "synthetic", "_num_samples"):
+        assert getattr(got, k) == getattr(ref, k), k
+    assert got.device_sampler == bool(flags.get("device_sampler"))
+    assert (got.heads, got.bases, got.aggrs) == (8, 2, ("symnorm", "max"))
 
 
 @pytest.mark.parametrize("argv,msg", [
