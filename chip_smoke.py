@@ -153,6 +153,29 @@ Phases, each of which raises (exit code 1) on any failed check:
    kind) pairs of zinc, cifar, hiv, code, mag and rmag at its main-table
    width (``CLI_DATASET_RUNS``), and one zinc EGC-M h124 final run
    restored the same way.
+6. ``[partitioned]`` (after the trial loop): graph-partitioned arxiv
+   training at world size 1 under NCCL (this process joins a one-rank
+   group), ``PartitionedArxivConfig``'s hooks on the 169,343-node graph
+   (the BFS plan with its padded halo and the rank's kernel plan, built
+   and timed): 3 EGC-M h128 H4 B4 steps against the unpartitioned
+   ``ArxivConfig`` steps on the card from the same seeded weights (loss
+   rtol 1e-5, gradients relative L2 <= ``PART_GRAD_REL_L2``), rows 2-5
+   launched 3 times a step and nothing else; both steps' times (windows
+   in turns) and the partitioned step's idle share; one GAT h152 H8 step
+   each way (rows 6-7, 3 a step); one DP step at world 1 on a zinc
+   EGC-M batch against one device; ``python -m egc_tpu_torch ...
+   --partitions 1 --check --check-epochs 2`` as a subprocess, and
+   ``--partitions`` past the visible cards exiting 2 before any rank
+   starts. ``[harness]`` (last): ``--pretrained`` for arxiv EGC-M h136 H4
+   B4 symadd/max/mean from a ``checkpoint.pt`` the phase writes (the
+   printed accuracies against an in-process eval; rows 2 and 4, 3 each,
+   the head mix's scalar L 34 variant), then ``run_search_parallel`` on
+   zinc EGC-M with 2 candidates of ``SEARCH_ITERS`` epochs on 2 spawned
+   workers sharing the card from a cold kernel cache (the libraries
+   deleted first, so the build lock has two processes to order), each
+   worker's launches, kernel build seconds and device recorded by the
+   spec's factory (``search_config``), its wall time beside the same 2
+   trials run in turn in this process.
 Each phase's seconds are printed at the end.
 
 Printed at the end: one JSON line of the kernels, the nvidia-smi line, and
@@ -3436,6 +3459,511 @@ def phase_cli_datasets() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 6. the partitioned paths and the rest of the harness
+# ---------------------------------------------------------------------------
+
+# the partitioned main path: arxiv EGC-M h128 H4 B4 (the main net) over a
+# process group of one rank, 3 checked steps (dropout 0, ArxivConfig's
+# Adam) beside the unpartitioned ArxivConfig step on the card
+PART_STEPS = 3
+PART_TIMED = 10               # a step's time: windows of 5, in turns
+PART_GRAD_REL_L2 = 2e-4       # card vs card: the partition's BFS order sums
+#   every receiver's edges in another order; ROADMAP.md §C records 1.2e-4
+#   as EGC's rounding spread through its max and ReLU selections
+DP_REL = 1e-5                 # DP at world 1 vs one device: the same ops,
+#   but the readout's mean pool adds by atomics, in another order each run
+HARNESS_NET = ["--hidden", "136", "--egc-num-heads", "4", "--egc-num-bases",
+               "4", "--aggrs", "symadd,max,mean"]   # the registry's egc_m
+SEARCH_ITERS = 3              # epochs a search trial
+SEARCH_NET = CLI_DATASET_RUNS[0][2]                 # zinc EGC-M h124
+PATH_KERNELS.update({
+    "partitioned": EGC_KERNELS, "partitioned_gat": PATH_KERNELS["gat"],
+    "dp": EGC_KERNELS, "pretrained": ("gather_reduce_fwd", "headmix_fwd"),
+    "search_workers": EGC_KERNELS})
+PATH_GATHER["partitioned"] = PATH_GATHER["main"]
+PATH_HEADMIX["partitioned"] = PATH_HEADMIX["main"]
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _grad_gap(label: str, got: dict, ref: dict, zero: str) -> tuple:
+    """(relative L2 of the whole gradient, the largest of one tensor's)
+    of ``got`` against ``ref``; a bias that feeds a BatchNorm (``zero``)
+    is checked to be noise-sized and left out."""
+    import torch
+    scale = max(float(g.abs().max()) for g in ref.values())
+    keep = []
+    for name, g in ref.items():
+        if re.fullmatch(zero, name):
+            check(float(got[name].abs().max()) <= 1e-4 * scale,
+                  f"[{label}] {name}: gradient is not noise-sized")
+        else:
+            keep.append(name)
+    whole = rel_l2(torch.cat([got[n].reshape(-1) for n in keep]),
+                   torch.cat([ref[n].reshape(-1) for n in keep]))
+    worst = max((rel_l2(got[n], ref[n]), n) for n in keep)
+    return whole, worst
+
+
+def _device_idle(step, step_s: float, steps: int = 2) -> dict:
+    """The profiler over ``steps`` calls of ``step``: the device's busy
+    time a step, and its idle share of ``step_s``, the step's time
+    measured without the profiler (whose own host work stretches the
+    profiled window of a step the host nearly keeps up with; that
+    window is reported beside it)."""
+    import torch
+    from egc_tpu_torch.utils.profiling import device_op_table, profile_trace
+    with profile_trace() as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()    # the profiler's start-up left out
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    busy = sum(v for _, v in device_op_table(prof)) / 1e6
+    check(busy > 0, "the profiler saw no device time")
+    return {"profiled_window_s": window / steps,
+            "device_busy_s": busy / steps,
+            "idle_share": 1 - busy / steps / step_s}
+
+
+def _windows(steps: dict, count: int) -> dict:
+    """Each named step function timed in windows of ``count // 2`` steps,
+    in turns (a, b, b, a): seconds a step over its two windows (host
+    clock, one synchronise a window)."""
+    import torch
+    half = count // 2
+    order = list(steps) + list(steps)[::-1]
+    total = {name: 0.0 for name in steps}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(half):
+            steps[name]()
+        torch.cuda.synchronize()
+        total[name] += time.perf_counter() - t0
+    return {name: s / (2 * half) for name, s in total.items()}
+
+
+def phase_partitioned(raw, data) -> dict:
+    """``[partitioned]``: graph-partitioned arxiv training at world size 1
+    under NCCL (this process joins a one-rank group): the real process
+    group, the partition plan with its halo padding (BFS order, H = 8
+    padded halo rows), the kernels on the rank's extended graph, and the
+    all-reduces. ``PartitionedArxivConfig``'s hooks on the 169,343-node
+    graph (plan build timed), EGC-M h128 H4 B4 symnorm/max/mean from the
+    seed of the unpartitioned ``ArxivConfig`` net (the state dicts
+    equal); ``PART_STEPS`` steps of each at dropout 0: the loss at rtol
+    ``STEP_LOSS_RTOL``, the gradients at relative L2 ``PART_GRAD_REL_L2``
+    each step; the counters over the partitioned steps: rows 2-5 three
+    times a step, nothing else, in the main path's instantiations. Both
+    steps' times (windows in turns) and the partitioned step's idle
+    share; one GAT h152 H8 step each way with rows 6-7 counted; one DP
+    step at world 1 on a zinc EGC-M batch against the one-device step;
+    ``python -m egc_tpu_torch ... --partitions 1 --check --check-epochs
+    2`` as a subprocess (its rank spawned, NCCL), and ``--partitions``
+    one past the visible cards, which must exit 2 with its message
+    before any rank starts."""
+    import ast
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from egc_tpu_torch.exp.batched import ZincConfig
+    from egc_tpu_torch.exp.fullgraph import (
+        ArxivConfig, PartitionedArxivConfig, arxiv_net, train_step,
+    )
+    from egc_tpu_torch.models.nets import ConvSpec
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from egc_tpu_torch.parallel.dp import make_dp_train_step
+    from egc_tpu_torch.parallel.halo import (
+        DistributedNodeClassifier, partitioned_train_step,
+    )
+    from egc_tpu_torch.parallel.mesh import free_port, init_mesh
+
+    class AtSize:
+        def load_full_graph(self):
+            return raw
+
+    class Part(AtSize, PartitionedArxivConfig):
+        pass
+
+    class Whole(AtSize, ArxivConfig):
+        pass
+
+    egc = dict(heads=4, bases=4, aggrs=("symnorm", "max", "mean"))
+    res = {}
+    mesh = init_mesh(0, 1, device="cuda",
+                     init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        check(mesh.backend == "nccl" and dist.get_world_size() == 1,
+              f"[partitioned] group {mesh}")
+        pcfg = Part("egc", 128, mesh=mesh, **egc)
+        ucfg = Whole("egc", 128, **egc, device=mesh.device)
+        hp = {**pcfg.default_hparams(), "dropout": 0.0}
+        t0 = time.perf_counter()
+        pdata = pcfg.data(hp)
+        plan_s = time.perf_counter() - t0
+        plan = pdata["plan"]
+        check(plan.n_local >= NUM_NODES and pdata["graph"].kernel_plan
+              .num_edges == NUM_EDGES,
+              f"[partitioned] plan n_local {plan.n_local}, halo "
+              f"{plan.halo}, edges {pdata['graph'].kernel_plan.num_edges}")
+        pm, um = pcfg.model(hp, seed=0), ucfg.model(hp, seed=0)
+        check(pm.state_dict().keys() == um.state_dict().keys() and all(
+            torch.equal(v, um.state_dict()[k])
+            for k, v in pm.state_dict().items()),
+            "[partitioned] the seeded weights differ from ArxivNet's")
+        popt = pcfg.init_state(pm, hp, pdata, 0)
+        uopt = ucfg.init_state(um, hp, data, 0)
+        rng = pcfg.rng(0)
+        reset_launch_counts()
+        ploss, pgrads = [], []
+        with _instantiations() as seen:
+            for it in range(PART_STEPS):
+                _, m = pcfg.train(pm, popt, pdata, rng, it)
+                ploss.append(m["train_loss"])
+                pgrads.append(_grads(pm))
+        counts = launch_counts()
+        _check_path_instantiation("partitioned", seen)
+        for name, c in counts.items():
+            want = 3 * PART_STEPS if name in EGC_KERNELS else 0
+            check(c == want, f"[partitioned] {name} launched {c} times in "
+                             f"{PART_STEPS} steps, expected {want}")
+        gaps = []
+        for it in range(PART_STEPS):
+            _, m = ucfg.train(um, uopt, data, rng, it)
+            rel_loss = abs(ploss[it] - m["train_loss"]) / abs(
+                m["train_loss"])
+            whole, worst = _grad_gap("partitioned", pgrads[it], _grads(um),
+                                     r"convs\.\d+\.bias")
+            gaps.append({"loss": ploss[it], "ref_loss": m["train_loss"],
+                         "loss_rel": rel_loss, "grad_rel_l2": whole,
+                         "worst": worst})
+            check(rel_loss <= STEP_LOSS_RTOL and whole <= PART_GRAD_REL_L2,
+                  f"[partitioned] step {it}: {gaps[-1]}")
+        g, sidx, y = pdata["graph"], pdata["send_idx"], pdata["y"]
+        tmask = pdata["masks"]["train"]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        steps = {
+            "unpartitioned": lambda: train_step(um, uopt, data, gen),
+            "partitioned": lambda: partitioned_train_step(
+                pm, popt, g, sidx, y, tmask, gen)}
+        times = _windows(steps, PART_TIMED)
+        torch.cuda.reset_peak_memory_stats()
+        prof = _device_idle(steps["partitioned"], times["partitioned"])
+        peak = torch.cuda.max_memory_allocated()
+        res["partitioned"] = {
+            "plan_seconds": plan_s, "n_local": plan.n_local,
+            "halo": plan.halo, "n_ext": plan.n_ext,
+            "e_interior": plan.e_interior, "steps": gaps,
+            "launches": counts, "step_seconds": times, "profile": prof,
+            "peak_memory_bytes": peak}
+        log(f"[partitioned] plan (BFS, halo {plan.halo}, n_ext "
+            f"{plan.n_ext}) and its kernel plan built in {plan_s:.2f} s; "
+            f"{PART_STEPS} steps against ArxivConfig's: "
+            + "; ".join(f"loss {s['loss']:.6f} vs {s['ref_loss']:.6f} (rel "
+                        f"{s['loss_rel']:.2e}), gradients "
+                        f"{s['grad_rel_l2']:.2e} (worst {s['worst'][0]:.2e} "
+                        f"{s['worst'][1]})" for s in gaps))
+        log(f"[partitioned] step {times['partitioned'] * 1e3:.3f} ms vs "
+            f"unpartitioned {times['unpartitioned'] * 1e3:.3f} ms "
+            f"({PART_TIMED} steps each, windows in turns); profiler: "
+            f"device busy {prof['device_busy_s'] * 1e3:.3f} ms a step, "
+            f"idle share {prof['idle_share']:.3f} of the step (the "
+            f"profiled window {prof['profiled_window_s'] * 1e3:.3f} ms); "
+            f"peak {peak / 2**30:.3f} GiB; "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+
+        # one GAT h152 H8 step each way (rows 6-7 counted)
+        gat = ConvSpec(kind="gat", heads=GAT_NET["heads"])
+        gm = DistributedNodeClassifier(
+            gat, GAT_NET["hidden"], dropout=0.0, group=mesh.group,
+            generator=torch.Generator().manual_seed(0)).cuda()
+        ugm = arxiv_net(gat, GAT_NET["hidden"], dropout=0.0, seed=0,
+                        device=mesh.device)
+        gopt = torch.optim.Adam(gm.parameters(), lr=0.01, weight_decay=5e-4)
+        ugopt = torch.optim.Adam(ugm.parameters(), lr=0.01,
+                                 weight_decay=5e-4)
+        reset_launch_counts()
+        with _instantiations() as seen:
+            gl = float(partitioned_train_step(gm, gopt, g, sidx, y, tmask))
+        gcounts = launch_counts()
+        _check_held("partitioned_gat", seen)
+        for name, c in gcounts.items():
+            want = 3 if name in PATH_KERNELS["gat"] else 0
+            check(c == want, f"[partitioned_gat] {name} launched {c} times "
+                             f"in a step, expected {want}")
+        ggrads = _grads(gm)
+        ugl = float(train_step(ugm, ugopt, data))
+        whole, worst = _grad_gap("partitioned_gat", ggrads, _grads(ugm),
+                                 r"convs\.\d+\.bias")
+        check(abs(gl - ugl) <= STEP_LOSS_RTOL * abs(ugl)
+              and whole <= PART_GRAD_REL_L2,
+              f"[partitioned_gat] loss {gl} vs {ugl}, gradients {whole}")
+        res["partitioned_gat"] = {"loss": gl, "ref_loss": ugl,
+                                  "grad_rel_l2": whole, "worst": worst,
+                                  "launches": gcounts}
+        log(f"[partitioned_gat] GAT h152 H8 step: loss {gl:.6f} vs "
+            f"{ugl:.6f}, gradients {whole:.2e} (worst {worst[0]:.2e} "
+            f"{worst[1]}); launches "
+            f"{ {k: v for k, v in gcounts.items() if v} }")
+        del gm, ugm, gopt, ugopt, pm, um, popt, uopt, pdata
+
+        # one DP step at world 1 on a zinc EGC-M batch
+        zcfg = ZincConfig("egc", 124, heads=4, bases=4,
+                          aggrs=("add", "std", "max"), device=mesh.device)
+        zhp = zcfg.default_hparams()
+        zb, zy = next(iter(zcfg.data(zhp)["train"]))
+
+        def zsum(out, y_, graph):
+            m = graph.graph_mask.to(out.dtype)
+            return ((out.reshape(-1) - y_.reshape(-1)).abs() * m).sum(), \
+                m.sum()
+
+        dm, om = zcfg.model(zhp, seed=0), zcfg.model(zhp, seed=0)
+        dopt = torch.optim.Adam(dm.parameters(), lr=zhp["lr"])
+        oopt = torch.optim.Adam(om.parameters(), lr=zhp["lr"])
+        step = make_dp_train_step(dm, zsum, mesh.group)
+        reset_launch_counts()
+        with _instantiations() as seen:
+            dl = float(step(dopt, zb, zy))
+        dcounts = launch_counts()
+        _check_held("dp", seen)
+        for name, c in dcounts.items():
+            want = 4 if name in EGC_KERNELS else 0
+            check(c == want, f"[dp] {name} launched {c} times, expected "
+                             f"{want}")
+        dgrads = _grads(dm)
+        om.train()
+        oopt.zero_grad()
+        s, c = zsum(om(zb), zy, zb)
+        (s / c).backward()
+        whole, worst = _grad_gap("dp", dgrads, _grads(om), ZERO_GRAD[
+            "zinc_egc"])
+        ol = (s / c).detach().item()
+        check(abs(dl - ol) <= DP_REL * abs(ol) and whole <= GRAD_REL_L2,
+              f"[dp] loss {dl} vs {ol}, gradients {whole}")
+        res["dp"] = {"loss": dl, "ref_loss": ol, "grad_rel_l2": whole,
+                     "worst": worst, "launches": dcounts}
+        log(f"[dp] zinc EGC-M h124 DP step at world 1: loss {dl:.6f} vs "
+            f"one device {ol:.6f}, gradients {whole:.2e} (worst "
+            f"{worst[0]:.2e} {worst[1]}); launches "
+            f"{ {k: v for k, v in dcounts.items() if v} }")
+    finally:
+        dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "egc_tpu_torch", f"{tmp}/p", "egc",
+                "arxiv", "--hidden", "128", "--egc-num-heads", "4",
+                "--egc-num-bases", "4", "--aggrs", "symnorm,max,mean"]
+        t0 = time.perf_counter()
+        run = subprocess.run(argv + ["--partitions", "1", "--check",
+                                     "--check-epochs", "2"],
+                             capture_output=True, text=True, timeout=300)
+        sec = time.perf_counter() - t0
+        check(run.returncode == 0, f"[partitioned] --partitions 1: exit "
+                                   f"{run.returncode}\n{run.stderr[-3000:]}")
+        printed = ast.literal_eval(run.stdout.strip().splitlines()[-1])
+        check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in
+                  [printed["best_val"], *printed["test"].values()]),
+              f"[partitioned] --partitions 1 printed {printed}")
+        too_many = torch.cuda.device_count() + 1
+        t1 = time.perf_counter()
+        bad = subprocess.run(argv + ["--partitions", str(too_many),
+                                     "--check"],
+                             capture_output=True, text=True, timeout=120)
+        bad_s = time.perf_counter() - t1
+        check(bad.returncode == 2 and f"needs {too_many} CUDA cards"
+              in bad.stderr and "[arxiv]" not in bad.stdout,
+              f"[partitioned] --partitions {too_many}: exit "
+              f"{bad.returncode}, {bad.stderr[-500:]}")
+    cli_res = res["partitioned_cli"] = {
+        "printed": printed, "seconds": sec,
+        "refusal": bad.stderr.strip().splitlines()[-1],
+        "refusal_seconds": bad_s}
+    log(f"[partitioned] python -m egc_tpu_torch ... --partitions 1 --check "
+        f"--check-epochs 2: {printed} ({sec:.1f} s); --partitions "
+        f"{too_many}: exit 2, '{cli_res['refusal']}' ({bad_s:.1f} s)")
+    return res
+
+
+def search_config(dataset: str, model: str, *, record_dir: str,
+                  workers: int, device=None, **kw):
+    """The search workers' config factory: ``cli.build_config`` whose
+    ``test`` records the worker's launch counters, its kernel build's
+    seconds and its device to ``record_dir`` (one file a trial, by pid).
+    Each worker first waits, up to 300 s, until ``workers`` workers have
+    started a trial, so every worker runs one."""
+    import os
+    from pathlib import Path
+    import torch
+    from egc_tpu_torch import cli
+    from egc_tpu_torch.ops.cuda import _build, launch_counts
+
+    rec = Path(record_dir)
+    (rec / f"started_{os.getpid()}").touch()
+    t0 = time.monotonic()
+    while len(list(rec.glob("started_*"))) < workers:
+        if time.monotonic() - t0 > 300:
+            raise RuntimeError("the other search workers never started")
+        time.sleep(0.2)
+    cfg = cli.build_config(dataset, model, device=device, **kw)
+    test = cfg.test
+
+    def recorded_test(net, state, data):
+        out = test(net, state, data)
+        torch.cuda.synchronize()
+        (rec / f"trial_{os.getpid()}_{time.time_ns()}.json").write_text(
+            json.dumps({"pid": os.getpid(), "device": str(cfg.device),
+                        "launches": launch_counts(),
+                        "build_seconds": _build.build_seconds}))
+        return out
+
+    cfg.test = recorded_test
+    return cfg
+
+
+def phase_harness() -> dict:
+    """``[harness]``: the rest of the command line on the card.
+
+    ``--pretrained`` for arxiv EGC-M h136 H4 B4 symadd/max/mean (the
+    registry's egc_m row) from a ``checkpoint.pt`` this phase writes (the
+    config's net after 3 iterations, so BatchNorm holds real statistics):
+    ``cli.main`` in process, the counters reset just before; the printed
+    accuracies must equal an in-process eval of the same weights, and
+    the launches be rows 2 and 4 only, 3 each (one eval forward, the head
+    mix at L 34: its scalar variant). Then ``run_search_parallel`` on
+    zinc EGC-M h124 (``--num-samples 2``: 2 candidates, ``SEARCH_ITERS``
+    epochs each) on 2 spawned workers, both on the card, each started
+    against a cold kernel cache (the libraries deleted first: the build
+    lock makes one worker compile and the other wait); each worker's
+    launches (non-zero), kernel build seconds and device come back
+    through the spec's factory (``search_config``). Its wall time stands
+    beside the same 2 trials run one after the other in this process."""
+    import ast
+    import glob
+    import os
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from egc_tpu_torch import cli
+    from egc_tpu_torch.exp.parallel_search import run_search_parallel
+    from egc_tpu_torch.exp.runner import run_trial
+    from egc_tpu_torch.ops.cuda import (
+        _build, headmix, launch_counts, reset_launch_counts,
+    )
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "pretrained"
+        d.mkdir()
+        cfg = cli.build_config("arxiv", "egc", hidden=136, heads=4, bases=4,
+                               aggrs="symadd,max,mean", num_samples=1)
+        hp = cfg.default_hparams()
+        data = cfg.data(hp)
+        model = cfg.model(hp, seed=0)
+        opt = cfg.init_state(model, hp, data, 0)
+        for it in range(3):
+            cfg.train(model, opt, data, cfg.rng(0), it)
+        torch.save(model.state_dict(), d / "checkpoint.pt")
+        ref = cfg.test(model, opt, data)
+        reset_launch_counts()
+        lines, sec = _run_cli([str(d), "egc", "arxiv", *HARNESS_NET,
+                               "--pretrained"])
+        counts = launch_counts()
+        printed = ast.literal_eval(lines[-1])
+        check(any(line.startswith("ArxivNet(") for line in lines),
+              f"[pretrained] no model printed: {lines[:3]}")
+        # two argmax ties of another rounding at most: 2 / 800 rows
+        check(printed.keys() == ref.keys() and all(
+            abs(printed[k] - v) <= 2 / 800 + 1e-7 for k, v in ref.items()),
+            f"[pretrained] printed {printed}, the in-process eval {ref}")
+        for name, c in counts.items():
+            want = 3 if name in PATH_KERNELS["pretrained"] else 0
+            check(c == want, f"[pretrained] {name} launched {c} times, "
+                             f"expected {want}")
+        variant = headmix.fwd_variant(34, 4 * 34, [0])
+        check(variant == "scalar", f"[pretrained] head mix L 34: {variant}")
+        res["pretrained"] = {"printed": printed, "in_process": ref,
+                             "equal": printed == ref, "launches": counts,
+                             "seconds": sec, "headmix_variant": variant}
+        log(f"[pretrained] --pretrained arxiv EGC-M h136 H4 B4 "
+            f"symadd/max/mean: {printed} (in process: {ref}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }, head mix "
+            f"(4, 4, 3, 34) {variant} ({sec:.1f} s)")
+
+        dataset, model_kind = "zinc", "egc"
+        kw = dict(hidden=124, heads=4, bases=4, aggrs="add,std,max",
+                  num_samples=2)
+        scfg = cli.build_config(dataset, model_kind, **kw)
+        metric = scfg.trial_metric()
+        cands = scfg.search_strategy().generate(
+            scfg.hyperparams(), np.random.default_rng(0))
+        check(len(cands) == 2, f"[search] {len(cands)} candidates")
+        rec = Path(tmp) / "workers"
+        rec.mkdir()
+        stale = glob.glob(str(_build.BUILD_DIR / "*.so"))
+        for f in stale:
+            os.remove(f)
+        spec = ("chip_smoke", "search_config", (dataset, model_kind),
+                dict(kw, record_dir=str(rec), workers=2))
+        t0 = time.perf_counter()
+        best = run_search_parallel(
+            spec, cands, metric_mode=metric.mode, metric_name=metric.name,
+            num_workers=2, exp_dir=Path(tmp) / "search",
+            max_iterations=SEARCH_ITERS,
+            resources=scfg.resource_requirements(),
+            scheduler=scfg.trial_scheduler())
+        par_s = time.perf_counter() - t0
+        trials = [json.loads(p.read_text()) for p in rec.glob("trial_*")]
+        by_pid = {}
+        for t in trials:
+            by_pid.setdefault(t["pid"], []).append(t)
+        check(len(trials) == 2 and len(by_pid) == 2,
+              f"[search] trials by worker {by_pid}")
+        for pid, ts in by_pid.items():
+            last = ts[-1]
+            check(last["device"].startswith("cuda") and all(
+                last["launches"][k] > 0 for k in EGC_KERNELS),
+                f"[search] worker {pid}: {last}")
+        check(len(glob.glob(str(_build.BUILD_DIR / "*.so"))) == len(stale)
+              and not glob.glob(str(_build.BUILD_DIR / "*.tmp*")),
+              "[search] the workers' cold build left another library set")
+        results = json.loads((Path(tmp) / "search" / "search_results.json")
+                             .read_text())
+        check(len(results["results"]) == 2 and best == results["best"],
+              f"[search] results {results}")
+        t0 = time.perf_counter()
+        seq = [run_trial(scfg, hp_, seed=i, max_iterations=SEARCH_ITERS,
+                         verbose=False) for i, hp_ in enumerate(cands)]
+        seq_s = time.perf_counter() - t0
+        workers = {str(pid): {"launches": ts[-1]["launches"],
+                              "build_seconds": ts[-1]["build_seconds"],
+                              "device": ts[-1]["device"]}
+                   for pid, ts in by_pid.items()}
+        launches = {k: sum(w["launches"][k] for w in workers.values())
+                    for k in launch_counts()}
+        res["search_workers"] = {
+            "workers": workers, "launches": launches,
+            "parallel_seconds": par_s, "sequential_seconds": seq_s,
+            "best": best, "results": results["results"],
+            "sequential_best_val": [r["best_val"] for r in seq]}
+        log(f"[search] --search-workers 2 on zinc EGC-M h124, 2 candidates "
+            f"x {SEARCH_ITERS} epochs, both workers on the card, from a "
+            f"cold kernel cache: {par_s:.1f} s (2 trials one after the "
+            f"other in this process, warm: {seq_s:.1f} s); worker builds "
+            + ", ".join(f"{w['build_seconds']:.2f} s"
+                        for w in workers.values())
+            + f"; launches by worker "
+            + "; ".join(f"{ {k: v for k, v in w['launches'].items() if v} }"
+                        for w in workers.values()))
+    return res
+
+
 def _attach(rows: list, per_key: dict) -> None:
     """Each kernel row takes its entries of ``per_key`` (key -> entries by
     kernel name) under the key, after any it holds there, and their
@@ -3520,6 +4048,9 @@ def main(argv=None) -> int:
     results["trial"] = phase_trial(
         raw, results["main"]["step_seconds_mean"])
     phases["trial"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results.update(phase_partitioned(raw, data))
+    phases["partitioned"] = time.perf_counter() - t0
     del data, d_cpu, checked
     t0 = time.perf_counter()
     for path, net in (("code_gat", CODE_GAT_NET),
@@ -3553,6 +4084,9 @@ def main(argv=None) -> int:
     results["cli"] = phase_cli()
     results["cli_datasets"] = phase_cli_datasets()
     phases["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results.update(phase_harness())
+    phases["harness"] = time.perf_counter() - t0
     for row in rows:   # each path's timed steps, counted on their own
         row["launches_by_path"] = {
             path: results[path]["launches"][row["name"]]

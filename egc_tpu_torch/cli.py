@@ -15,8 +15,21 @@ supports on it (``SUPPORTED``): zinc, cifar, hiv and code as batched
 tasks, arxiv, mag (homogeneous) and rmag (heterogeneous ogbn-mag, REGC) on
 the full graph; mag also on neighbour-sampled batches (``--sampled``,
 and ``--device-sampler``, which samples on the card and implies
-``--sampled``). ``--pretrained``, ``--partitions`` and
-``--search-workers`` > 1 raise, naming their ROADMAP.md item.
+``--sampled``).
+
+- ``--pretrained`` checks the architecture against the pretrained
+  registry (``exp/pretrained.py``), restores ``EXP_DIR/checkpoint.pt``
+  (``exp.weight_port.restore_pretrained_pt``) or else the trial in
+  ``EXP_DIR`` (``restore_trial``), and prints the model and its test
+  metrics.
+- ``--search-workers N`` (N > 1) runs the search's trials on N spawned
+  workers (``exp/parallel_search.py``), each on ``--device``.
+- ``--partitions N`` (arxiv) trains over N ranks that the command starts
+  itself, one a card under NCCL, or N gloo ranks with ``--device cpu``;
+  each rank runs ``main``, and only rank 0 prints and writes
+  ``EXP_DIR``. More ranks than visible cards is a usage error, raised
+  before any rank starts. ``rmag --partitions`` raises, naming its
+  ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -45,12 +58,10 @@ SUPPORTED = {
     "rmag": {"egc"},
 }
 
-# where each dataset and option this port does not run yet stands in
-# ROADMAP.md's queue A
+# where each option this port does not run yet stands in ROADMAP.md's
+# queue A
 NOT_PORTED = {
-    "--pretrained": "A15 (the pretrained registry)",
-    "--partitions": "A16 (distributed)",
-    "--search-workers": "A15 (parallel search)",
+    "rmag --partitions": "A16 (heterogeneous partitions)",
 }
 
 
@@ -110,8 +121,9 @@ def _conv_kwargs(model, heads, bases, aggrs):
 def build_config(dataset, model, *, hidden, heads, bases, aggrs,
                  num_samples, synthetic=True, use_old_code_dataset=False,
                  partitions=0, sampled=False, device_sampler=False,
-                 device=None):
-    """``main.build_config`` for the datasets this port runs."""
+                 device=None, mesh=None):
+    """``main.build_config`` for the datasets this port runs; ``mesh``: the
+    rank's process group, for ``partitions``."""
     if model not in SUPPORTED[dataset]:
         raise UsageError(f"{model!r} not supported for {dataset!r} "
                          f"(supported: {sorted(SUPPORTED[dataset])})")
@@ -123,7 +135,7 @@ def build_config(dataset, model, *, hidden, heads, bases, aggrs,
     if dataset == "rmag":
         # main.py:111-119: REGC heads and bases, no --aggrs
         if partitions:
-            raise _not_ported("--partitions")
+            raise _not_ported("rmag --partitions")
         from egc_tpu_torch.exp.hetero import RMagConfig
         cfg = RMagConfig(hidden, heads=heads or 4, bases=bases or 4,
                          device=device)
@@ -141,12 +153,14 @@ def build_config(dataset, model, *, hidden, heads, bases, aggrs,
                                  use_old_code_dataset=use_old_code_dataset,
                                  **kw)
     elif dataset == "arxiv":
+        kw = dict(heads=heads or 8, bases=bases or 8,
+                  aggrs=tuple(aggrs.split(",")) if aggrs else None,
+                  gat_version=2 if model == "gatv2" else 1, device=device)
         if partitions:
-            raise _not_ported("--partitions")
-        cfg = fullgraph.ArxivConfig(
-            model, hidden, heads=heads or 8, bases=bases or 8,
-            aggrs=tuple(aggrs.split(",")) if aggrs else None,
-            gat_version=2 if model == "gatv2" else 1, device=device)
+            cfg = fullgraph.PartitionedArxivConfig(
+                model, hidden, partitions=partitions, mesh=mesh, **kw)
+        else:
+            cfg = fullgraph.ArxivConfig(model, hidden, **kw)
     else:   # mag
         mag_kw = dict(heads=heads or 8, bases=bases or 4,
                       aggrs=tuple(aggrs.split(",")) if aggrs else
@@ -167,27 +181,80 @@ def dump_invocation_state(exp_dir: Path, argv: Sequence[str]):
     }))
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def _partition_rank(mesh, argv: List[str], pretrained: bool) -> None:
+    """One rank of ``--partitions``: ``main`` on the rank's process group.
+    Only rank 0 prints and writes ``EXP_DIR``; another rank runs quiet in
+    a directory of its own (``EXP_DIR`` itself when it only reads it, for
+    ``--pretrained``)."""
+    import contextlib
+    import os
+    import tempfile
+
+    if mesh.rank == 0:
+        main(argv, mesh=mesh)
+        return
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet), \
+            tempfile.TemporaryDirectory() as scratch:
+        main(argv if pretrained else [scratch] + argv[1:], mesh=mesh)
+
+
+def _start_partitions(a, argv: List[str]) -> None:
+    """``--partitions N``: start N ranks that each run ``main``."""
+    import torch
+
+    from egc_tpu_torch.parallel.mesh import device_count, spawn
+    device = torch.device(a.device or "cuda")
+    if device.type == "cuda" and a.partitions > device_count():
+        raise UsageError(
+            f"--partitions {a.partitions} needs {a.partitions} CUDA cards "
+            f"(one rank a card), {device_count()} visible")
+    spawn(_partition_rank, a.partitions, device=device,
+          args=(argv, a.pretrained))
+
+
+def main(argv: Optional[List[str]] = None, mesh=None) -> None:
+    """``main.main``. ``mesh``: set on each rank that ``--partitions``
+    started."""
     from egc_tpu_torch.exp.runner import check_config, train_final_models
     from egc_tpu_torch.exp.search import run_search
 
     argv = sys.argv[1:] if argv is None else list(argv)
     a = build_parser().parse_args(argv)
-    for flag, on in (("--pretrained", a.pretrained),
-                     ("--search-workers", a.search_workers > 1)):
-        if on:
-            raise _not_ported(flag)
+    config_kw = dict(hidden=a.hidden, heads=a.egc_num_heads,
+                     bases=a.egc_num_bases, aggrs=a.aggrs,
+                     num_samples=a.num_samples, synthetic=a.synthetic,
+                     use_old_code_dataset=a.use_old_code_dataset,
+                     partitions=a.partitions, sampled=a.sampled,
+                     device_sampler=a.device_sampler)
+    if a.partitions and a.dataset == "arxiv" and mesh is None:
+        # a usage error surfaces here, not inside the ranks
+        build_config(a.dataset, a.model, device=a.device,
+                     **{**config_kw, "partitions": 0})
+        _start_partitions(a, argv)
+        return
     exp_directory = Path(a.exp_directory).expanduser()
     exp_directory.mkdir(parents=True, exist_ok=True)
+    config = build_config(a.dataset, a.model, device=a.device, mesh=mesh,
+                          **config_kw)
 
-    config = build_config(a.dataset, a.model, hidden=a.hidden,
-                          heads=a.egc_num_heads, bases=a.egc_num_bases,
-                          aggrs=a.aggrs, num_samples=a.num_samples,
-                          synthetic=a.synthetic,
-                          use_old_code_dataset=a.use_old_code_dataset,
-                          partitions=a.partitions,
-                          sampled=a.sampled,
-                          device_sampler=a.device_sampler, device=a.device)
+    if a.pretrained:
+        # the architecture must be the published one (reference
+        # load_pretrained and its per-config asserts)
+        from egc_tpu_torch.exp.pretrained import validate_pretrained
+        validate_pretrained(a.dataset, a.model, config)
+        pt = exp_directory / "checkpoint.pt"
+        if pt.exists():
+            from egc_tpu_torch.exp.weight_port import restore_pretrained_pt
+            model, state, data = restore_pretrained_pt(config, pt,
+                                                       seed=a.seed_base)
+            print(model)
+            print(config.test(model, state, data))
+            return
+        model, state, _, hp, data = config.restore_trial(exp_directory)
+        print(model)
+        print(hp)
+        print(config.test(model, state, data))
+        return
 
     if a.check:
         res = check_config(config, a.check_epochs)
@@ -202,6 +269,23 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif a.use_default_hparams:
         best_hparams = config.default_hparams()
         print("Using default hyperparams:", best_hparams)
+    elif a.search_workers > 1:
+        # the trials across worker processes (the Ray role)
+        import numpy as np
+        from egc_tpu_torch.exp.parallel_search import run_search_parallel
+        metric = config.trial_metric()
+        candidates = config.search_strategy().generate(
+            config.hyperparams(), np.random.default_rng(a.seed_base))
+        spec = ("egc_tpu_torch.cli", "build_config", (a.dataset, a.model),
+                config_kw)
+        best_hparams = run_search_parallel(
+            spec, candidates, metric_mode=metric.mode,
+            metric_name=metric.name, num_workers=a.search_workers,
+            exp_dir=exp_directory, seed=a.seed_base,
+            worker_device=a.device,
+            resources=config.resource_requirements(),
+            scheduler=config.trial_scheduler())
+        print("Best hparams:", best_hparams)
     else:
         best_hparams = run_search(config, exp_directory, seed=a.seed_base)
         print("Best hparams:", best_hparams)

@@ -25,7 +25,9 @@ classes (or ``load_ogbn_mag_homogeneous``), fixed hyperparameters (an
 empty grid), plateau patience 10, stopper (50, 200), no checkpoint at a
 trial's end. ``SampledMagConfig`` trains the same net on neighbour-sampled
 batches (fanouts (15, 10), batch 512; ``device_sampler`` samples on the
-card) and evaluates on the full graph. The TPU plan knobs (``wide_aggrs``,
+card) and evaluates on the full graph. ``PartitionedArxivConfig`` trains
+arxiv over a process group of ranks, the graph partitioned with a halo
+exchange a layer (``parallel/halo.py``). The TPU plan knobs (``wide_aggrs``,
 PNA's ``bwd_narrow_window_rows``) are layout machinery and are not
 carried over.
 
@@ -42,6 +44,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from egc_tpu_torch.data import synthetic
 from egc_tpu_torch.data.device_sampling import (
@@ -62,6 +65,11 @@ from egc_tpu_torch.nn.conv.pna import avg_log_degree
 from egc_tpu_torch.ops.dispatch import (
     build_kernel_plan, build_kernel_plan_device,
 )
+from egc_tpu_torch.parallel.halo import (
+    DistributedNodeClassifier, partitioned_accuracies, partitioned_eval,
+    partitioned_train_step,
+)
+from egc_tpu_torch.parallel.partition import partition_graph
 from egc_tpu_torch.train.loop import fold_in
 from egc_tpu_torch.train.losses import gather_label_scores
 from egc_tpu_torch.train.metrics import split_accuracies
@@ -347,6 +355,101 @@ class MagConfig(FullGraphConfig):
                      num_features=self._num_features,
                      generator=torch.Generator().manual_seed(seed))
         return net.to(self.device)
+
+
+class PartitionedArxivConfig(ArxivConfig):
+    """Arxiv trained over a process group of ``partitions`` ranks
+    (counterpart of ``egc_tpu.exp.fullgraph.PartitionedArxivConfig``):
+    the nodes partitioned with a halo exchange a layer
+    (``parallel/halo.py``), the hooks of ``ArxivConfig``. Every rank of
+    ``mesh`` builds one, on its own device; the numerics equal the
+    single-device config's (sync-BN, global symnorm weights, summed
+    gradients).
+
+    - ``data``: the whole plan on every rank (BFS cuts, the global symnorm
+      weights), then the rank's own part: its extended graph (with its
+      kernel plan on the card), ``send_idx``, labels and split masks.
+    - ``model``: ``DistributedNodeClassifier`` from the seed on every
+      rank, so the replicas start equal; its state dict is ``ArxivNet``'s.
+    - ``train``: ``partitioned_train_step``, the trial's generator folded
+      with the iteration (and, inside, with the rank).
+    - ``val``: the accuracies over the whole graph.
+    - ``persist_trial``: rank 0 writes, behind a barrier; ``restore_trial``
+      reads the same files on every rank.
+    """
+
+    def __init__(self, *args, partitions: int = 0, mesh=None, **kwargs):
+        if mesh is None:
+            raise ValueError(
+                "PartitionedArxivConfig runs on each rank of a process "
+                "group: start the ranks with parallel.mesh.spawn (the "
+                "CLI's --partitions does)")
+        if partitions and partitions != mesh.world_size:
+            raise ValueError(f"{partitions} partitions on a process group "
+                             f"of {mesh.world_size} ranks")
+        kwargs["device"] = mesh.device
+        super().__init__(*args, **kwargs)
+        self.mesh = mesh
+        self.partitions = mesh.world_size
+        self._num_classes = 40
+        self._e_interior = None
+
+    def data(self, hparams):
+        raw = self.load_full_graph()
+        n, f = raw["x"].shape
+        ew, sw = symnorm_weight(torch.as_tensor(raw["senders"]),
+                                torch.as_tensor(raw["receivers"]), n)
+        plan = partition_graph(raw["senders"], raw["receivers"], n,
+                               self.partitions, method="bfs",
+                               sym_edge_w=ew.numpy(), sym_self_w=sw.numpy())
+        rank, dev = self.mesh.rank, self.device
+        gids = plan.node_gids[rank]
+        own = gids >= 0
+        x_ext = np.zeros((plan.n_ext, f), np.float32)
+        x_ext[:plan.n_local][own] = np.asarray(raw["x"])[gids[own]]
+        kplan = plan.build_kernel_plan(rank) if dev.type == "cuda" else None
+        y = np.zeros(plan.n_local, np.int64)
+        y[own] = np.asarray(raw["y"])[gids[own]]
+        masks = {}
+        for split in ("train", "val", "test"):
+            m = np.zeros(n, bool)
+            m[raw[f"{split}_idx"]] = True
+            masks[split] = torch.from_numpy(m[np.maximum(gids, 0)]
+                                            & own).to(dev)
+        self._num_features, self._num_classes = f, raw["num_classes"]
+        self._e_interior = plan.e_interior
+        return {"plan": plan,
+                "graph": plan.extended_graph(rank, x_ext, kplan).to(dev),
+                "send_idx": torch.from_numpy(plan.send_idx[rank]).to(dev),
+                "y": torch.from_numpy(y).to(dev), "masks": masks,
+                "num_classes": raw["num_classes"], "device": dev}
+
+    def model(self, hparams, *, seed: int = 0):
+        net = DistributedNodeClassifier(
+            self.conv_spec(), self.hidden, num_layers=self.num_layers,
+            dropout=float(hparams.get("dropout", 0.2)),
+            num_features=self._num_features, num_classes=self._num_classes,
+            e_interior=self._e_interior, group=self.mesh.group,
+            generator=torch.Generator().manual_seed(seed))
+        return net.to(self.device)
+
+    def train(self, model, state, data, rng, iteration: int):
+        loss = partitioned_train_step(
+            model, state, data["graph"], data["send_idx"], data["y"],
+            data["masks"]["train"], generator=fold_in(rng, iteration))
+        return state, {"train_loss": float(loss)}
+
+    def val(self, model, state, data):
+        out = partitioned_eval(model, data["graph"], data["send_idx"])
+        return partitioned_accuracies(out, data["y"], data["masks"],
+                                      self.mesh.group)
+
+    def persist_trial(self, ckpt_dir, model, state, plateau, hparams,
+                      extra=None):
+        if self.mesh.rank == 0:
+            super().persist_trial(ckpt_dir, model, state, plateau, hparams,
+                                  extra=extra)
+        dist.barrier(group=self.mesh.group)
 
 
 class SampledMagConfig(MagConfig):

@@ -15,7 +15,8 @@ skip them).
 card, attaches one bipartite kernel plan a relation, built on the host;
 a CPU config runs the plain path. The synthetic set is
 ``synthetic_rmag()``; ``synthetic = False`` reads ``load_ogbn_mag_hetero``.
-The partitioned config (``PartitionedRMagConfig``) is not ported.
+The partitioned config (``PartitionedRMagConfig``) is not ported yet
+(ROADMAP.md A16, heterogeneous partitions).
 """
 
 from __future__ import annotations

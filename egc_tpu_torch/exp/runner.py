@@ -34,6 +34,7 @@ def run_trial(
     max_iterations: Optional[int] = None,
     patience: Optional[int] = None,
     trial_dir: Optional[Path] = None,
+    log_every: int = 1,
     report=None,           # callable(iteration, metrics) -> bool (prune?)
     verbose: bool = True,
     resume: bool = False,  # continue from trial_dir's checkpoint (preemption
@@ -83,7 +84,7 @@ def run_trial(
         row = {"iteration": it, **train_metrics, **val_metrics,
                "lr": plateau.lr, "time_s": time.time() - t0}
         history.append(row)
-        if verbose:
+        if verbose and it % log_every == 0:
             print("  " + " ".join(f"{k}={v:.5g}" for k, v in row.items()))
 
         score = sign * float(val_metrics[metric.name])

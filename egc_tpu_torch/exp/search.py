@@ -6,8 +6,7 @@ AsyncHyperBand pruning for zinc / cifar / mol / code, ``GridSearchStrategy``
 with FIFO for arxiv / mag. The pruner is a successive-halving one (the
 core of AsyncHyperBand); trials run one after another on the config's
 device. Given the same numpy seed, the strategies give the JAX package's
-candidates. Trials across processes (``egc_tpu.exp.parallel_search``) are
-not ported yet (ROADMAP A15).
+candidates. Trials across worker processes are ``exp/parallel_search.py``.
 """
 
 from __future__ import annotations

@@ -46,6 +46,11 @@ behind its per-layer dropout):
   as ``bases_weight`` [in, B*L], the ``comb`` columns taken from (h, b, a)
   to the reference's aggregator-major (h, a*B + b) order
   (``nn.conv.egc.comb_perm``), ``bias``; no BatchNorm.
+- ``restore_pretrained_pt`` (``weight_port.py:507-542``) restores a
+  reference ``checkpoint.pt`` for evaluation: the port's modules carry
+  the reference's names and layouts (the EGConv ``comb`` order, the
+  optimized EGConv's aggregator-major ``comb_weight``), so it is a
+  ``torch.load`` into ``load_state_dict(strict=True)``.
 - rmag (``rmag_state_dict_from_jax``, ``weight_port.py:387-430``):
   ``emb_{t}`` -> ``embs.{t}``; REGConv i's ``bases.kernel`` as
   ``convs.{i}.bases_weight``, ``root_comb_{t}`` -> ``root_combs.{t}``,
@@ -327,3 +332,23 @@ def rmag_state_dict_from_jax(variables: Dict[str, Any], *,
             _linear(sd, f"{tp}rel_lins.{torch_rel_key(rel)}.",
                     p[f"rel_{rel}"], bias=False)
     return _finish(sd)
+
+
+def restore_pretrained_pt(config, pt_path, *, seed: int = 0, data=None):
+    """A reference ``checkpoint.pt`` (a bare state dict, or the trial
+    payload ``{"model": state_dict, ...}``) restored into the config's
+    net for evaluation, the counterpart of the reference's
+    ``load_pretrained`` (``experiments/utils.py:69-79``): the config
+    gives the architecture (checked against the pretrained registry by
+    the caller), the file the weights. Returns ``(model, state, data)``,
+    ``state`` the default hyperparameters' fresh optimizer."""
+    hp = config.default_hparams()
+    if data is None:
+        data = config.data(hp)
+    model = config.model(hp, seed=seed)
+    state = config.init_state(model, hp, data, seed)
+    sd = torch.load(pt_path, map_location=config.device, weights_only=True)
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    model.load_state_dict(sd, strict=True)
+    return model, state, data

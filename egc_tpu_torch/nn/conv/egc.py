@@ -76,8 +76,10 @@ class EGConv(nn.Module):
         return (x @ torch.cat(list(self.bases_weight), dim=1),
                 self.comb_weights(x))
 
-    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
-        H, B, A, L = self.H, self.B, self.A, self.L
+    def bases_and_weights(self, x: torch.Tensor):
+        """``bases_and_comb`` with the weighting applied to the head-mix
+        weights, ``[N, H*B*A]``."""
+        H, B, A = self.H, self.B, self.A
         n = x.shape[0]
         bases, w = self.bases_and_comb(x)
         if self.weighting == "softmax":
@@ -87,7 +89,12 @@ class EGConv(nn.Module):
             w = torch.sigmoid(w)
         elif self.weighting == "hardtanh":
             w = torch.clamp(w, -1.0, 1.0)
-        w2d = w.reshape(n, H * B * A)
+        return bases, w.reshape(n, H * B * A)
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        H, B, A, L = self.H, self.B, self.A, self.L
+        n = x.shape[0]
+        bases, w2d = self.bases_and_weights(x)
 
         sym_ew = sym_sw = None
         if "symnorm" in self.aggrs:

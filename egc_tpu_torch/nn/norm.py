@@ -12,6 +12,14 @@ rather than ``nn.BatchNorm1d``'s:
 Parameter and buffer names are ``BatchNorm1d``'s (weight, bias,
 running_mean, running_var, num_batches_tracked), so reference state dicts
 load as they are.
+
+Sync-BN (``MaskedBatchNorm(axis_name=...)`` of the JAX package,
+``egc_tpu/nn/norm.py:29, 60-63``): with a ``process_group`` set
+(``sync_process_group``), training mode sums ``(s, ssq, n)`` over the
+group's ranks with one differentiable all-reduce, so every rank
+normalises, and updates its running statistics, with the global batch's.
+The all-reduce's backward sums the cotangents over the ranks, as
+``psum``'s transpose does.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ EPS = 1e-5
 class MaskedBatchNorm(nn.Module):
     def __init__(self, num_features: int, *, device=None):
         super().__init__()
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean",
@@ -54,6 +63,12 @@ class MaskedBatchNorm(nn.Module):
                 m = mask.to(torch.float32)[:, None]
                 s, ssq = (xf * m).sum(0), (xf * xf * m).sum(0)
                 n = m.sum()
+            if self.process_group is not None:
+                from egc_tpu_torch.parallel.mesh import all_reduce_sum
+                f = s.shape[0]
+                tot = all_reduce_sum(torch.cat([s, ssq, n.reshape(1)]),
+                                     self.process_group)
+                s, ssq, n = tot[:f], tot[f:2 * f], tot[2 * f]
             n = torch.clamp(n, min=1.0)
             mean = s / n
             var = torch.clamp(ssq / n - mean * mean, min=0.0)
@@ -64,3 +79,12 @@ class MaskedBatchNorm(nn.Module):
                 self.num_batches_tracked.add_(1)
         y = (x.float() - mean) * torch.reciprocal(torch.sqrt(var + EPS))
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def sync_process_group(module: nn.Module, group) -> nn.Module:
+    """Set ``group`` (None: no sync) on every ``MaskedBatchNorm`` in
+    ``module`` (the JAX nets' ``bn_axis``); returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.process_group = group
+    return module

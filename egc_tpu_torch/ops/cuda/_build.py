@@ -9,7 +9,12 @@ header, so a build takes seconds. All sources build at once, one ``nvcc``
 process each, into ``egc_tpu_torch/_build/`` (listed in ``.gitignore``); a
 library's file name carries the hash of its source, the headers and the
 flags, so an edited source or header is rebuilt and an unchanged one is
-reused.
+reused. The staleness check and the compiles run under an exclusive
+``fcntl.flock`` on ``_build/.lock``, so processes that start on a cold
+cache together (search workers, ranks) compile each source once: the
+first builds, the others wait and then find the libraries there. Each
+``.log`` is written by the process that built its library. The operating
+system drops the lock of a process that dies.
 
 Nothing is built when a module is imported: ``library(name)`` builds on
 first use, which is the first launch of a kernel on a CUDA tensor.
@@ -18,6 +23,7 @@ first use, which is the first launch of a kernel on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -61,10 +67,23 @@ def _target(src: Path) -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every stale source in parallel; returns name -> library
     path. Raises with the compiler's output if any build fails. The
-    ``ptxas -v`` report of each build is kept beside it as ``.log``."""
+    ``ptxas -v`` report of each build is kept beside it as ``.log``.
+    Holds ``_build/.lock`` throughout; ``build_seconds`` counts the wait
+    for it too."""
     global build_seconds
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            targets = _compile_stale()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    build_seconds = time.perf_counter() - t0
+    return targets
+
+
+def _compile_stale() -> Dict[str, Path]:
     targets = {src.stem: (src, _target(src))
                for src in sorted(CSRC.glob("*.cu"))}
     procs = {}
@@ -87,7 +106,6 @@ def build_all() -> Dict[str, Path]:
                           + out.with_suffix(".log").read_text())
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    build_seconds = time.perf_counter() - t0
     return {name: out for name, (_, out) in targets.items()}
 
 

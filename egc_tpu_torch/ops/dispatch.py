@@ -45,7 +45,7 @@ from egc_tpu_torch.ops.cuda.gather_reduce import (
     EXTREMA, gather_reduce_bwd, gather_reduce_fwd,
 )
 from egc_tpu_torch.ops.segment import (
-    _var_from_moments, canonical_aggr, multi_aggregate,
+    assemble_aggregators, canonical_aggr, multi_aggregate,
 )
 
 
@@ -281,43 +281,9 @@ def fused_multi_aggregate(
     p = dict(zip(prims, _FusedPrimitives.apply(vals.contiguous(), plan,
                                                prims, ew_f, ew_b, masks)))
 
-    deg = plan.deg[:, None]
-    outs = []
-    for a in aggrs:
-        if a == "sum":
-            out = p["sum"] + vals if include_self else p["sum"]
-        elif a == "mean":
-            if include_self:
-                out = (p["sum"] + vals) / torch.clamp(deg + 1.0, min=1.0)
-            else:
-                out = p["sum"] / torch.clamp(deg, min=1.0)
-        elif a == "symnorm":
-            out = p["wsum"]
-            if symnorm_self_w is not None:
-                out = out + symnorm_self_w[:, None] * vals
-        elif a in ("var", "std"):
-            if include_self:
-                d = torch.clamp(deg + 1.0, min=1.0)
-                m = (p["sum"] + vals) / d
-                msq = (p["sumsq"] + vals * vals) / d
-            else:
-                d = torch.clamp(deg, min=1.0)
-                m = p["sum"] / d
-                msq = p["sumsq"] / d
-            out = _var_from_moments(msq, m)
-            if a == "std":
-                out = torch.sqrt(torch.relu(out) + 1e-5)
-        elif a in ("max", "min"):
-            has = deg > 0
-            ext = p[a]
-            if include_self:
-                pick = torch.maximum if a == "max" else torch.minimum
-                out = pick(torch.where(has, ext, vals), vals)
-            else:
-                out = torch.where(has, ext, torch.zeros_like(ext))
-        else:  # pragma: no cover
-            raise ValueError(a)
-        outs.append(out)
+    p["count"] = plan.deg
+    outs = assemble_aggregators(p, vals, aggrs, include_self=include_self,
+                                symnorm_self_w=symnorm_self_w)
     return torch.stack(outs, dim=1) if stacked else tuple(outs)
 
 

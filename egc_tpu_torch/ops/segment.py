@@ -18,6 +18,7 @@ counterpart of XLA dropping out-of-range segment ids.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -161,6 +162,130 @@ def segment_softmax(logits, segment_ids, num_segments: int, *, mask=None):
     return ex / denom[seg]
 
 
+def prims_needed(aggrs: Sequence[str]) -> tuple:
+    """The edge-level primitives an aggregator list needs
+    (``egc_tpu.ops.segment.prims_needed``)."""
+    needs = {canonical_aggr(a) for a in aggrs}
+    prims = []
+    if needs & {"sum", "mean", "var", "std"}:
+        prims.append("sum")
+    if "symnorm" in needs:
+        prims.append("wsum")
+    if needs & {"var", "std"}:
+        prims.append("sumsq")
+    if needs & {"mean", "max", "min", "var", "std"}:
+        prims.append("count")
+    if "max" in needs:
+        prims.append("max")
+    if "min" in needs:
+        prims.append("min")
+    return tuple(prims)
+
+
+def segment_primitives(src_vals: torch.Tensor, senders: torch.Tensor,
+                       receivers: torch.Tensor, prims: Sequence[str],
+                       num_segments: int, *,
+                       edge_mask: Optional[torch.Tensor] = None,
+                       edge_w: Optional[torch.Tensor] = None) -> dict:
+    """Edge-level primitives of ``src_vals[senders]`` at each receiver, a
+    dict over ``prims`` (sum, wsum with ``edge_w``, sumsq, count, max,
+    min), the layer under ``multi_aggregate``
+    (``egc_tpu.ops.segment.segment_primitives``). Partials over disjoint
+    edge subsets combine exactly (``combine_primitives``): an empty
+    segment's max is -inf and its min +inf until assembly. A masked
+    edge's sender is never read, so it may lie outside ``src_vals``."""
+    s = senders.long()
+    if edge_mask is not None:
+        s = torch.where(edge_mask, s, torch.zeros_like(s))
+    gathered = src_vals[s]
+    ids = _masked_ids(receivers, num_segments, edge_mask)
+    count = None
+    if "count" in prims or "max" in prims or "min" in prims:
+        count = segment_count(receivers, num_segments, mask=edge_mask,
+                              dtype=src_vals.dtype)
+    out = {}
+    for p in prims:
+        if p == "sum":
+            out[p] = _segment_sum_ids(gathered, ids, num_segments)
+        elif p == "wsum":
+            w = edge_w.to(gathered.dtype)[:, None]
+            out[p] = _segment_sum_ids(gathered * w, ids, num_segments)
+        elif p == "sumsq":
+            out[p] = _segment_sum_ids(gathered * gathered, ids,
+                                      num_segments)
+        elif p == "count":
+            out[p] = count
+        elif p in ("max", "min"):
+            sign = 1.0 if p == "max" else -1.0
+            ext = sign * _segment_max_raw(sign * gathered, ids,
+                                          num_segments)
+            out[p] = torch.where(count[:, None] > 0, ext,
+                                 torch.full_like(ext, -sign * math.inf))
+        else:  # pragma: no cover
+            raise ValueError(p)
+    return out
+
+
+def combine_primitives(a: dict, b: dict) -> dict:
+    """Primitives of the union of two disjoint edge subsets: sums and
+    counts add, max / min by max / min."""
+    out = {}
+    for k in a:
+        if k == "max":
+            out[k] = torch.maximum(a[k], b[k])
+        elif k == "min":
+            out[k] = torch.minimum(a[k], b[k])
+        else:
+            out[k] = a[k] + b[k]
+    return out
+
+
+def assemble_aggregators(p: dict, node_vals: torch.Tensor,
+                         aggrs: Sequence[str], *,
+                         include_self: bool = False,
+                         symnorm_self_w: Optional[torch.Tensor] = None
+                         ) -> list:
+    """The A aggregators, each ``[N, F]``, from primitives ``p`` (``count``
+    [N] beside the ``[N, F]`` ones) and the self values ``node_vals``
+    (virtual self-loops), with ``multi_aggregate``'s semantics."""
+    aggrs = [canonical_aggr(a) for a in aggrs]
+    counts = p["count"][:, None] if "count" in p else None
+    outs = []
+    for a in aggrs:
+        if a == "sum":
+            out = p["sum"] + node_vals if include_self else p["sum"]
+        elif a == "mean":
+            if include_self:
+                out = (p["sum"] + node_vals) / torch.clamp(counts + 1.0,
+                                                           min=1.0)
+            else:
+                out = p["sum"] / torch.clamp(counts, min=1.0)
+        elif a in ("max", "min"):
+            has = counts > 0
+            if include_self:
+                pick = torch.maximum if a == "max" else torch.minimum
+                out = pick(torch.where(has, p[a], node_vals), node_vals)
+            else:
+                out = torch.where(has, p[a], torch.zeros_like(p[a]))
+        elif a in ("var", "std"):
+            s, sq = p["sum"], p["sumsq"]
+            if include_self:
+                s = s + node_vals
+                sq = sq + node_vals * node_vals
+                d = torch.clamp(counts + 1.0, min=1.0)
+            else:
+                d = torch.clamp(counts, min=1.0)
+            out = _var_from_moments(sq / d, s / d)
+            if a == "std":
+                out = torch.sqrt(torch.relu(out) + 1e-5)
+        else:  # symnorm
+            out = p["wsum"]
+            if symnorm_self_w is not None:
+                out = out + symnorm_self_w.to(out.dtype)[:, None] * node_vals
+        outs.append(out)
+    return outs
+
+
 def multi_aggregate(
     node_vals: torch.Tensor,              # [N, F]
     senders: torch.Tensor,                # [E]
@@ -175,56 +300,11 @@ def multi_aggregate(
     """Several aggregators over one gather: returns ``[N, A, F]`` in the
     order of ``aggrs`` (``egc_tpu.ops.segment.multi_aggregate``)."""
     aggrs = [canonical_aggr(a) for a in aggrs]
-    n = node_vals.shape[0]
-    gathered = node_vals[senders.long()]
-    ids = _masked_ids(receivers, n, edge_mask)
-    needs = set(aggrs)
-
-    seg_sum = None
-    if needs & {"sum", "mean", "var", "std"}:
-        seg_sum = _segment_sum_ids(gathered, ids, n)
-    counts = None
-    if needs & {"mean", "max", "min", "var", "std"}:
-        counts = segment_count(receivers, n, mask=edge_mask,
-                               dtype=node_vals.dtype)[:, None]
-
-    outs = []
-    for a in aggrs:
-        if a == "sum":
-            out = seg_sum + node_vals if include_self else seg_sum
-        elif a == "mean":
-            if include_self:
-                out = (seg_sum + node_vals) / torch.clamp(counts + 1.0,
-                                                          min=1.0)
-            else:
-                out = seg_sum / torch.clamp(counts, min=1.0)
-        elif a in ("max", "min"):
-            sign = 1.0 if a == "max" else -1.0
-            ext = sign * _segment_max_raw(sign * gathered, ids, n)
-            has = counts > 0
-            if include_self:
-                pick = torch.maximum if a == "max" else torch.minimum
-                out = pick(torch.where(has, ext, node_vals), node_vals)
-            else:
-                out = torch.where(has, ext, torch.zeros_like(node_vals))
-        elif a in ("var", "std"):
-            sq = _segment_sum_ids(gathered * gathered, ids, n)
-            s = seg_sum
-            if include_self:
-                s = s + node_vals
-                sq = sq + node_vals * node_vals
-                d = torch.clamp(counts + 1.0, min=1.0)
-            else:
-                d = torch.clamp(counts, min=1.0)
-            out = _var_from_moments(sq / d, s / d)
-            if a == "std":
-                out = torch.sqrt(torch.relu(out) + 1e-5)
-        else:  # symnorm
-            if symnorm_edge_w is None:
-                raise ValueError("symnorm aggregator requires symnorm_edge_w")
-            w = symnorm_edge_w.to(gathered.dtype)[:, None]
-            out = _segment_sum_ids(gathered * w, ids, n)
-            if symnorm_self_w is not None:
-                out = out + symnorm_self_w.to(out.dtype)[:, None] * node_vals
-        outs.append(out)
-    return torch.stack(outs, dim=1)
+    if "symnorm" in aggrs and symnorm_edge_w is None:
+        raise ValueError("symnorm aggregator requires symnorm_edge_w")
+    p = segment_primitives(node_vals, senders, receivers,
+                           prims_needed(aggrs), node_vals.shape[0],
+                           edge_mask=edge_mask, edge_w=symnorm_edge_w)
+    return torch.stack(assemble_aggregators(
+        p, node_vals, aggrs, include_self=include_self,
+        symnorm_self_w=symnorm_self_w), dim=1)

@@ -1,5 +1,7 @@
 """Observability, determinism and profiling helpers (counterpart of
-``egc_tpu.utils``; its ``torch_pt`` reader is ROADMAP A15)."""
+``egc_tpu.utils``). Its ``torch_pt`` reader has no counterpart: the port
+reads a reference ``checkpoint.pt`` with ``torch.load``
+(``exp.weight_port.restore_pretrained_pt``)."""
 
 from egc_tpu_torch.utils.logging import JSONLLogger, ThroughputMeter  # noqa: F401
 from egc_tpu_torch.utils.debug import (  # noqa: F401

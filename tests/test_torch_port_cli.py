@@ -1,8 +1,9 @@
 """The port's command line, ``python -m egc_tpu_torch`` (``cli.py``),
 against the JAX package's ``main.py``: the same options and defaults,
 ``--check`` of all nine kinds on the CPU and of every other dataset,
-rmag's config, sampled mag's, the final runs' files, and the options
-this port does not run yet."""
+rmag's config, sampled mag's, the final runs' files, ``--pretrained``,
+``--partitions`` and ``--search-workers`` on the CPU, and the one option
+this port does not run yet (``rmag --partitions``)."""
 
 import ast
 import contextlib
@@ -127,15 +128,89 @@ def test_check_runs_each_dataset_on_the_cpu(tmp_path, argv):
 
 @pytest.mark.parametrize("argv,item", [
     (["egc", "rmag", "--partitions", "2"], "A16"),
-    (["gcn", "arxiv", "--pretrained"], "A15"),
-    (["gcn", "arxiv", "--partitions", "4"], "A16"),
-    (["gcn", "arxiv", "--search-workers", "2"], "A15"),
 ])
 def test_out_of_scope_raises_with_its_roadmap_item(tmp_path, argv, item):
     full = [str(tmp_path)] + argv + ["--hidden", "8", "--aggrs", "symnorm",
                                       "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item} "
+                       r"\(heterogeneous partitions\)"):
         cli.main(full)
+
+
+def _pretrained_run(tmp_path, monkeypatch):
+    """A checkpoint.pt of the published gcn arxiv width (h156); the
+    printed model and accuracies are the in-process eval's."""
+    from egc_tpu_torch.exp.fullgraph import ArxivConfig
+    cfg = ArxivConfig("gcn", 156, device="cpu")
+    hp = cfg.default_hparams()
+    data = cfg.data(hp)
+    model = cfg.model(hp, seed=3)
+    torch.save(model.state_dict(), tmp_path / "checkpoint.pt")
+    out = run_cli([str(tmp_path), "gcn", "arxiv", "--hidden", "156",
+                   "--pretrained", "--device", "cpu"])
+    assert "ArxivNet(" in out and "GCNConv(" in out
+    got = ast.literal_eval(out.strip().splitlines()[-1])
+    ref = cfg.test(model, None, data)
+    assert got.keys() == ref.keys()
+    for k in ref:      # two argmax ties may round the other way
+        assert abs(got[k] - ref[k]) <= 2 / 800 + 1e-7, k
+
+
+def _partitions_run(tmp_path, monkeypatch):
+    """Four gloo ranks started by the command: one trial line and one
+    result dict, from rank 0."""
+    res = subprocess.run(
+        [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "gcn",
+         "arxiv", "--hidden", "8", "--partitions", "4", "--check",
+         "--check-epochs", "1", "--device", "cpu"],
+        capture_output=True, text=True, timeout=120,
+        cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.strip().splitlines()
+    assert sum(line.startswith("[arxiv] trial") for line in lines) == 1
+    got = ast.literal_eval(lines[-1])
+    assert set(got) == {"best_val", "best_iter", "test"}
+    assert got["best_iter"] == 0 and 0.0 <= got["best_val"] <= 1.0
+
+
+def _search_workers_run(tmp_path, monkeypatch):
+    """Two workers on the CPU, the grid cut to its first two candidates
+    at two iterations each (and the final run to two): the best printed,
+    ``search_results.json`` with both candidates, the final summary."""
+    from egc_tpu_torch.exp import fullgraph as tfg
+    from egc_tpu_torch.exp import parallel_search as ps
+    real = ps.run_search_parallel
+    seen = {}
+
+    def cut(spec, candidates, **kw):
+        seen.update(spec=spec, workers=kw["num_workers"],
+                    device=kw["worker_device"])
+        return real(spec, candidates[:2], max_iterations=2, **kw)
+
+    monkeypatch.setattr(ps, "run_search_parallel", cut)
+    monkeypatch.setattr(tfg.ArxivConfig, "stoppers",
+                        lambda self: tfg.StopperSpec(80, 2))
+    out = run_cli([str(tmp_path), "gcn", "arxiv", "--hidden", "8",
+                   "--search-workers", "2", "--final-runs", "1",
+                   "--device", "cpu"])
+    assert seen["spec"][:3] == ("egc_tpu_torch.cli", "build_config",
+                                ("arxiv", "gcn"))
+    assert seen["workers"] == 2 and seen["device"] == "cpu"
+    res = json.loads((tmp_path / "search_results.json").read_text())
+    assert len(res["results"]) == 2
+    assert "Best hparams:" in out
+    assert res["best"] in [r["hparams"] for r in res["results"]]
+    assert (tmp_path / "final_summary.json").exists()
+
+
+@pytest.mark.parametrize("run", [_pretrained_run, _partitions_run,
+                                 _search_workers_run],
+                         ids=["pretrained", "partitions", "search_workers"])
+def test_harness_options_run_on_the_cpu(tmp_path, monkeypatch, run):
+    """``--pretrained``, ``--partitions 4`` and ``--search-workers 2`` on
+    arxiv with ``--device cpu``, each checked by what it printed or
+    wrote."""
+    run(tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("flags", [dict(sampled=True),
@@ -162,6 +237,7 @@ def test_sampled_options_build_the_config_of_main(flags):
     (["egc", "arxiv", "--hidden", "8"], "--aggrs is required"),
     (["gcn", "arxiv"], "--hidden is required"),
     (["gcn", "arxiv", "--hidden", "8", "--sampled"], "mag dataset only"),
+    (["gcn", "arxiv", "--partitions", "2"], "--hidden is required"),
 ])
 def test_usage_errors(tmp_path, argv, msg):
     with pytest.raises(cli.UsageError, match=msg):
@@ -178,11 +254,11 @@ def test_the_card_is_the_default(tmp_path, monkeypatch):
 
 def test_module_entry_point_exits_2_on_what_it_cannot_run(tmp_path):
     res = subprocess.run(
-        [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "gcn",
-         "arxiv", "--hidden", "8", "--pretrained", "--device", "cpu"],
+        [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "egc",
+         "rmag", "--hidden", "8", "--partitions", "2", "--device", "cpu"],
         capture_output=True, text=True, timeout=120,
         cwd=pathlib.Path(__file__).resolve().parents[1])
-    assert res.returncode == 2 and "A15" in res.stderr
+    assert res.returncode == 2 and "A16" in res.stderr
 
 
 @pytest.mark.parametrize("opts,want", [
@@ -213,7 +289,8 @@ def test_rmag_options_build_the_config_of_main(opts, want):
 
 
 def test_rmag_partitions_raise_with_a16(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A16"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md item A16 \(heterogeneous"):
         cli.build_config("rmag", "egc", hidden=8, heads=None, bases=None,
                          aggrs=None, num_samples=1, partitions=2,
                          device="cpu")
