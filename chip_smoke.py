@@ -127,7 +127,20 @@ Phases, each of which raises (exit code 1) on any failed check:
    on the card's branches (every ReLU and max holder), 2 warm-up and 10
    timed iterations (each EGC kernel ``RMAG_LAUNCHES`` = 9 times a step,
    just the instantiations held), edges/s, peak memory, an eval pass and
-   the profiler's busy and idle shares. Then the batched EGC-M paths of
+   the profiler's busy and idle shares. Then ``[partitioned_rmag]`` on the
+   same graph: ``PartitionedRMagConfig`` at world size 1 under NCCL (this
+   process joins a one-rank group), its plan build timed in its parts
+   (the BFS over the typed union graph, the per-type cuts and halos, the
+   rank's seven bipartite plans over its ``n_ext`` source and ``n_local``
+   destination rows), kernels 1 and 2 held on each rank plan in rmag's
+   instantiations, 3 dropout-0 steps against the unpartitioned
+   ``RMagConfig`` steps on the card from the same seed (loss rtol 1e-5,
+   gradients relative L2 2e-4: every tensor at the first step, the whole
+   gradient after it; the worst tensor printed), 9 launches of each EGC
+   kernel a step on both, 10 steps of each at dropout 0.5 in turns, both
+   idle shares and their largest device ops, the peak memory with both
+   resident, and ``rmag --partitions 1 --check --check-epochs 2`` on
+   ``synthetic_rmag`` as a subprocess. Then the batched EGC-M paths of
    ``BATCHED_NETS``
    ("zinc_egc" h124 ``add,std,max`` batch 64, "cifar_egc" h128
    ``symadd,std,max`` batch 32 dropout 0.081, "hiv_egc" h224
@@ -184,7 +197,8 @@ and bound for the GAT and GATv2 kernels are per launch on their arxiv
 path (two launches at the first shape and one at the second per step);
 ``wide`` gives times and bound at the code2 widths (a code2 batch fits in
 L2, so its gathered floor is null), ``zoo``, ``paths`` and ``cli`` those
-of each gather-reduce and head-mix instantiation held in phase 3,
+of each gather-reduce and head-mix instantiation held in phase 3
+(``partitioned_rmag`` those of the gather pair on the rank plans),
 ``launches_by_path`` the launches
 of each path's timed steps and ``launches`` their sum. The two
 gather-reduce rows also give the bytes each edge gathers in their floor
@@ -3483,6 +3497,13 @@ PATH_KERNELS.update({
     "search_workers": EGC_KERNELS})
 PATH_GATHER["partitioned"] = PATH_GATHER["main"]
 PATH_HEADMIX["partitioned"] = PATH_HEADMIX["main"]
+# the partitioned rmag path: REGCNet h64 H4 B4 (RMAG_NET) over a process
+# group of one rank on the rmag path's graph, 3 checked steps (dropout 0)
+# beside RMagConfig's on the card, then PART_TIMED steps of each in turns
+# at the default hyperparameters' dropout
+PART_RMAG_DROPOUT = 0.5
+PATH_KERNELS["partitioned_rmag"] = EGC_KERNELS
+RMAG_CLI = CLI_DATASET_RUNS[-1][2]                  # rmag h64 H4 B4
 
 
 def _grads(model) -> dict:
@@ -3513,7 +3534,8 @@ def _device_idle(step, step_s: float, steps: int = 2) -> dict:
     time a step, and its idle share of ``step_s``, the step's time
     measured without the profiler (whose own host work stretches the
     profiled window of a step the host nearly keeps up with; that
-    window is reported beside it)."""
+    window is reported beside it); the 15 largest device ops' ms a
+    step."""
     import torch
     from egc_tpu_torch.utils.profiling import device_op_table, profile_trace
     with profile_trace() as prof:
@@ -3523,11 +3545,13 @@ def _device_idle(step, step_s: float, steps: int = 2) -> dict:
             step()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    busy = sum(v for _, v in device_op_table(prof)) / 1e6
+    ops = device_op_table(prof)
+    busy = sum(v for _, v in ops) / 1e6
     check(busy > 0, "the profiler saw no device time")
     return {"profiled_window_s": window / steps,
             "device_busy_s": busy / steps,
-            "idle_share": 1 - busy / steps / step_s}
+            "idle_share": 1 - busy / steps / step_s,
+            "top_ops_ms": [(k, v / 1e3 / steps) for k, v in ops[:15]]}
 
 
 def _windows(steps: dict, count: int) -> dict:
@@ -3788,6 +3812,241 @@ def phase_partitioned(raw, data) -> dict:
         f"--check-epochs 2: {printed} ({sec:.1f} s); --partitions "
         f"{too_many}: exit 2, '{cli_res['refusal']}' ({bad_s:.1f} s)")
     return res
+
+
+def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
+    """``[partitioned_rmag]``: graph-partitioned heterogeneous ogbn-mag at
+    world size 1 under NCCL (this process joins a one-rank group) on the
+    rmag path's graph (``raw``, ogbn-mag's counts), beside the
+    unpartitioned ``RMagConfig`` (``ucfg``, its card data ``udata``)
+    from the same seed. ``PartitionedRMagConfig``'s hooks: the plan build
+    timed in its parts (the BFS over the typed union graph, the per-type
+    cuts and halos, the rank's seven bipartite plans over ``n_ext``
+    source and ``n_local`` destination rows); kernels 1-4's gather pair
+    held against its plain version on each rank plan in rmag's
+    instantiations (``RMAG_GATHER``: the rank's row counts); the seeded
+    net equal to ``REGCNet``'s (the embeddings gathered); ``PART_STEPS``
+    dropout-0 steps of each against each other (loss rtol
+    ``STEP_LOSS_RTOL``; gradients, the embeddings' gathered, at relative
+    L2 ``PART_GRAD_REL_L2``: every tensor at the first step, from the
+    same weights, the whole gradient after it, where rounding swaps the
+    holders of near-tied maxima; the worst tensor printed), each EGC kernel
+    ``RMAG_LAUNCHES`` times a step on both, in rmag's instantiations;
+    ``PART_TIMED`` steps of each at dropout ``PART_RMAG_DROPOUT`` in
+    turns, the idle share of each over its unprofiled step and the peak
+    memory with both resident; ``python -m egc_tpu_torch ... rmag
+    --partitions 1 --check --check-epochs 2`` on ``synthetic_rmag`` as a
+    subprocess. Returns the phase's results and the kernel entries on
+    the rank plans."""
+    import ast
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from egc_tpu_torch.exp import hetero
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from egc_tpu_torch.parallel import hetero_partition
+    from egc_tpu_torch.parallel.hetero_halo import (
+        gathered_embedding_grads, partitioned_rmag_train_step,
+    )
+    from egc_tpu_torch.parallel.mesh import free_port, init_mesh
+    path = "partitioned_rmag"
+
+    class AtSize(hetero.PartitionedRMagConfig):
+        def load_hetero(self):
+            return raw
+
+    parts_s = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts_s[name] = time.perf_counter() - t
+        return run
+
+    bfs, cut = hetero_partition._bfs_order, hetero.partition_hetero
+    plans = hetero_partition.HeteroPartitionPlan.build_kernel_plans
+    hp0 = {**RMAG_NET["hp"], "dropout": 0.0}
+    res = {}
+    mesh = init_mesh(0, 1, device="cuda",
+                     init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        check(mesh.backend == "nccl" and dist.get_world_size() == 1,
+              f"[{path}] group {mesh}")
+        pcfg = AtSize(RMAG_NET["hidden"], heads=RMAG_NET["heads"],
+                      bases=RMAG_NET["bases"], mesh=mesh)
+        hetero_partition._bfs_order = timed("bfs_s", bfs)
+        hetero.partition_hetero = timed("partition_s", cut)
+        hetero_partition.HeteroPartitionPlan.build_kernel_plans = timed(
+            "rank_plans_s", plans)
+        t0 = time.perf_counter()
+        try:
+            pdata = pcfg.data(hp0)
+        finally:
+            hetero_partition._bfs_order, hetero.partition_hetero = bfs, cut
+            hetero_partition.HeteroPartitionPlan.build_kernel_plans = plans
+        parts_s["data_s"] = time.perf_counter() - t0
+        plan, hg = pdata["plan"], pdata["hetero"]
+        kplans = hg.kernel_plans
+        for key, (s_, _) in raw["edges"].items():
+            src, _, dst = key.split("__")
+            kp = kplans[key]
+            check(kp.num_edges == len(s_)
+                  and kp.num_nodes == plan.types[dst].n_local
+                  and kp.src_rows == plan.types[src].n_ext,
+                  f"[{path}] {key}: plan of {kp.num_edges} edges over "
+                  f"{kp.src_rows} -> {kp.num_nodes} rows")
+        sizes = {t: dict(n_local=tp.n_local, halo=tp.halo, n_ext=tp.n_ext)
+                 for t, tp in plan.types.items()}
+        log(f"[{path}] plan at P = 1: {sizes}; BFS over the typed union "
+            f"graph {parts_s['bfs_s']:.1f} s, partition_hetero (BFS, cuts, "
+            f"halos, relations) {parts_s['partition_s']:.1f} s, the rank's "
+            f"seven plans {parts_s['rank_plans_s']:.1f} s; "
+            f"PartitionedRMagConfig.data {parts_s['data_s']:.1f} s")
+
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        entries = {"gather_reduce_fwd": [], "gather_reduce_bwd": []}
+        for key in sorted(kplans):
+            _gather_entries(kplans[key], {f"{key}/{conv}": inst
+                                          for conv, inst in
+                                          RMAG_GATHER.items()},
+                            gen, out=entries, long_sums=True)
+        torch.cuda.synchronize()
+
+        pm, um = pcfg.model(hp0, seed=0), ucfg.model(hp0, seed=0)
+        full, ref_sd = pm.full_state_dict(), um.state_dict()
+        check(list(full) == list(ref_sd) and all(
+            torch.equal(v, ref_sd[k]) for k, v in full.items()),
+            f"[{path}] the seeded weights differ from REGCNet's")
+        del full, ref_sd
+        popt = pcfg.init_state(pm, hp0, pdata, 0)
+        uopt = ucfg.init_state(um, hp0, udata, 0)
+        rng = pcfg.rng(0)
+
+        def grads(model, tables):
+            out = {n: p.grad.detach().clone()
+                   for n, p in model.named_parameters()
+                   if not n.startswith("embs.")}
+            out.update({f"embs.{t}": v.detach().clone()
+                        for t, v in tables.items()})
+            return out
+
+        reset_launch_counts()
+        ploss, pgrads, pstates = [], [], []
+        with _instantiations() as seen:
+            for it in range(PART_STEPS):
+                _, m = pcfg.train(pm, popt, pdata, rng, it)
+                ploss.append(m["train_loss"])
+                pgrads.append(grads(pm, gathered_embedding_grads(pm)))
+                pstates.append({k: v.clone() for k, v in
+                                pm.full_state_dict().items()})
+        counts = launch_counts()
+        _check_held(path, seen)
+        check(seen["gather"] == {RMAG_GATHER["regc"], RMAG_GATHER["rgcn"]}
+              and seen["headmix"] == set(RMAG_HEADMIX.values()),
+              f"[{path}] launched gather-reduce {sorted(seen['gather'])} "
+              f"and head mix {sorted(seen['headmix'])}")
+        reset_launch_counts()
+        uloss, ugrads, pparams = [], [], []
+        for it in range(PART_STEPS):
+            _, m = ucfg.train(um, uopt, udata, rng, it)
+            uloss.append(m["train_loss"])
+            ugrads.append(grads(um, {t: um.embs[t].grad
+                                     for t in um.featureless_types}))
+            usd = um.state_dict()
+            pparams.append(max((rel_l2(v, usd[k]), k)
+                               for k, v in pstates[it].items()))
+        del pstates
+        ucounts = launch_counts()
+        for name, c in counts.items():
+            want = RMAG_LAUNCHES * PART_STEPS if name in EGC_KERNELS else 0
+            check(c == want == ucounts[name],
+                  f"[{path}] {name} launched {c} times in {PART_STEPS} "
+                  f"steps (unpartitioned {ucounts[name]}), expected {want}")
+        gaps = []
+        for it in range(PART_STEPS):
+            rel_loss = abs(ploss[it] - uloss[it]) / abs(uloss[it])
+            whole, worst = _grad_gap(path, pgrads[it], ugrads[it], r"(?!)")
+            d = (pgrads[it][worst[1]] - ugrads[it][worst[1]]).abs()
+            off = d > 1e-3 * float(ugrads[it][worst[1]].abs().max())
+            gaps.append({"loss": ploss[it], "ref_loss": uloss[it],
+                         "loss_rel": rel_loss, "grad_rel_l2": whole,
+                         "worst": worst, "worst_rows_off": int(
+                             off.reshape(off.shape[0], -1).any(-1).sum()),
+                         "params_rel_l2": pparams[it]})
+        del pgrads, ugrads
+        log(f"[{path}] {PART_STEPS} dropout-0 steps against RMagConfig's on "
+            "the card: " + "; ".join(
+                f"loss {g['loss']:.6f} vs {g['ref_loss']:.6f} (rel "
+                f"{g['loss_rel']:.2e}), gradients {g['grad_rel_l2']:.2e} "
+                f"(worst {g['worst'][0]:.2e} {g['worst'][1]}, "
+                f"{g['worst_rows_off']} rows off by > 1e-3 of its largest "
+                f"entry), parameters after it {g['params_rel_l2'][0]:.2e} "
+                f"at worst ({g['params_rel_l2'][1]})" for g in gaps))
+        for it, g in enumerate(gaps):
+            # the first step starts both nets from the same weights: every
+            # tensor is held. After it their weights differ by rounding,
+            # and a max whose two holders sit within that swaps holders,
+            # moving whole embedding rows' gradients: the whole gradient
+            # is held (``[partitioned]``'s gate), the worst tensor printed
+            check(g["loss_rel"] <= STEP_LOSS_RTOL
+                  and g["grad_rel_l2"] <= PART_GRAD_REL_L2
+                  and (it > 0 or g["worst"][0] <= PART_GRAD_REL_L2),
+                  f"[{path}] step {it}: {g}")
+
+        pm.dropout = um.dropout = PART_RMAG_DROPOUT
+        tgen = torch.Generator(device="cuda").manual_seed(1)
+        steps = {
+            "unpartitioned": lambda: hetero.train_step(um, uopt, udata, tgen),
+            "partitioned": lambda: partitioned_rmag_train_step(
+                pm, popt, hg, pdata["send_idx"], pdata["y"],
+                pdata["masks"]["train"], tgen)}
+        torch.cuda.reset_peak_memory_stats()
+        times = _windows(steps, PART_TIMED)
+        prof = {name: _device_idle(fn, times[name])
+                for name, fn in steps.items()}
+        peak = torch.cuda.max_memory_allocated()
+        res = {"plan": sizes, "plan_seconds": parts_s, "steps": gaps,
+               "launches": counts, "unpartitioned_launches": ucounts,
+               "step_seconds": times, "profile": prof,
+               "peak_memory_bytes": peak, "dropout": PART_RMAG_DROPOUT}
+        log(f"[{path}] step {times['partitioned'] * 1e3:.3f} ms vs "
+            f"unpartitioned {times['unpartitioned'] * 1e3:.3f} ms "
+            f"({PART_TIMED} steps each at dropout {PART_RMAG_DROPOUT}, "
+            f"windows in turns); device busy "
+            f"{prof['partitioned']['device_busy_s'] * 1e3:.3f} vs "
+            f"{prof['unpartitioned']['device_busy_s'] * 1e3:.3f} ms a "
+            f"step, idle share {prof['partitioned']['idle_share']:.3f} vs "
+            f"{prof['unpartitioned']['idle_share']:.3f}; peak "
+            f"{peak / 2**30:.3f} GiB with both resident; launches a step "
+            f"{ {k: v / PART_STEPS for k, v in counts.items() if v} }")
+        for name, p in prof.items():
+            log(f"[{path}] {name} step, device ms by op: " + "; ".join(
+                f"{ms:.3f} {op[:60]}" for op, ms in p["top_ops_ms"]))
+        del pm, um, popt, uopt, pdata, hg, kplans, steps
+    finally:
+        dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "egc_tpu_torch", f"{tmp}/r", "egc",
+                "rmag", *RMAG_CLI, "--partitions", "1", "--check",
+                "--check-epochs", "2"]
+        t0 = time.perf_counter()
+        run = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=300)
+        sec = time.perf_counter() - t0
+    check(run.returncode == 0, f"[{path}] --partitions 1: exit "
+                               f"{run.returncode}\n{run.stderr[-3000:]}")
+    printed = ast.literal_eval(run.stdout.strip().splitlines()[-1])
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in
+              [printed["best_val"], *printed["test"].values()]),
+          f"[{path}] --partitions 1 printed {printed}")
+    res["cli"] = {"printed": printed, "seconds": sec}
+    log(f"[{path}] python -m egc_tpu_torch ... rmag --partitions 1 --check "
+        f"--check-epochs 2: {printed} ({sec:.1f} s)")
+    return res, entries
 
 
 def search_config(dataset: str, model: str, *, record_dir: str,
@@ -4074,8 +4333,12 @@ def main(argv=None) -> int:
     rmag = rmag_data(torch.device("cuda"), paper)
     _attach(rows, {"rmag": kernels_rmag_shapes(rmag[2])})
     results["rmag"] = phase_rmag(*rmag)
-    del rmag, paper
     phases["rmag path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results["partitioned_rmag"], entries = phase_partitioned_rmag(*rmag[:3])
+    _attach(rows, {"partitioned_rmag": entries})
+    del rmag, paper, entries
+    phases["partitioned rmag"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for path, net in BATCHED_NETS.items():
         results[path] = phase_batched_path(path, net)
@@ -4124,8 +4387,9 @@ def main(argv=None) -> int:
             if "zoo" in r else {}),
          **{key: [{k: sh[k] for k in (
              mix_keys if r["name"].startswith("headmix")
-             else bip_keys if key == "rmag" else zoo_keys)}
-             for sh in r[key]] for key in ("paths", "cli", "rmag")
+             else bip_keys if key.endswith("rmag") else zoo_keys)}
+             for sh in r[key]] for key in ("paths", "cli", "rmag",
+                                           "partitioned_rmag")
             if key in r}}
         for r in rows]}))
     print(info["nvidia_smi"])

@@ -24,12 +24,11 @@ and ``--device-sampler``, which samples on the card and implies
   metrics.
 - ``--search-workers N`` (N > 1) runs the search's trials on N spawned
   workers (``exp/parallel_search.py``), each on ``--device``.
-- ``--partitions N`` (arxiv) trains over N ranks that the command starts
-  itself, one a card under NCCL, or N gloo ranks with ``--device cpu``;
-  each rank runs ``main``, and only rank 0 prints and writes
-  ``EXP_DIR``. More ranks than visible cards is a usage error, raised
-  before any rank starts. ``rmag --partitions`` raises, naming its
-  ROADMAP.md item.
+- ``--partitions N`` (arxiv and rmag) trains over N ranks that the
+  command starts itself, one a card under NCCL, or N gloo ranks with
+  ``--device cpu``; each rank runs ``main``, and only rank 0 prints and
+  writes ``EXP_DIR``. More ranks than visible cards is a usage error,
+  raised before any rank starts.
 """
 
 from __future__ import annotations
@@ -58,21 +57,12 @@ SUPPORTED = {
     "rmag": {"egc"},
 }
 
-# where each option this port does not run yet stands in ROADMAP.md's
-# queue A
-NOT_PORTED = {
-    "rmag --partitions": "A16 (heterogeneous partitions)",
-}
+# the datasets that ``--partitions`` partitions (main.py:91-93, 111-116)
+PARTITIONED = ("arxiv", "rmag")
 
 
 class UsageError(ValueError):
     """A command line that cannot run (``click.UsageError``)."""
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to egc_tpu_torch yet: ROADMAP.md item "
-        f"{NOT_PORTED[what]}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,11 +124,13 @@ def build_config(dataset, model, *, hidden, heads, bases, aggrs,
         raise UsageError("--hidden is required")
     if dataset == "rmag":
         # main.py:111-119: REGC heads and bases, no --aggrs
+        from egc_tpu_torch.exp import hetero
+        kw = dict(heads=heads or 4, bases=bases or 4, device=device)
         if partitions:
-            raise _not_ported("rmag --partitions")
-        from egc_tpu_torch.exp.hetero import RMagConfig
-        cfg = RMagConfig(hidden, heads=heads or 4, bases=bases or 4,
-                         device=device)
+            cfg = hetero.PartitionedRMagConfig(
+                hidden, partitions=partitions, mesh=mesh, **kw)
+        else:
+            cfg = hetero.RMagConfig(hidden, **kw)
         cfg.synthetic = synthetic
         cfg._num_samples = num_samples
         return cfg
@@ -226,7 +218,7 @@ def main(argv: Optional[List[str]] = None, mesh=None) -> None:
                      use_old_code_dataset=a.use_old_code_dataset,
                      partitions=a.partitions, sampled=a.sampled,
                      device_sampler=a.device_sampler)
-    if a.partitions and a.dataset == "arxiv" and mesh is None:
+    if a.partitions and a.dataset in PARTITIONED and mesh is None:
         # a usage error surfaces here, not inside the ranks
         build_config(a.dataset, a.model, device=a.device,
                      **{**config_kw, "partitions": 0})
@@ -295,11 +287,11 @@ def main(argv: Optional[List[str]] = None, mesh=None) -> None:
 
 
 def cli() -> int:
-    """``python -m egc_tpu_torch``: a command line this port cannot run
-    exits 2 with its message."""
+    """``python -m egc_tpu_torch``: a command line that cannot run exits 2
+    with its message."""
     try:
         main()
-    except (UsageError, NotImplementedError) as exc:
+    except UsageError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     return 0

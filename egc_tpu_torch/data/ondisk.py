@@ -20,8 +20,10 @@ reference's key, ``experiments/utils.py:20-27``):
   index files; CIFAR10 superpixels as ``CIFAR10/raw/CIFAR10_{train,val,
   test}.pt``.
 
-The CSV parse is numpy only, and the first parse of a file leaves a
-``<file>.npy`` cache beside it. code2's preprocessing is the reference's
+The CSV parse is the port's native parser (``egc_tpu_torch.native``, a
+copy of ``egc_tpu.native``'s: multithreaded, a float32 rounded once from
+the text), and the first parse of a file leaves a ``<file>.npy`` cache
+beside it. code2's preprocessing is the reference's
 (``experiments/code/utils.py``): the top-5000 vocabulary of the train
 targets (+ UNK, + EOS), the AST edge augmentation and the 5-token target.
 """
@@ -32,7 +34,6 @@ import gzip
 import json
 import os
 import pickle
-import warnings
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -40,6 +41,7 @@ import numpy as np
 
 from egc_tpu_torch.graph.hetero import rel_key
 from egc_tpu_torch.graph.transforms import to_undirected_np
+from egc_tpu_torch.native import csv_rows_consistent, parse_csv_bytes
 
 
 def data_location() -> Path:
@@ -47,30 +49,22 @@ def data_location() -> Path:
 
 
 def _parse_csv_bytes(data: bytes, dtype) -> np.ndarray:
-    """Decompressed numeric CSV text -> [rows, cols]; every row must have
-    the first row's number of fields."""
-    text = data.decode().strip()
+    """Decompressed numeric CSV text -> [rows, cols] through the native
+    parser (``egc_tpu_torch.native``): every row must have the first
+    row's number of fields, and every field must be a number."""
+    text = data.strip()
     if not text:
         return np.zeros((0, 1), dtype)
-    lines = text.split("\n")
-    rows, cols = len(lines), lines[0].count(",") + 1
-    if any(line.count(",") != cols - 1 for line in lines):
+    cols = text.split(b"\n", 1)[0].count(b",") + 1
+    rows = csv_rows_consistent(data, cols)
+    if rows < 0:
         raise ValueError(f"CSV rows differ from the first row's {cols} "
                          "fields")
-    del lines
-    # floats parse to f64 and round once to ``dtype``; a field that is not
-    # a number stops the parse short
-    with warnings.catch_warnings():
-        warnings.simplefilter("error", DeprecationWarning)
-        try:
-            flat = np.fromstring(text.replace("\n", ","), sep=",",
-                                 dtype=np.float64
-                                 if np.dtype(dtype).kind == "f" else dtype)
-        except (DeprecationWarning, ValueError):
-            flat = None
-    if flat is None or flat.size != rows * cols:
-        raise ValueError("CSV holds a field that is not a number")
-    return flat.astype(dtype).reshape(rows, cols)
+    flat = parse_csv_bytes(data, dtype)
+    if flat.size != rows * cols:
+        raise ValueError(f"CSV holds {flat.size} fields, not {rows} rows "
+                         f"of {cols}")
+    return flat.reshape(rows, cols)
 
 
 def _read_csv_gz(path: Path, dtype=np.int64) -> np.ndarray:

@@ -15,15 +15,20 @@ skip them).
 card, attaches one bipartite kernel plan a relation, built on the host;
 a CPU config runs the plain path. The synthetic set is
 ``synthetic_rmag()``; ``synthetic = False`` reads ``load_ogbn_mag_hetero``.
-The partitioned config (``PartitionedRMagConfig``) is not ported yet
-(ROADMAP.md A16, heterogeneous partitions).
+``PartitionedRMagConfig`` trains the same net over a process group, every
+node type partitioned with a halo exchange a type a layer
+(``parallel/hetero_halo.py``).
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from egc_tpu_torch.data import synthetic
 from egc_tpu_torch.device import DeviceLike, resolve_device
@@ -35,6 +40,14 @@ from egc_tpu_torch.graph.hetero import (
     attach_hetero_kernel_plans, hetero_from_numpy,
 )
 from egc_tpu_torch.nn.conv.hetero import REGCNet
+from egc_tpu_torch.parallel.halo import partitioned_accuracies
+from egc_tpu_torch.parallel.hetero_halo import (
+    DistributedREGCNet, full_optimizer_state, load_full_optimizer_state,
+    partitioned_rmag_eval, partitioned_rmag_train_step,
+)
+from egc_tpu_torch.parallel.hetero_partition import partition_hetero
+from egc_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from egc_tpu_torch.train.loop import fold_in
 from egc_tpu_torch.train.losses import gather_label_scores
 from egc_tpu_torch.train.metrics import split_accuracies
 from egc_tpu_torch.train.optim import plateau_init
@@ -173,3 +186,133 @@ class RMagConfig(ExperimentConfig):
 
     def test(self, model, state, data):
         return self.val(model, state, data)
+
+
+class PartitionedRMagConfig(RMagConfig):
+    """rmag trained over a process group of ``partitions`` ranks
+    (counterpart of ``egc_tpu.exp.hetero.PartitionedRMagConfig``): every
+    node type partitioned (``parallel/hetero_partition.py``), a halo
+    exchange a type a layer, the hooks of ``RMagConfig``. Every rank of
+    ``mesh`` builds one, on its own device; the numerics equal the
+    single-device config's.
+
+    - ``data``: the whole plan on every rank, then the rank's own part:
+      each type's extended rows (``x_ext``), ``send_idx`` a type, the
+      paper labels and split masks of its owned rows, and on the card its
+      relations' kernel plans (owned destination rows only).
+    - ``model``: ``DistributedREGCNet`` from the seed on every rank, the
+      embeddings the rank's rows of ``REGCNet``'s tables.
+    - ``train``: ``partitioned_rmag_train_step``, the trial's generator
+      folded with the iteration (and, inside, with the rank).
+    - ``val``: the accuracies over the whole graph.
+    - ``persist_trial``: ``REGCNet``'s state dict and its optimizer's (the
+      embeddings and their moments gathered to full tables, on every
+      rank), written by rank 0 behind a barrier; ``restore_trial`` reads
+      the same files on every rank and keeps its rows.
+    """
+
+    def __init__(self, *args, partitions: int = 0, mesh=None, **kwargs):
+        if mesh is None:
+            raise ValueError(
+                "PartitionedRMagConfig runs on each rank of a process "
+                "group: start the ranks with parallel.mesh.spawn (the "
+                "CLI's --partitions does)")
+        if partitions and partitions != mesh.world_size:
+            raise ValueError(f"{partitions} partitions on a process group "
+                             f"of {mesh.world_size} ranks")
+        kwargs["device"] = mesh.device
+        super().__init__(*args, **kwargs)
+        self.mesh = mesh
+        self.partitions = mesh.world_size
+        self._plan = None
+
+    def data(self, hparams):
+        raw = self.load_hetero()
+        hg = hetero_from_numpy(raw["nodes"], raw["edges"])
+        num_nodes = {t: hg.num_nodes(t) for t in hg.node_types}
+        plan = partition_hetero(num_nodes, raw["edges"], self.partitions)
+        rank, dev = self.mesh.rank, self.device
+        x_ext = {}
+        for t in hg.node_types:
+            tp, x = plan.types[t], hg.nodes[t].numpy()
+            x_ext[t] = np.zeros((tp.n_ext,) + x.shape[1:], x.dtype)
+            x_ext[t][:tp.n_local] = tp.rank_rows(x, rank)
+        kplans = plan.build_kernel_plans(rank) if dev.type == "cuda" \
+            else None
+        pp = plan.types["paper"]
+        y = np.zeros(num_nodes["paper"], np.int64)
+        y[:len(raw["y"])] = raw["y"]
+        masks = {}
+        for split in ("train", "val", "test"):
+            m = np.zeros(num_nodes["paper"], bool)
+            m[raw[f"{split}_idx"]] = True
+            masks[split] = torch.from_numpy(pp.rank_rows(m, rank)).to(dev)
+        featureless = tuple(sorted(t for t, x in raw["nodes"].items()
+                                   if x.shape[-1] == 0))
+        in_features = raw["nodes"]["paper"].shape[-1]
+        self._plan = plan
+        self._schema = dict(
+            node_types=hg.node_types, relations=hg.relations,
+            num_nodes=num_nodes, num_classes=raw["num_classes"],
+            in_features=in_features, featureless_types=featureless)
+        return {"plan": plan,
+                "hetero": plan.extended_hetero_graph(rank, x_ext,
+                                                     kplans).to(dev),
+                "send_idx": {t: torch.from_numpy(tp.send_idx[rank]).to(dev)
+                             for t, tp in plan.types.items()},
+                "y": torch.from_numpy(pp.rank_rows(y, rank)).to(dev),
+                "masks": masks, "num_classes": raw["num_classes"],
+                "featureless": featureless, "in_features": in_features,
+                "num_edges": sum(len(s) for s, _ in raw["edges"].values()),
+                "device": dev}
+
+    def model(self, hparams, *, seed: int = 0):
+        """``DistributedREGCNet`` over the last ``data``'s plan (read first
+        if there is none), initialised from ``seed`` on the CPU and moved
+        to the rank's device."""
+        if self._plan is None:
+            self.data(hparams)
+        net = DistributedREGCNet(
+            self.hidden, type_plans=self._plan.types, rank=self.mesh.rank,
+            group=self.mesh.group, num_layers=self.num_layers,
+            dropout=float(hparams.get("dropout", 0.5)),
+            use_egc=self.use_egc, heads=self.heads, bases=self.bases,
+            **self._schema, generator=torch.Generator().manual_seed(seed))
+        return net.to(self.device)
+
+    def train(self, model, state, data, rng, iteration: int):
+        loss = partitioned_rmag_train_step(
+            model, state, data["hetero"], data["send_idx"], data["y"],
+            data["masks"]["train"], generator=fold_in(rng, iteration))
+        return state, {"train_loss": float(loss)}
+
+    def val(self, model, state, data):
+        out = partitioned_rmag_eval(model, data["hetero"], data["send_idx"])
+        return partitioned_accuracies(out, data["y"], data["masks"],
+                                      self.mesh.group)
+
+    def persist_trial(self, ckpt_dir, model, state, plateau, hparams,
+                      extra=None):
+        states = (model.full_state_dict(), full_optimizer_state(model, state))
+        if self.mesh.rank == 0:
+            save_checkpoint(Path(ckpt_dir), model=model, optimizer=state,
+                            plateau=plateau, hparams=hparams, extra=extra,
+                            states=states)
+        dist.barrier(group=self.mesh.group)
+
+    def restore_trial(self, ckpt_dir, data=None, seed: int = 0):
+        meta = json.loads((Path(ckpt_dir) / "checkpoint.json").read_text())
+        hparams = meta.get("hparams", {})
+        if data is None:
+            data = self.data(hparams)
+        model = self.model(hparams, seed=seed)
+        state = self.init_state(model, hparams, data, seed)
+
+        def load_states(model_sd, opt_sd):
+            model.load_full_state_dict(model_sd)
+            load_full_optimizer_state(model, state, opt_sd)
+
+        _, plateau, _ = load_checkpoint(Path(ckpt_dir), model=model,
+                                        optimizer=state,
+                                        load_states=load_states)
+        return model, state, plateau, hparams, data

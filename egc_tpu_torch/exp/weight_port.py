@@ -57,6 +57,10 @@ behind its per-layer dropout):
   ``rel_comb_{key}`` -> ``rel_combs.{src_rel_dst}``; RGCNConv's
   ``root_{t}`` -> ``root_lins.{t}`` and ``rel_{key}`` -> ``rel_lins.
   {src_rel_dst}`` (no bias), the final one after the REGConvs.
+  ``partitioned_rmag_state_dict_from_jax`` takes JAX's partitioned state
+  (its ``params`` and ``batch_stats["emb"]``, each embedding's stacked
+  ``[P, n_local, F]`` rows), gathers each table through the plan, and
+  applies the same rules.
 """
 
 from __future__ import annotations
@@ -332,6 +336,26 @@ def rmag_state_dict_from_jax(variables: Dict[str, Any], *,
             _linear(sd, f"{tp}rel_lins.{torch_rel_key(rel)}.",
                     p[f"rel_{rel}"], bias=False)
     return _finish(sd)
+
+
+def partitioned_rmag_state_dict_from_jax(
+        params: Dict[str, Any], emb: Dict[str, Any], type_plans, *,
+        relations, node_types, featureless_types=(),
+        model_kind: str = "egc") -> "OrderedDict[str, torch.Tensor]":
+    """JAX's partitioned rmag state -> the port's ``REGCNet`` state dict:
+    ``params`` (the replicated conv and head parameters) and ``emb`` (its
+    ``batch_stats["emb"]``: each featureless type's stacked ``[P, n_local,
+    F]`` rows), each table gathered to its ``[N_t, F]`` rows through its
+    type's plan (``type_plans[t].gather``), then
+    ``rmag_state_dict_from_jax``. A ``DistributedREGCNet`` takes its
+    rows of it with ``load_full_state_dict``."""
+    full = dict(params)
+    for t in featureless_types:
+        tp = type_plans[t]
+        full[f"emb_{t}"] = tp.gather(np.asarray(emb[t]), len(tp.owner))
+    return rmag_state_dict_from_jax(
+        {"params": full}, relations=relations, node_types=node_types,
+        featureless_types=featureless_types, model_kind=model_kind)
 
 
 def restore_pretrained_pt(config, pt_path, *, seed: int = 0, data=None):

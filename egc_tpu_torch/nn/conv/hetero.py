@@ -26,6 +26,9 @@ with ``strict=True``.
 Per relation, ``_rel_multi_aggregate`` runs ``ops.dispatch.
 bipartite_multi_aggregate`` over the relation's kernel plan on a CUDA
 tensor (no plan: it raises), and the masked segment ops on a CPU tensor.
+A partition's plan covers its owned destination rows only
+(``parallel/hetero_partition.py``): the output is zero-padded to the
+extended rows, whose values the next halo refresh replaces.
 
 A conv computes only the output types it is asked for (``out_types``);
 ``REGCNet`` asks each layer for the types the target's output reads,
@@ -69,7 +72,7 @@ def _rel_multi_aggregate(hg: HeteroGraph, key: str, x_src: torch.Tensor,
         raise RuntimeError(
             f"relation {key!r} on a CUDA tensor needs a kernel plan "
             "(graph.hetero.attach_hetero_kernel_plans)")
-    return bipartite_multi_aggregate(x_src, plan, aggrs)
+    return bipartite_multi_aggregate(x_src, plan, aggrs, num_dst=n_dst)
 
 
 def _out_types(x_dict, out_types) -> List[str]:

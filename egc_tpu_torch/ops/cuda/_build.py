@@ -22,6 +22,7 @@ first use, which is the first launch of a kernel on a CUDA tensor.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -72,15 +73,23 @@ def build_all() -> Dict[str, Path]:
     for it too."""
     global build_seconds
     t0 = time.perf_counter()
+    with build_lock():
+        targets = _compile_stale()
+    build_seconds = time.perf_counter() - t0
+    return targets
+
+
+@contextlib.contextmanager
+def build_lock():
+    """Hold the exclusive ``fcntl.flock`` on ``_build/.lock`` (every native
+    build of the package runs under it)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            targets = _compile_stale()
+            yield
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    build_seconds = time.perf_counter() - t0
-    return targets
 
 
 def _compile_stale() -> Dict[str, Path]:

@@ -291,18 +291,29 @@ BIPARTITE_AGGRS = ("sum", "mean", "max", "min")
 
 
 def bipartite_multi_aggregate(x_src: torch.Tensor, plan: KernelPlan,
-                              aggrs: Sequence[str]) -> torch.Tensor:
+                              aggrs: Sequence[str],
+                              num_dst: Optional[int] = None) -> torch.Tensor:
     """Per-relation aggregation of ``x_src [num_src, F]`` into the plan's
     destination rows: ``[num_dst, A, F]`` for sum / mean / max / min (an
     empty destination row gives 0), through the kernels' autograd function
     (the max / min masks asked for when ``x_src`` needs a gradient), as
-    ``egc_tpu.ops.dispatch.bipartite_multi_aggregate``."""
+    ``egc_tpu.ops.dispatch.bipartite_multi_aggregate``. ``num_dst`` past
+    the plan's rows (a partition's extended rows, whose plan covers the
+    owned rows only) zero-pads the output to it, as
+    ``egc_tpu/nn/conv/hetero.py:39-44`` does."""
     aggrs = tuple(canonical_aggr(a) for a in aggrs)
     bad = set(aggrs) - set(BIPARTITE_AGGRS)
     if bad:
         raise ValueError(f"bipartite aggregation does not support "
                          f"{sorted(bad)}")
-    return fused_multi_aggregate(x_src, plan, aggrs)
+    out = fused_multi_aggregate(x_src, plan, aggrs)
+    if num_dst is None or num_dst == plan.num_nodes:
+        return out
+    if num_dst < plan.num_nodes:
+        raise ValueError(f"num_dst {num_dst} is below the plan's "
+                         f"{plan.num_nodes} destination rows")
+    return torch.cat([out, out.new_zeros((num_dst - plan.num_nodes,)
+                                         + out.shape[1:])])
 
 
 def conv_aggregate(g, x, aggrs, *, include_self: bool = False,

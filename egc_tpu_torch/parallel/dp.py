@@ -38,13 +38,15 @@ def microbatch_iter(loader: Iterable, world_size: int,
             group = []
 
 
-def all_reduce_gradients(model: torch.nn.Module, loss_sum: torch.Tensor,
-                         count: torch.Tensor, group=None) -> torch.Tensor:
-    """After ``loss_sum.backward()`` on each rank: sum every parameter's
-    gradient, the loss sum and ``count`` over the group in one
+def all_reduce_gradients(params, loss_sum: torch.Tensor,
+                         count: torch.Tensor, group=None):
+    """After ``loss_sum.backward()`` on each rank: sum the gradients of
+    ``params`` (in the same order on every rank; a missing gradient counts
+    as zeros), the loss sum and ``count`` over the group in one
     all-reduce, and set each gradient to the sum over the global count
-    (at least 1). Returns the global mean loss (a device scalar)."""
-    params = list(model.parameters())
+    (at least 1). Returns the global mean loss and the global count, both
+    device scalars."""
+    params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads]
@@ -56,7 +58,7 @@ def all_reduce_gradients(model: torch.nn.Module, loss_sum: torch.Tensor,
     for p, g in zip(params, grads):
         p.grad = (flat[offset:offset + g.numel()] / c).view_as(p)
         offset += g.numel()
-    return flat[-2] / c
+    return flat[-2] / c, c
 
 
 def rank_generator(generator: Optional[torch.Generator], group=None
@@ -83,7 +85,7 @@ def make_dp_train_step(model: torch.nn.Module, loss_sum_fn: Callable,
         out = model(graph, generator=rank_generator(generator, group))
         s, c = loss_sum_fn(out, y, graph)
         s.backward()
-        loss = all_reduce_gradients(model, s, c, group)
+        loss, _ = all_reduce_gradients(model.parameters(), s, c, group)
         optimizer.step()
         return loss
 

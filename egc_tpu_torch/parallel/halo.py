@@ -186,7 +186,8 @@ def partitioned_train_step(model: DistributedNodeClassifier,
     m = train_mask.to(out.dtype)
     s_local = (-gather_label_scores(out[:n_local], labels) * m).sum()
     s_local.backward()
-    loss = all_reduce_gradients(model, s_local, m.sum(), model.group)
+    loss, _ = all_reduce_gradients(model.parameters(), s_local, m.sum(),
+                                   model.group)
     optimizer.step()
     return loss
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -25,11 +25,16 @@ def save_checkpoint(ckpt_dir, *, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     plateau: Optional[PlateauState] = None,
                     hparams: Optional[Dict[str, Any]] = None,
-                    extra: Optional[Dict[str, Any]] = None) -> Path:
+                    extra: Optional[Dict[str, Any]] = None,
+                    states: Optional[Tuple[dict, dict]] = None) -> Path:
+    """``states``: the (model, optimizer) state dicts to write in place of
+    their own ``state_dict()`` (a partitioned net's, gathered to the
+    single-device layout)."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / "checkpoint.pt"
-    torch.save({"model": model.state_dict(), "opt": optimizer.state_dict(),
+    model_sd, opt_sd = states or (model.state_dict(), optimizer.state_dict())
+    torch.save({"model": model_sd, "opt": opt_sd,
                 "step": optimizer_step(optimizer)}, path)
     meta = {
         "hparams": hparams or {},
@@ -41,17 +46,24 @@ def save_checkpoint(ckpt_dir, *, model: torch.nn.Module,
 
 
 def load_checkpoint(ckpt_dir, *, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer
+                    optimizer: torch.optim.Optimizer,
+                    load_states: Optional[Callable[[dict, dict], None]]
+                    = None
                     ) -> Tuple[int, Optional[PlateauState], Dict[str, Any]]:
     """Load a trial directory into ``model`` (strictly) and ``optimizer``;
     returns ``(step, plateau, hparams)``. The optimizer's learning rate
-    follows the restored plateau."""
+    follows the restored plateau. ``load_states(model_sd, opt_sd)`` loads
+    the two state dicts in place of their own ``load_state_dict`` (a
+    partitioned net takes its rows of the gathered ones)."""
     ckpt_dir = Path(ckpt_dir)
     dev = next(model.parameters()).device
     raw = torch.load(ckpt_dir / "checkpoint.pt", map_location=dev,
                      weights_only=True)
-    model.load_state_dict(raw["model"], strict=True)
-    optimizer.load_state_dict(raw["opt"])
+    if load_states is None:
+        model.load_state_dict(raw["model"], strict=True)
+        optimizer.load_state_dict(raw["opt"])
+    else:
+        load_states(raw["model"], raw["opt"])
     meta = json.loads((ckpt_dir / "checkpoint.json").read_text())
     plateau = None
     if meta.get("plateau") is not None:

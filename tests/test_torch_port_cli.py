@@ -2,8 +2,8 @@
 against the JAX package's ``main.py``: the same options and defaults,
 ``--check`` of all nine kinds on the CPU and of every other dataset,
 rmag's config, sampled mag's, the final runs' files, ``--pretrained``,
-``--partitions`` and ``--search-workers`` on the CPU, and the one option
-this port does not run yet (``rmag --partitions``)."""
+``--partitions`` (arxiv and rmag) and ``--search-workers`` on the CPU,
+and the exit code of a usage error."""
 
 import ast
 import contextlib
@@ -129,12 +129,22 @@ def test_check_runs_each_dataset_on_the_cpu(tmp_path, argv):
 @pytest.mark.parametrize("argv,item", [
     (["egc", "rmag", "--partitions", "2"], "A16"),
 ])
-def test_out_of_scope_raises_with_its_roadmap_item(tmp_path, argv, item):
-    full = [str(tmp_path)] + argv + ["--hidden", "8", "--aggrs", "symnorm",
-                                      "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item} "
-                       r"\(heterogeneous partitions\)"):
-        cli.main(full)
+def test_out_of_scope_raises_with_its_roadmap_item(tmp_path, capfd, argv,
+                                                   item):
+    """What ROADMAP.md ``item`` ported runs: ``rmag --partitions 2 --check
+    --check-epochs 1 --device cpu`` (2 gloo ranks the command spawns)
+    prints one result, the dict ``main.py`` prints, from rank 0."""
+    full = [str(tmp_path)] + argv + ["--hidden", "8", "--check",
+                                      "--check-epochs", "1", "--device",
+                                      "cpu"]
+    cli.main(full)
+    lines = capfd.readouterr().out.strip().splitlines()
+    assert sum(line.startswith("{'best_val'") for line in lines) == 1
+    res = ast.literal_eval(lines[-1])
+    assert set(res) == {"best_val", "best_iter", "test"}
+    assert res["best_iter"] == 0
+    assert all(0.0 <= v <= 1.0 for v in [res["best_val"],
+                                         *res["test"].values()])
 
 
 def _pretrained_run(tmp_path, monkeypatch):
@@ -253,12 +263,17 @@ def test_the_card_is_the_default(tmp_path, monkeypatch):
 
 
 def test_module_entry_point_exits_2_on_what_it_cannot_run(tmp_path):
+    """A usage error (``rmag --sampled``: sampling is mag's) exits 2 with
+    its message, before any training."""
     res = subprocess.run(
         [sys.executable, "-m", "egc_tpu_torch", str(tmp_path), "egc",
-         "rmag", "--hidden", "8", "--partitions", "2", "--device", "cpu"],
+         "rmag", "--hidden", "8", "--sampled", "--device", "cpu"],
         capture_output=True, text=True, timeout=120,
         cwd=pathlib.Path(__file__).resolve().parents[1])
-    assert res.returncode == 2 and "A16" in res.stderr
+    assert res.returncode == 2
+    assert "error: --sampled/--device-sampler apply to the mag dataset " \
+        "only" in res.stderr
+    assert "[rmag]" not in res.stdout
 
 
 @pytest.mark.parametrize("opts,want", [
@@ -289,11 +304,28 @@ def test_rmag_options_build_the_config_of_main(opts, want):
 
 
 def test_rmag_partitions_raise_with_a16(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md item A16 \(heterogeneous"):
-        cli.build_config("rmag", "egc", hidden=8, heads=None, bases=None,
-                         aggrs=None, num_samples=1, partitions=2,
-                         device="cpu")
+    """``rmag --partitions 2`` builds the ``PartitionedRMagConfig`` that
+    ``main.build_config`` builds: hidden, heads (4), bases (4), the
+    partition count, the synthetic flag and the sample count, on the
+    rank's process group (here a two-rank ``Mesh`` that joins none);
+    without one it raises."""
+    from egc_tpu_torch.parallel.mesh import Mesh
+    kw = dict(hidden=8, heads=None, bases=None, num_samples=1,
+              partitions=2)
+    ref = jmain.build_config("rmag", "egc", aggrs="mean,max", **kw)
+    got = cli.build_config("rmag", "egc", aggrs=None, device="cpu",
+                           mesh=Mesh(0, 2, torch.device("cpu"), "gloo"),
+                           **kw)
+    assert type(got).__name__ == type(ref).__name__ == \
+        "PartitionedRMagConfig"
+    assert (got.hidden, got.heads, got.bases, got.use_egc,
+            got.partitions) == (ref.hidden, ref.heads, ref.bases,
+                                ref.use_egc, ref.partitions) == \
+        (8, 4, 4, True, 2)
+    assert (got.synthetic, got._num_samples) == \
+        (ref.synthetic, ref._num_samples)
+    with pytest.raises(ValueError, match="process group"):
+        cli.build_config("rmag", "egc", aggrs=None, device="cpu", **kw)
 
 
 def test_rmag_check_runs_on_the_cpu(tmp_path):

@@ -2,7 +2,9 @@
 files, written here in each dataset's layout (``tests/test_ondisk.py``'s
 files, plus ogbn-mag's paper graph and ogbg-code2): every array equal,
 dtypes included. Each reader gets its own copy of the files, so neither
-reads the other's ``.npy`` parse cache."""
+reads the other's ``.npy`` parse cache. The port's native CSV parse
+(``egc_tpu_torch.native``) against ``egc_tpu.native``'s on generated CSV
+text: bit for bit."""
 
 import gzip
 import pickle
@@ -11,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from egc_tpu import native as jnative
 from egc_tpu.data import ondisk as jod
 
+from egc_tpu_torch import native as tnative
 from egc_tpu_torch.data import ondisk as tod
 
 
@@ -236,3 +240,79 @@ def test_readers_take_dataset_loc(tmp_path, monkeypatch):
                             (tod.load_cifar10_superpixels, "CIFAR10")):
         with pytest.raises(FileNotFoundError, match=missing):
             reader()
+
+
+# ---------------------------------------------------------------------------
+# the native CSV parse
+# ---------------------------------------------------------------------------
+
+def _csv_text(kind, seed, crlf=False):
+    """(text, dtype) of a generated CSV: int64 ids and counts of both
+    signs, or float32 features with 9 significant digits, exponents and
+    signs (``%.9g`` of values from 1e-12 to 1e12)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = int(rng.integers(1, 400)), int(rng.integers(1, 9))
+    if kind == "int64":
+        vals = rng.integers(-2 ** 62, 2 ** 62, size=(rows, cols))
+        vals[:, 0] = rng.integers(-5, 5, rows)
+        lines = [",".join(str(v) for v in row) for row in vals]
+    else:
+        vals = rng.normal(size=(rows, cols)) * 10.0 ** rng.integers(
+            -12, 12, size=(rows, cols))
+        lines = [",".join(f"{v:.9g}" for v in row) for row in vals]
+    eol = "\r\n" if crlf else "\n"
+    return (eol.join(lines) + eol).encode(), np.dtype(kind)
+
+
+@pytest.mark.parametrize("crlf", [False, True], ids=["lf", "crlf"])
+@pytest.mark.parametrize("kind", ["int64", "float32"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_native_parse_equals_jax_bitwise(kind, seed, crlf):
+    """``_parse_csv_bytes`` through the port's parser equals
+    ``egc_tpu.native.parse_csv_bytes`` (and the JAX reader's parse) bit
+    for bit, with the same row counts."""
+    data, dtype = _csv_text(kind, seed, crlf)
+    cols = data.split(b"\n", 1)[0].count(b",") + 1
+    got = tod._parse_csv_bytes(data, dtype)
+    ref = jnative.parse_csv_bytes(data, dtype)
+    assert ref is not None, "egc_tpu.native could not build"
+    assert got.dtype == ref.dtype == dtype
+    assert tnative.csv_rows_consistent(data, cols) == \
+        jnative.csv_rows_consistent(data, cols) == got.shape[0]
+    np.testing.assert_array_equal(got.view(np.uint8).reshape(-1),
+                                  ref.view(np.uint8))
+    np.testing.assert_array_equal(got, jod._parse_csv_bytes(data, dtype))
+
+
+def test_native_float32_rounds_once():
+    """A float32 is rounded once from the text: just above the midpoint
+    of 1 and its successor rounds up, where a parse through float64 lands
+    on the midpoint and rounds to even (1.0)."""
+    data = b"1.000000059604644775390626,1\n"
+    got = tod._parse_csv_bytes(data, np.float32)
+    up = np.nextafter(np.float32(1), np.float32(2))
+    assert got[0, 0] == up == jnative.parse_csv_bytes(data, np.float32)[0]
+    assert np.float32(float(data.split(b",")[0])) == 1.0
+
+
+@pytest.mark.parametrize("data", [b"1,2\n3\n", b"1,2\n3,4,5\n",
+                                  b"1,2\r\n3,4\r\n5\r\n",
+                                  b"1,2\n3 4,5\n"])
+def test_native_ragged_rows(data):
+    """A row of another field count: both packages' row check returns -1,
+    and the port's reader raises."""
+    assert tnative.csv_rows_consistent(data, 2) == -1
+    assert jnative.csv_rows_consistent(data, 2) == -1
+    with pytest.raises(ValueError, match="rows differ"):
+        tod._parse_csv_bytes(data, np.int64)
+
+
+@pytest.mark.parametrize("data,dtype", [
+    (b"1,abc\n2,3\n", np.int64), (b"1.5,2\n", np.int64),
+    (b"0.5,x1\n", np.float32), (b"1e,2\n", np.float64),
+    (b"+1,2\n", np.int64)])
+def test_native_rejects_what_is_not_a_number(data, dtype):
+    """A field that is not a whole number of the type raises (JAX's parser
+    reads it as 0 or a prefix)."""
+    with pytest.raises(ValueError, match="not a"):
+        tod._parse_csv_bytes(data, dtype)
