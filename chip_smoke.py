@@ -56,7 +56,16 @@ Phases, each of which raises (exit code 1) on any failed check:
    instantiation that only a CLI run of phase 5 launches (``CLI_GATHER``,
    ``CLI_HEADMIX``: on a hiv batch, a code2 batch and the arxiv graph;
    the attention shapes ``CLI_GAT_SHAPES``, ``CLI_GATV2_SHAPES`` on the
-   small graph). What phase 3 held is recorded (``HELD``): every timed
+   small graph). The launches of ``[gat_wide]``'s rows past one launch
+   (``attention.sweeps``): GAT (2, 250), (1, 250), (1, 375), GATv2 (2,
+   250), (1, 250) and the ``gatv2w_*`` kernels at (1, 750), each on the
+   arxiv graph (values, the backward kernels, two launches bitwise, timed
+   with bound and floor), on the small graph with gradients through the
+   autograd functions and the convs (the wide kernels also at (2, 600)
+   and (1, 1100), whose slots spill to shared memory), and the rows (3,
+   250) and (1, 750) through the convs over their sweeps; the compiled
+   wide rule against ``wide_shape_ok``. What phase 3 held is recorded
+   (``HELD``): every timed
    path and CLI run fails on a gather-reduce (F, primitives, masks; the
    forward without masks counted held with the masked one), head mix
    (H, B, A, L) or attention (H, C) that it launched and phase 3 did not
@@ -65,7 +74,16 @@ Phases, each of which raises (exit code 1) on any failed check:
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
    0.0087876, wd 0.001), the attention nets' last layer single-head, 3
-   layers each. One dropout-0 step on the card is held against the same
+   layers each; then ``[gat_wide]``: GAT and GATv2 h750 H3 (``WIDE_NETS``,
+   DGL's ogbn-arxiv GAT widths: rows (3, 250) and (1, 750), past one
+   kernel launch) the same way, their card step held on a graph of 1/8
+   the nodes against the CPU step on the card's branches
+   (``_same_branches``), their launches a step by kernel
+   (``_wide_launches``), the idle share, ``--check --check-epochs 2`` of
+   both through the CLI, and the conv route on the card
+   (``check_attention_routes``: 33 heads launch no attention kernel, 32
+   heads the three GAT kernels, both held against the CPU). One dropout-0 step
+   on the card is held against the same
    step of the port on the CPU (loss and every gradient); then 2 warm-up
    and 10 timed dropout-0.2 steps with the launch counters reset just
    before and read just after: each kernel of the path launches 3 times
@@ -136,7 +154,11 @@ Phases, each of which raises (exit code 1) on any failed check:
    instantiations, 3 dropout-0 steps against the unpartitioned
    ``RMagConfig`` steps on the card from the same seed (loss rtol 1e-5,
    gradients relative L2 2e-4: every tensor at the first step, the whole
-   gradient after it; the worst tensor printed), 9 launches of each EGC
+   gradient after it; after it, each step's max holders and ReLU branches
+   recorded in global ids (``_holders``), every embedding row off must be
+   one whose max holders changed, whose ReLU flipped or that feeds a
+   flipped row, and with those rows left out every tensor is held at
+   2e-4), 9 launches of each EGC
    kernel a step on both, 10 steps of each at dropout 0.5 in turns, both
    idle shares and their largest device ops, the peak memory with both
    resident, and ``rmag --partitions 1 --check --check-epochs 2`` on
@@ -383,10 +405,14 @@ TRIAL_ITERS = 12
 GATHER = ("gather_reduce_fwd", "gather_reduce_bwd")
 EGC_KERNELS = ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
                "headmix_bwd")
+GATV2W_KERNELS = ("gatv2w_fwd", "gatv2w_bwd_t", "gatv2w_bwd_f")
 PATH_KERNELS = {
     "main": EGC_KERNELS,
     "gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
     "gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
+    "gat_wide": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
+    "gatv2_wide": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f")
+    + GATV2W_KERNELS,
     "code_gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
     "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
     **{path: GATHER for path in ZOO_NETS},
@@ -398,7 +424,8 @@ PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
                "mag": 2, **{path: 2 for path in SAMPLED_PATHS},
                **{path: 4 for path in BATCHED_NETS},
                "rmag": RMAG_LAUNCHES}
-#   launches of each path kernel per step
+#   launches of each path kernel per step (the wide paths: by kernel,
+#   ``_wide_launches``)
 CLI_KERNELS = {"gat": PATH_KERNELS["gat"], "gatv2": PATH_KERNELS["gatv2"],
                "egc": PATH_KERNELS["main"]}   # the others: GATHER
 # then ``--check --check-epochs 2`` of every SUPPORTED (dataset, kind) of
@@ -449,6 +476,22 @@ CLI_GATHER = {
 CLI_HEADMIX = {"arxiv": {"egc": (4, 4, 3, 34)},
                "code": {"egc": (4, 4, 3, 75)}}
 CLI_GAT_SHAPES = ((8, 30), (1, 240))
+# ``[gat_wide]``: GAT and GATv2 ArxivNet at the widths of DGL's ogbn-arxiv
+# GAT example (examples/pytorch/ogb/ogbn-arxiv/gat.py: 3 heads of 250
+# channels, 3 layers; ``main.py EXP gat arxiv --hidden 750
+# --egc-num-heads 3``), ArxivConfig's lr 0.01 and wd 5e-4: layers (3, 250)
+# twice, then the single-head (1, 750), rows past one launch. Their sweeps
+# (``attention.sweeps``): (3, 250) as (2, 250) + (1, 250); GAT's (1, 750)
+# as 2 x (1, 375), GATv2's as one ``gatv2w_*`` launch
+WIDE_NETS = {"gat_wide": dict(kind="gat", hidden=750, heads=3),
+             "gatv2_wide": dict(kind="gatv2", hidden=750, heads=3)}
+WIDE_ROWS = ((3, 250), (1, 750))
+WIDE_CLI = ["--hidden", "750", "--egc-num-heads", "3"]
+# the wide kernels also at a head whose slots spill past the registers
+# (C > 768) and at two heads, on the small graph
+WIDE_SMALL_SHAPES = ((1, 750), (2, 600), (1, 1100))
+# the narrow launches of those sweeps, GAT's and GATv2's
+WIDE_SWEEP_SHAPES = ((2, 250), (1, 250), (1, 375))
 CLI_GATV2_SHAPES = ((8, 13), (1, 104), (8, 23), (1, 184))
 # what phase 3 held against the plain versions: gather-reduce (F,
 # primitives, masks; the forward without masks, as an eval launches it,
@@ -1468,10 +1511,10 @@ def _gat_kernel_errs(kernel_args, label, empty=None, silent=None) -> dict:
         ref = ref if isinstance(ref, tuple) else (ref,)
         check(all(bool(torch.isfinite(t).all()) for t in got),
               f"{name}[{label}]: non-finite output")
-        if name == "gatv2_bwd_f":
+        if name in ("gatv2_bwd_f", "gatv2w_bwd_f"):
             r = rel_l2(got[1], ref[1])
             check(r <= GRAD_REL_L2, f"{name}[{label}] d_att rel L2 {r}")
-            errs["gatv2_bwd_f d_att rel L2"] = r
+            errs[f"{name} d_att rel L2"] = r
             got, ref = got[:1], ref[:1]
         errs[name] = max(_close(f"{name}[{label}] out {i}", a, b)
                          for i, (a, b) in enumerate(zip(got, ref)))
@@ -1670,7 +1713,7 @@ def _small_attention_graph(dev):
     groups = {32 // at.edge_geometry(h, c)[0]
               for h, c in GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES
               + CLI_GAT_SHAPES + GATV2_SMALL_SHAPES + GATV2_SHAPES
-              + CODE_GATV2_SHAPES + CLI_GATV2_SHAPES}
+              + CODE_GATV2_SHAPES + CLI_GATV2_SHAPES + WIDE_SWEEP_SHAPES}
     near = sorted({k for g in groups for k in (g - 1, g + 1) if k > 0})
     check(len(near) <= 10, f"small graph: {near} needs more nodes")
     few_out = [(0, 70), (1, 100), (2, 150)] + few
@@ -1919,6 +1962,246 @@ def kernels_gatv2_small(dev) -> None:
         f"{len(shapes)} shapes")
 
 
+def _as_wide(kernel_dict: dict) -> dict:
+    """A GATv2 dict keyed by the narrow kernels' names, keyed by the wide
+    kernels' (``gatv2_fwd`` -> ``gatv2w_fwd``)."""
+    return {k.replace("gatv2", "gatv2w"): v for k, v in kernel_dict.items()}
+
+
+def _wide_sweeps(v2: bool) -> list:
+    """The distinct launches of ``WIDE_ROWS``' sweeps: (H, C, wide)."""
+    from egc_tpu_torch.ops.cuda import attention as at
+    return sorted({(sw.heads, sw.channels, sw.wide) for hc in WIDE_ROWS
+                   for sw in at.sweeps(*hc, v2=v2)})
+
+
+def kernels_wide_shapes(data) -> tuple:
+    """``[gat_wide]``'s kernels against their plain versions on the arxiv
+    graph, at the launches its sweeps make: GAT (2, 250), (1, 250) and
+    (1, 375); GATv2 (2, 250), (1, 250), and ``gatv2w_*`` at (1, 750):
+    values, the backward kernels (the gradients), two launches bitwise,
+    timed with their bound and gathered floor. The compiled wide rule
+    against ``wide_shape_ok``. Returns (the narrow kernels' entries by
+    name, the rows' ``wide``; the wide kernels' entries by name)."""
+    import torch
+    from egc_tpu_torch.ops.cuda import attention as at
+
+    probe = [(h, c) for h in (0, 1, 2, 3, 32, 33)
+             for c in (0, 1, 512, 513, 750, at.WIDE_MAX_CHANNELS,
+                       at.WIDE_MAX_CHANNELS + 1)]
+    bad = [hc for hc in probe
+           if at.kernel_wide_shape_ok(*hc) != at.wide_shape_ok(*hc)]
+    check(not bad, f"the wide kernels' rule differs from wide_shape_ok at "
+                   f"{bad}")
+    g = data["graph"]
+    plan, dev = g.kernel_plan, data["device"]
+    n, e = plan.num_nodes, plan.num_edges
+    gen = torch.Generator(device=dev).manual_seed(17)
+    narrow, wide = {}, {}
+    for v2 in (False, True):
+        shapes = _wide_sweeps(v2)
+        check({(h, c) for h, c, w in shapes if not w}
+              == set(WIDE_SWEEP_SHAPES) - ({(1, 375)} if v2 else set()),
+              f"the sweeps of {WIDE_ROWS}: {shapes}")
+        for heads, c, is_wide in shapes:
+            label = f"{'GATv2' if v2 else 'GAT'} arxiv H{heads} C{c}"
+            ins = (_gatv2_inputs if v2 else _gat_inputs)(n, heads, c, gen,
+                                                         dev)
+            kargs = (_gatv2_kernel_args if v2 else _gat_kernel_args)(plan,
+                                                                     ins)
+            cost = (_gatv2_cost if v2 else _gat_cost)(n, e, heads, heads * c)
+            if is_wide:
+                kargs, cost = _as_wide(kargs), _as_wide(cost)
+            errs = _gat_kernel_errs(kargs, label)
+            _check_repeat_bitwise(kargs, label)
+            for name, entry in _shape_entries(kargs, cost, errs, n, e, heads,
+                                              c).items():
+                entry["path"] = "gatv2_wide" if v2 else "gat_wide"
+                if f"{name} d_att rel L2" in errs:
+                    entry["d_att_rel_l2"] = errs[f"{name} d_att rel L2"]
+                (wide if is_wide else narrow).setdefault(name, []).append(
+                    entry)
+                log(f"[kernels] {name} {label}: {entry['ms']:.4f} ms "
+                    f"(plain {entry['plain_ms']:.4f}, bound "
+                    f"{entry['bound_ms']:.4f} by {entry['bound_by']}, "
+                    f"floor {entry['floor_ms']:.4f}), max abs err "
+                    f"{entry['max_abs_err']:.3e}")
+            del ins, kargs
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return narrow, wide
+
+
+def _wide_kernel_rows(wide: dict) -> list:
+    """Kernel rows of the three ``gatv2w_*`` kernels: per-launch figures
+    at (1, 750), their one launch a step on ``gatv2_wide``."""
+    replaces = {"gatv2w_fwd": "egc_tpu/ops/pallas/attention.py:1267",
+                "gatv2w_bwd_t": "egc_tpu/ops/pallas/attention.py:752",
+                "gatv2w_bwd_f": "egc_tpu/ops/pallas/attention.py:1191"}
+    rows = []
+    for name, shapes in wide.items():
+        sh = shapes[0]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="egc_tpu_torch/csrc/gatv2_attention_wide.cu",
+            replaces=replaces[name], max_abs_err=sh["max_abs_err"],
+            ms=sh["ms"], plain_ms=sh["plain_ms"], bound_ms=sh["bound_ms"],
+            bound_by=sh["bound_by"], floor_ms=sh["floor_ms"],
+            library_ms=None,
+            library_note="no single PyTorch call computes the GATv2 edge "
+                         "softmax or its gradient", per_shape=shapes))
+    return rows
+
+
+def kernels_wide_small(dev) -> None:
+    """``[gat_wide]``'s launches on the small graph (empty receivers,
+    silent senders, hubs, 1-3-edge rows): each narrow sweep shape and the
+    wide kernels at ``WIDE_SMALL_SHAPES`` against their plain versions,
+    with gradients through the autograd functions and the whole convs;
+    then the rows ``WIDE_ROWS`` through the convs, their sweeps composed
+    (``attention.run_sweeps``). ``HELD`` gains all of them."""
+    import torch
+    g, empty, silent = _small_attention_graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for v2 in (False, True):
+        fam = "gatv2" if v2 else "gat"
+        inputs = _gatv2_inputs if v2 else _gat_inputs
+        kargs = _gatv2_kernel_args if v2 else _gat_kernel_args
+        autograd = _check_gatv2_autograd if v2 else _check_gat_autograd
+        shapes = [(h, c, False) for h, c, w in _wide_sweeps(v2) if not w]
+        if v2:
+            shapes += [(h, c, True) for h, c in WIDE_SMALL_SHAPES]
+        for heads, c, is_wide in shapes:
+            ins = inputs(g.num_nodes, heads, c, gen, dev)
+            label = f"small {fam} H{heads} C{c}"
+            args = kargs(g.kernel_plan, ins)
+            args = _as_wide(args) if is_wide else args
+            _gat_kernel_errs(args, label, empty, silent)
+            _check_repeat_bitwise(args, label)
+            worst = autograd(g, ins, heads, c, gen, label)
+            HELD[fam].add((heads, c))
+            log(f"[kernels] {label}: held; autograd and conv grads worst "
+                f"rel L2 {worst:.3e}")
+        for heads, c in WIDE_ROWS:
+            ins = inputs(g.num_nodes, heads, c, gen, dev)
+            worst = autograd(g, ins, heads, c, gen,
+                             f"small {fam} row H{heads} C{c}")
+            HELD[fam].add((heads, c))
+            log(f"[kernels] small {fam} row H{heads} C{c} over its sweeps "
+                f"(gat_attention / gatv2_attention and the conv): worst "
+                f"grad rel L2 {worst:.3e}")
+    torch.cuda.synchronize()
+
+
+def check_attention_routes(dev) -> dict:
+    """The convs' route on the card (``nn.conv.attention._attention_route``)
+    on the small graph, by the launch counters: a GATConv with 33 heads
+    launches no attention kernel, one with 32 heads each of ``gat_fwd``,
+    ``gat_bwd_t`` and ``gat_bwd_f`` once; the output and gradients of
+    both match the same conv's on the CPU."""
+    import copy
+    import torch
+    from egc_tpu_torch.nn.conv.attention import GATConv
+    from egc_tpu_torch.ops.cuda import attention as at
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    g, _, _ = _small_attention_graph(dev)
+    g_cpu = g.to("cpu")
+    gen = torch.Generator().manual_seed(19)
+    res = {}
+    for heads in (33, 32):
+        conv = GATConv(40, 8, heads=heads, generator=gen, device=dev)
+        with torch.no_grad():
+            conv.bias.normal_(
+                generator=torch.Generator(device=dev).manual_seed(1))
+        x = torch.randn(g.num_nodes, 40, generator=gen)
+        proj = torch.randn(g.num_nodes, heads * 8, generator=gen)
+        want = {k: int(heads <= at.MAX_HEADS and k.startswith("gat_"))
+                for k in at.launches}
+        outs = {}
+        for where, module, graph in (
+                ("cuda", conv, g), ("cpu", copy.deepcopy(conv).cpu(), g_cpu)):
+            xx = x.to(where).requires_grad_(True)
+            reset_launch_counts()
+            out = module(graph, xx)
+            (out * proj.to(where)).sum().backward()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                launched = {k: counts[k] for k in at.launches}
+                check(launched == want, f"[routes] GATConv H{heads} launched "
+                                        f"{launched}, expected {want}")
+            outs[where] = (out.detach().cpu(), [xx.grad.cpu()] + [
+                p.grad.cpu() for p in module.parameters()])
+        err = _close(f"[routes] GATConv H{heads} card vs CPU",
+                     outs["cuda"][0], outs["cpu"][0])
+        worst = max(rel_l2(a, b) for a, b in zip(outs["cuda"][1],
+                                                 outs["cpu"][1]))
+        check(worst <= GRAD_REL_L2,
+              f"[routes] GATConv H{heads} grads rel L2 {worst}")
+        res[f"h{heads}"] = {"launched": launched, "max_abs_err": err,
+                            "grad_rel_l2": worst}
+        log(f"[routes] GATConv H{heads}: launched "
+            f"{ {k: v for k, v in launched.items() if v} }, card vs CPU "
+            f"max abs err {err:.3e}, grads rel L2 {worst:.3e}")
+    return res
+
+
+def phase_gat_wide(raw, data) -> dict:
+    """``[gat_wide]``: GAT and GATv2 ArxivNet h750 H3 (``WIDE_NETS``) on
+    the arxiv graph through ``phase_path``, their card step held against
+    the CPU step on a graph of 1/8 the nodes at the same average degree
+    (at full size the CPU segment path holds [E, 750] floats, 7.1 GB a
+    tensor) on the card step's branches (``_same_branches``), 2 warm-up
+    and 10 timed steps with the launch counters (``_wide_launches``), the
+    idle share; ``--check --check-epochs 2`` of both at h750 H3 through
+    the command line in process; the route checks
+    (``check_attention_routes``)."""
+    import ast
+    import tempfile
+    import torch
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    small = synthetic_full_graph(num_nodes=NUM_NODES // 8, avg_degree=14,
+                                 num_features=128, num_classes=40, seed=0)
+    checked = (small, full_graph_to_device_dict(small),
+               full_graph_to_device_dict(small, "cpu"))
+    log(f"[gat_wide] step checks on a graph of 1/8 the nodes "
+        f"({small['x'].shape[0]} nodes, {len(small['senders'])} edges); "
+        f"the timed steps at full size; launches a step "
+        f"{ {p: _wide_launches(p) for p in WIDE_NETS} }")
+    res = {}
+    for path, net in WIDE_NETS.items():
+        res[path] = phase_path(path, raw, data, None, net, checked=checked,
+                               same_branches=True, idle=True)
+        torch.cuda.empty_cache()
+    del checked
+    res["cli"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, net in WIDE_NETS.items():
+            kind = net["kind"]
+            reset_launch_counts()
+            lines, sec = _run_cli([f"{tmp}/{kind}", kind, "arxiv", *WIDE_CLI,
+                                   "--check", "--check-epochs", "2"])
+            counts = launch_counts()
+            printed = ast.literal_eval(lines[-1])
+            check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in
+                      [printed["best_val"], *printed["test"].values()]),
+                  f"[gat_wide] cli {kind}: metrics {printed}")
+            for name, c in counts.items():
+                check(c > 0 if name in PATH_KERNELS[path] else c == 0,
+                      f"[gat_wide] cli {kind}: {name} launched {c} times")
+            res["cli"][kind] = {"printed": printed, "launches": counts,
+                                "seconds": sec}
+            log(f"[gat_wide] python -m egc_tpu_torch ... {kind} arxiv "
+                f"{' '.join(WIDE_CLI)} --check --check-epochs 2: {printed}; "
+                f"launches { {k: v for k, v in counts.items() if v} } "
+                f"({sec:.1f} s)")
+    res["routes"] = check_attention_routes(data["device"])
+    return res
+
+
 def code_batch(dev):
     """The first train batch of the code2 paths' loader (its kernel plan
     built on the host, as on the path): 14,256 node rows, ~9 k edges."""
@@ -1978,6 +2261,7 @@ def kernels_code_shapes(g) -> dict:
                     heads, c, gathered=False).items():
                 if name == "gatv2_bwd_f":
                     entry["d_att_rel_l2"] = errs["gatv2_bwd_f d_att rel L2"]
+                entry["path"] = "code2"
                 wide.setdefault(name, []).append(entry)
             log(f"[kernels] {label}: held on {n} rows, {e} edges; autograd "
                 f"and conv grads vs the plain path: worst rel L2 "
@@ -2144,15 +2428,42 @@ def _check_path_instantiation(path: str, seen: dict) -> None:
           f"{PATH_GATHER[path]} and {PATH_HEADMIX[path]}")
 
 
+def _wide_launches(path: str) -> dict:
+    """Launches of each attention kernel a step of a ``WIDE_NETS`` path:
+    its rows' sweeps (``attention.sweeps``), two layers at (3, 250) and
+    one at (1, 750)."""
+    from egc_tpu_torch.ops.cuda import attention as at
+    v2 = WIDE_NETS[path]["kind"] == "gatv2"
+    out = {}
+    for (heads, c), layers in zip(WIDE_ROWS, (2, 1)):
+        for sw in at.sweeps(heads, c, v2=v2):
+            prefix = ("gatv2w" if sw.wide else "gatv2") if v2 else "gat"
+            for k in ("fwd", "bwd_t", "bwd_f"):
+                out[f"{prefix}_{k}"] = out.get(f"{prefix}_{k}", 0) + layers
+    return out
+
+
+def _per_step(path: str, name: str) -> int:
+    """Launches of kernel ``name`` a step of ``path``."""
+    if path in WIDE_NETS:
+        return _wide_launches(path).get(name, 0)
+    return PATH_LAYERS[path] if name in PATH_KERNELS[path] else 0
+
+
 def phase_path(path: str, raw, data, d_cpu, net: dict,
-               checked=None) -> dict:
+               checked=None, same_branches: bool = False,
+               idle: bool = False) -> dict:
     """One path ("main": EGC-M, "gat": GAT h152 H8, "gatv2": GATv2 h112
-    H8, or a conv-zoo path of ``ZOO_NETS``) through ``train_full_graph``
-    with the net arguments ``net``. ``checked``: ``(raw, data, d_cpu)`` of
-    the graph the card step is held against the CPU step on, when not the
-    path's own."""
+    H8, a conv-zoo path of ``ZOO_NETS`` or a ``WIDE_NETS`` path) through
+    ``train_full_graph`` with the net arguments ``net``. ``checked``:
+    ``(raw, data, d_cpu)`` of the graph the card step is held against the
+    CPU step on, when not the path's own. ``same_branches``: the
+    gradients are held against a CPU step that replays the card step's
+    branch at every ReLU and leaky_relu (``_same_branches``; the plain CPU
+    step's gap printed beside it). ``idle``: the device's busy time and
+    idle share over two more steps (``_device_idle``)."""
     import torch
-    from egc_tpu_torch.exp.fullgraph import train_full_graph
+    from egc_tpu_torch.exp.fullgraph import train_full_graph, train_step
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     # one dropout-0 step on the card vs the same step of the port on the
@@ -2162,9 +2473,12 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
     if path == "mpnn_max":    # the premise of its message biases' ZERO_GRAD
         deg = c_data["graph"].kernel_plan.deg[:c_raw["x"].shape[0]]
         check(bool((deg > 0).all()), f"[{path}] a real node without in-edges")
+    cpu_branches, branches = {}, {}
     t0 = time.perf_counter()
-    cpu = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_cpu,
-                           device="cpu", **net)
+    with _same_branches(cpu_branches, replay=False) if same_branches \
+            else contextlib.nullcontext():
+        cpu = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_cpu,
+                               device="cpu", **net)
     cpu_s = time.perf_counter() - t0
     g = c_cpu["graph"]
     noise = torch.randn(g.nodes.shape,
@@ -2173,9 +2487,28 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
         c_raw, steps=1, dropout=0.0, device="cpu",
         data={**c_cpu, "graph": g.replace(nodes=g.nodes * (1 + 1e-7 * noise))},
         **net)
-    gpu = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_data, **net)
+    with _same_branches(branches, replay=False) if same_branches \
+            else contextlib.nullcontext():
+        gpu = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_data,
+                               **net)
+    same, flips = None, None
+    if same_branches:
+        with _same_branches(branches, replay=True):
+            rep = train_full_graph(c_raw, steps=1, dropout=0.0, data=c_cpu,
+                                   device="cpu", **net)
+        same = (rep.losses[0], rep.model)
+        # by layer: (edge leaky_relu, self leaky_relu, ReLU)
+        flips = [int((a != b).sum()) for a, b in zip(branches["kinks"],
+                                                     cpu_branches["kinks"])]
+        log(f"[{path}] kinks where the card step and the CPU step take "
+            f"other branches, by layer (edges, self, ReLU): "
+            f"{[flips[i:i + 3] for i in range(0, len(flips), 3)]} of "
+            f"{[int(m.numel()) for m in branches['kinks'][:3]]}")
+        del rep
     step_cmp = _step_vs_cpu(path, gpu.losses[0], gpu.model, cpu.losses[0],
-                            cpu.model, [pert.model], cpu_s)
+                            cpu.model, [pert.model], cpu_s, same=same)
+    if flips is not None:
+        step_cmp["branches_apart"] = flips
     step_cmp["graph_nodes"] = c_raw["x"].shape[0]
     step_cmp["graph_edges"] = c_data["num_edges"]
     del cpu, gpu, pert
@@ -2196,8 +2529,7 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
               f"[{path}] gather-reduce launched as {sorted(seen['gather'])}, "
               f"the kernel rows hold {PATH_GATHER[path]}")
     for name, c in counts.items():
-        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
-            else 0
+        want = _per_step(path, name) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
     check(all(math.isfinite(x) for x in run.losses), "non-finite loss")
@@ -2220,6 +2552,15 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
         f"{res['edges_per_s'] / 1e6:.3f} M edges/s, peak memory "
         f"{peak / 2**30:.3f} GiB, launches {counts}")
     res["profile"] = _profile(run, data, path)
+    if idle:
+        gen = torch.Generator(device=data["device"]).manual_seed(2)
+        res["idle"] = _device_idle(
+            lambda: train_step(run.model, run.optimizer, data, gen), step_s)
+        log(f"[{path}] device busy {res['idle']['device_busy_s'] * 1e3:.3f} "
+            f"ms a step, idle share {res['idle']['idle_share']:.3f}; "
+            f"largest device ops (ms a step): " + "; ".join(
+                f"{ms:.3f} {op[:50]}"
+                for op, ms in res["idle"]["top_ops_ms"][:8]))
     return res
 
 
@@ -2233,10 +2574,31 @@ def _profile(run, data, path) -> str:
         for _ in range(2):
             train_step(run.model, run.optimizer, data, gen)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=25)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="cuda_time_total", row_limit=25)
     log(f"[profile] {path}, two steps:\n" + table)
+    glue = _attention_glue(averages, 2)
+    if glue:
+        log(f"[profile] {path}: device ms a step of the attention autograd "
+            f"Functions (kernels = their own time, the ctypes launches; "
+            f"around = their aten ops: input and g_o copies, the sweeps' "
+            f"column slices, output scatters and zero fills): {glue}")
     return table
+
+
+def _attention_glue(averages, steps: int) -> dict:
+    """By attention autograd Function (``_GATAttention``, its backward,
+    the GATv2 pair), device ms a step: ``kernels``, its self time (the
+    ctypes launches, which the profiler puts on the enclosing op), and
+    ``around``, the rest of its total (the aten ops it runs)."""
+    def dev(evt, key):
+        return (getattr(evt, key.replace("cuda", "device"), None)
+                or getattr(evt, key, 0.0)) / 1e3 / steps
+    return {evt.key: {"kernels": round(dev(evt, "self_cuda_time_total"), 3),
+                      "around": round(dev(evt, "cuda_time_total")
+                                      - dev(evt, "self_cuda_time_total"), 3)}
+            for evt in averages if evt.key.startswith(("_GATAttention",
+                                                       "_GATv2Attention"))}
 
 
 def _batched_noise_steps(cfg, hp) -> list:
@@ -2292,7 +2654,7 @@ def _same_branches(masks: dict, replay: bool):
         return m
 
     def recording(forward, sums):
-        def fwd(self, g, x):
+        def fwd(self, g, x, **kw):
             def project(xx):
                 out = type(self).project(self, xx)
                 s, r = g.senders.long(), g.receivers.long()
@@ -2300,7 +2662,7 @@ def _same_branches(masks: dict, replay: bool):
                 return out
             self.project = project
             try:
-                return forward(self, g, x)
+                return forward(self, g, x, **kw)
             finally:
                 del self.project
         return fwd
@@ -3814,6 +4176,118 @@ def phase_partitioned(raw, data) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _holders(gids: dict, sizes: dict, relu_types: list):
+    """Records, in global ids, what a REGCNet step's branches select:
+    ``log["holders"][key]``, for each relation out of a featureless type
+    that REGConv maxes over, the least and the greatest global source id
+    among the edges holding each (destination, column) max (two ``[N_dst,
+    F]`` int32, -1 where no edge holds one: they differ where the max is
+    tied), and ``log["relu"][t]``, the ReLU branch of each
+    type's first-layer output (``[N_t, F]`` bool; ``relu_types``: the
+    types in the order the net applies it). ``gids``: type -> a rank's
+    global id of each local or extended row (-1 for a pad), or None for
+    the unpartitioned graph; ``sizes``: type -> its global row count."""
+    import torch
+    from egc_tpu_torch.graph.hetero import split_rel_key
+    from egc_tpu_torch.nn.conv import hetero
+    saved = (hetero._rel_multi_aggregate, torch.relu)
+    log = {"holders": {}, "relu": {}}
+    relus = iter(relu_types)
+    featureless = set(RMAG_TYPES) - {"paper"}
+
+    def glob(t, idx):
+        return idx if gids is None else gids[t][idx]
+
+    def record_rel(hg, key, x_src, n_dst, aggrs):
+        out = saved[0](hg, key, x_src, n_dst, aggrs)
+        src, _, dst = split_rel_key(key)
+        if "max" not in aggrs or src not in featureless:
+            return out
+        a = list(aggrs).index("max")
+        f = out.shape[-1]
+        big = torch.iinfo(torch.int64).max
+        least = torch.full((sizes[dst], f), big, dtype=torch.int64,
+                           device=out.device)
+        most = torch.full_like(least, -1)
+        s_all, r_all = hg.senders[key].long(), hg.receivers[key].long()
+        valid_all = hg.edge_mask[key]
+        for lo in range(0, s_all.shape[0], 1 << 21):
+            s, r = s_all[lo:lo + (1 << 21)], r_all[lo:lo + (1 << 21)]
+            valid = valid_all[lo:lo + (1 << 21)]
+            held = (x_src[s] == out[r, a]) & valid[:, None]
+            gs, gr = glob(src, s), glob(dst, r)
+            keep = valid & (gr >= 0) & (gr < sizes[dst])
+            rows = gr[keep][:, None].expand(-1, f)
+            held, gs = held[keep], gs[keep][:, None]
+            least.scatter_reduce_(0, rows, torch.where(held, gs, big),
+                                  "amin")
+            most.scatter_reduce_(0, rows, torch.where(held, gs, -1), "amax")
+        log["holders"][key] = (
+            torch.where(least == big, -1, least).to(torch.int32).cpu(),
+            most.to(torch.int32).cpu())
+        return out
+
+    def relu(t):
+        ntype = next(relus)
+        branch = t > 0
+        if gids is None:
+            log["relu"][ntype] = branch[:sizes[ntype]].cpu()
+        else:
+            rows = gids[ntype][:t.shape[0]]
+            full = torch.zeros(sizes[ntype], t.shape[1], dtype=torch.bool,
+                               device=t.device)
+            ok = rows >= 0
+            full[rows[ok]] = branch[ok]
+            log["relu"][ntype] = full.cpu()
+        return saved[1](t)
+
+    hetero._rel_multi_aggregate, torch.relu = record_rel, relu
+    try:
+        yield log
+    finally:
+        hetero._rel_multi_aggregate, torch.relu = saved
+
+
+def _swapped_rows(plog: dict, ulog: dict, hg) -> tuple:
+    """By featureless type: the global rows whose max holders differ
+    between the two steps' logs (``_holders``; the old and the new least
+    and greatest holder of every (destination, column) where either
+    changed), the rows whose own ReLU branch differs, and the rows that
+    send a relation's edge into a row whose ReLU branch differs
+    (``hg``: the unpartitioned graph, global ids); and the count of
+    changed maxima and of tied ones (the least holder not the
+    greatest)."""
+    import torch
+    from egc_tpu_torch.graph.hetero import split_rel_key
+    swapped, flipped, feeding, pairs, ties = {}, {}, {}, 0, 0
+    for key, (p_lo, p_hi) in plog["holders"].items():
+        u_lo, u_hi = ulog["holders"][key]
+        diff = (p_lo != u_lo) | (p_hi != u_hi)
+        pairs += int(diff.sum())
+        ties += int((p_lo != p_hi).sum() + (u_lo != u_hi).sum())
+        ids = torch.cat([p_lo[diff], p_hi[diff], u_lo[diff], u_hi[diff]])
+        src = split_rel_key(key)[0]
+        swapped[src] = swapped.get(src, set()) | set(
+            ids[ids >= 0].tolist())
+    for t, mp in plog["relu"].items():
+        flipped[t] = set(torch.nonzero(
+            (mp != ulog["relu"][t]).any(-1)).flatten().tolist())
+    featureless = set(RMAG_TYPES) - {"paper"}
+    for key in hg.senders:
+        src, _, dst = split_rel_key(key)
+        if src not in featureless or not flipped.get(dst):
+            continue
+        into = torch.zeros(hg.num_nodes(dst), dtype=torch.bool,
+                           device=hg.senders[key].device)
+        into[torch.as_tensor(sorted(flipped[dst]), device=into.device)] = \
+            True
+        edge = into[hg.receivers[key].long()] & hg.edge_mask[key]
+        feeding[src] = feeding.get(src, set()) | set(
+            hg.senders[key][edge].long().tolist())
+    return swapped, flipped, feeding, pairs, ties
+
+
 def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
     """``[partitioned_rmag]``: graph-partitioned heterogeneous ogbn-mag at
     world size 1 under NCCL (this process joins a one-rank group) on the
@@ -3933,11 +4407,21 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
                         for t, v in tables.items()})
             return out
 
+        # each step's max holders and ReLU branches, in global ids
+        gsizes = {t: len(tp.owner) for t, tp in plan.types.items()}
+        pgids = {}
+        for t, tp in plan.types.items():
+            ext = torch.full((tp.n_ext,), -1, dtype=torch.int64)
+            ext[:tp.n_local] = torch.as_tensor(tp.node_gids[0])
+            pgids[t] = ext.cuda()
+        relu_types = sorted(um.layer_out_types()[0])
         reset_launch_counts()
-        ploss, pgrads, pstates = [], [], []
+        ploss, pgrads, pstates, plogs = [], [], [], []
         with _instantiations() as seen:
             for it in range(PART_STEPS):
-                _, m = pcfg.train(pm, popt, pdata, rng, it)
+                with _holders(pgids, gsizes, relu_types) as hlog:
+                    _, m = pcfg.train(pm, popt, pdata, rng, it)
+                plogs.append(hlog)
                 ploss.append(m["train_loss"])
                 pgrads.append(grads(pm, gathered_embedding_grads(pm)))
                 pstates.append({k: v.clone() for k, v in
@@ -3949,9 +4433,11 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
               f"[{path}] launched gather-reduce {sorted(seen['gather'])} "
               f"and head mix {sorted(seen['headmix'])}")
         reset_launch_counts()
-        uloss, ugrads, pparams = [], [], []
+        uloss, ugrads, pparams, ulogs = [], [], [], []
         for it in range(PART_STEPS):
-            _, m = ucfg.train(um, uopt, udata, rng, it)
+            with _holders(None, gsizes, relu_types) as hlog:
+                _, m = ucfg.train(um, uopt, udata, rng, it)
+            ulogs.append(hlog)
             uloss.append(m["train_loss"])
             ugrads.append(grads(um, {t: um.embs[t].grad
                                      for t in um.featureless_types}))
@@ -3971,12 +4457,57 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
             whole, worst = _grad_gap(path, pgrads[it], ugrads[it], r"(?!)")
             d = (pgrads[it][worst[1]] - ugrads[it][worst[1]]).abs()
             off = d > 1e-3 * float(ugrads[it][worst[1]].abs().max())
+            # C.2: the embedding rows off, against the rows whose max
+            # holders swapped or whose own ReLU branch flipped; every tensor
+            # held with those rows left out of both
+            swapped, flipped, feeding, pairs, ties = _swapped_rows(
+                plogs[it], ulogs[it], udata["hetero"])
+            emb = {}
+            for name in pgrads[it]:
+                if not name.startswith("embs."):
+                    continue
+                t = name[len("embs."):]
+                g_p, g_u = pgrads[it][name], ugrads[it][name]
+                rows_off = set(torch.nonzero(
+                    ((g_p - g_u).abs() > 1e-3 * float(g_u.abs().max()))
+                    .any(-1)).flatten().tolist())
+                tied = (swapped.get(t, set()) | flipped.get(t, set())
+                        | feeding.get(t, set()))
+                rest = torch.ones(g_u.shape[0], dtype=torch.bool,
+                                  device=g_u.device)
+                if tied:
+                    rest[torch.as_tensor(sorted(tied), device=g_u.device)] \
+                        = False
+                untied = sorted(rows_off - tied)
+                emb[name] = {
+                    "rows_off": len(rows_off),
+                    "holder_rows": len(swapped.get(t, set())),
+                    "relu_rows": len(flipped.get(t, set())),
+                    "feeding_rows": len(feeding.get(t, set())),
+                    "off_untied": len(untied),
+                    "rel_l2_untied": rel_l2(g_p[rest], g_u[rest]),
+                    "untied_rows": untied[:8],
+                    "untied_err": [float((g_p[i] - g_u[i]).abs().max()
+                                         / g_u.abs().max())
+                                   for i in untied[:8]]}
+            others = max((rel_l2(g, ugrads[it][n]), n)
+                         for n, g in pgrads[it].items()
+                         if not n.startswith("embs."))
             gaps.append({"loss": ploss[it], "ref_loss": uloss[it],
                          "loss_rel": rel_loss, "grad_rel_l2": whole,
                          "worst": worst, "worst_rows_off": int(
                              off.reshape(off.shape[0], -1).any(-1).sum()),
-                         "params_rel_l2": pparams[it]})
-        del pgrads, ugrads
+                         "params_rel_l2": pparams[it],
+                         "swapped_maxima": pairs, "tied_maxima": ties,
+                         "relu_flips": {t: len(v)
+                                        for t, v in flipped.items()},
+                         "embeddings": emb, "others_worst": others})
+            log(f"[{path}] step {it}: {pairs} (destination, column) maxima "
+                f"of the featureless types' relations changed holders "
+                f"({ties} tied in either step), ReLU rows flipped "
+                f"{gaps[-1]['relu_flips']}; by embedding: "
+                f"{emb}; other tensors worst {others[0]:.2e} ({others[1]})")
+        del pgrads, ugrads, plogs, ulogs
         log(f"[{path}] {PART_STEPS} dropout-0 steps against RMagConfig's on "
             "the card: " + "; ".join(
                 f"loss {g['loss']:.6f} vs {g['ref_loss']:.6f} (rel "
@@ -3987,14 +4518,24 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
                 f"at worst ({g['params_rel_l2'][1]})" for g in gaps))
         for it, g in enumerate(gaps):
             # the first step starts both nets from the same weights: every
-            # tensor is held. After it their weights differ by rounding,
-            # and a max whose two holders sit within that swaps holders,
-            # moving whole embedding rows' gradients: the whole gradient
-            # is held (``[partitioned]``'s gate), the worst tensor printed
+            # tensor is held. After it their weights differ by rounding: a
+            # max whose holders sit within that changes holders (or an
+            # exact tie forms or breaks), a ReLU input near 0 flips, and
+            # each moves whole embedding rows' gradients (the holders', the
+            # flipped row's and the rows feeding it). Every row off must be
+            # such a row, and every tensor is held with them left out
             check(g["loss_rel"] <= STEP_LOSS_RTOL
                   and g["grad_rel_l2"] <= PART_GRAD_REL_L2
                   and (it > 0 or g["worst"][0] <= PART_GRAD_REL_L2),
                   f"[{path}] step {it}: {g}")
+            check(g["others_worst"][0] <= PART_GRAD_REL_L2
+                  and all(e["off_untied"] == 0
+                          and e["rel_l2_untied"] <= PART_GRAD_REL_L2
+                          for e in g["embeddings"].values()),
+                  f"[{path}] step {it}: embedding rows off beyond the "
+                  f"swapped holders and flipped ReLUs, or a tensor beyond "
+                  f"{PART_GRAD_REL_L2}: {g['embeddings']}, "
+                  f"{g['others_worst']}")
 
         pm.dropout = um.dropout = PART_RMAG_DROPOUT
         tgen = torch.Generator(device="cuda").manual_seed(1)
@@ -4275,9 +4816,13 @@ def main(argv=None) -> int:
     code_g = code_batch(data["device"])
     wide = kernels_code_shapes(code_g)
     _attach(rows, {"wide": wide, "zoo": kernels_zoo_shapes(data)})
+    wide_narrow, wide_kernels = kernels_wide_shapes(data)
+    _attach(rows, {"wide": wide_narrow})
+    rows += _wide_kernel_rows(wide_kernels)
     kernels_small(data["device"])
     kernels_gat_small(data["device"])
     kernels_gatv2_small(data["device"])
+    kernels_wide_small(data["device"])
     phases["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mag = mag_data(data["device"])
@@ -4295,6 +4840,12 @@ def main(argv=None) -> int:
     for path, net in (("main", {}), ("gat", GAT_NET), ("gatv2", GATV2_NET)):
         results[path] = phase_path(path, raw, data, d_cpu, net)
     phases["arxiv paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = phase_gat_wide(raw, data)
+    results.update({path: wide[path] for path in WIDE_NETS})
+    results["gat_wide_cli"], results["routes"] = wide["cli"], wide["routes"]
+    del wide
+    phases["gat wide"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     checked = _zoo_check_graph(results, raw, data, d_cpu,
                                time.perf_counter() - t_start)
@@ -4366,7 +4917,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
             "library_ms", "launches_by_path")
-    wide_keys = ("heads", "channels", "ms", "bound_ms", "floor_ms")
+    wide_keys = ("path", "heads", "channels", "ms", "bound_ms", "floor_ms")
     log(f"[done] {results['seconds']:.1f} s; by phase "
         f"{ {k: round(v, 1) for k, v in phases.items()} }")
     extra = ("gathered_bytes_per_edge", "ms_no_mask", "ms_ties",

@@ -23,7 +23,10 @@ and ``--device-sampler``, which samples on the card and implies
   ``EXP_DIR`` (``restore_trial``), and prints the model and its test
   metrics.
 - ``--search-workers N`` (N > 1) runs the search's trials on N spawned
-  workers (``exp/parallel_search.py``), each on ``--device``.
+  workers (``exp/parallel_search.py``), each on ``--device``. With
+  ``--partitions`` every trial runs on all the ranks, so the trials run
+  in turn through the in-process search (the ``--search-workers 1``
+  search), and a line says so.
 - ``--partitions N`` (arxiv and rmag) trains over N ranks that the
   command starts itself, one a card under NCCL, or N gloo ranks with
   ``--device cpu``; each rank runs ``main``, and only rank 0 prints and
@@ -261,7 +264,7 @@ def main(argv: Optional[List[str]] = None, mesh=None) -> None:
     elif a.use_default_hparams:
         best_hparams = config.default_hparams()
         print("Using default hyperparams:", best_hparams)
-    elif a.search_workers > 1:
+    elif a.search_workers > 1 and mesh is None:
         # the trials across worker processes (the Ray role)
         import numpy as np
         from egc_tpu_torch.exp.parallel_search import run_search_parallel
@@ -279,6 +282,13 @@ def main(argv: Optional[List[str]] = None, mesh=None) -> None:
             scheduler=config.trial_scheduler())
         print("Best hparams:", best_hparams)
     else:
+        if a.search_workers > 1:
+            # every rank takes part in every trial, so the ranks run the
+            # trials in turn: the in-process search, whose pruning
+            # decisions the parallel search makes with one worker
+            print(f"--search-workers {a.search_workers} with --partitions "
+                  f"{a.partitions}: the trials run in turn, each on all "
+                  f"{a.partitions} ranks (the search of --search-workers 1)")
         best_hparams = run_search(config, exp_directory, seed=a.seed_base)
         print("Best hparams:", best_hparams)
 

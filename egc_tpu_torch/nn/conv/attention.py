@@ -9,14 +9,16 @@ no self-loop edge is materialised. Logits (slope 0.2):
 - GAT: e_ij = leaky_relu(a_src . Wx_j + a_dst . Wx_i), values Wx_j;
 - GATv2: e_ij = att . leaky_relu(W_l x_j + W_r x_i), values W_l x_j.
 
-Dispatch follows the device, as in ``ops.dispatch.conv_aggregate``:
+Dispatch follows the device and, on the card, the JAX convs' route
+(``_attention_route``):
 
 - a CPU tensor takes the plain segment path (``softmax_sum``, shared by
   both convs);
-- a CUDA tensor with a kernel plan takes ``gat_attention`` or
+- a CUDA tensor with at most 32 heads takes ``gat_attention`` or
   ``gatv2_attention`` and the exact node-level merge of the self term
-  (``merge_self``);
-- a CUDA tensor without a plan raises.
+  (``merge_self``), and needs a kernel plan there (it raises without one);
+- a CUDA tensor with more heads takes the segment path on the card, the
+  counterpart of the JAX convs' XLA route.
 
 Attention dropout is not ported: no configuration of the JAX package sets
 ``gat_dropout`` (``egc_tpu/models/nets.py:51``), which keeps its default of
@@ -36,11 +38,22 @@ from torch import nn
 
 from egc_tpu_torch.nn import init as einit
 from egc_tpu_torch.ops.cuda.attention import (
-    EMPTY_MAX, _leaky, gat_attention, gatv2_attention,
+    EMPTY_MAX, MAX_HEADS, _leaky, gat_attention, gatv2_attention,
 )
 from egc_tpu_torch.ops.segment import (
     _segment_max_raw, segment_count, segment_sum,
 )
+
+
+def _attention_route(heads: int) -> str:
+    """``"kernel"`` or ``"segment"``: the JAX convs' rule for a call on the
+    accelerator at attention dropout 0
+    (``egc_tpu/nn/conv/attention.py:196-199``, ``:312-316``): the kernels for at most ``MAX_HEADS`` heads, the segment
+    path otherwise. Chosen by these semantics, never by a failure. JAX's
+    GATv2 route also needs ``_attn_cp(H, C) > C``: its Pallas kernel
+    carries the softmax denominator in a spare channel. The port's kernels
+    compute d without one, so that condition has no counterpart here."""
+    return "kernel" if heads <= MAX_HEADS else "segment"
 
 
 def softmax_sum(h: torch.Tensor, edge_logits: torch.Tensor,
@@ -90,7 +103,7 @@ def segment_softmax_sum(h: torch.Tensor, a_src: torch.Tensor,
                         receivers: torch.Tensor,
                         edge_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """GAT's plain path: ``[N, H, C]``."""
+    """GAT's segment path: ``[N, H, C]``."""
     s, r = senders.long(), receivers.long()
     return softmax_sum(h, _leaky(a_src[s] + a_dst[r]), _leaky(a_src + a_dst),
                        senders, receivers, edge_mask)
@@ -115,7 +128,7 @@ def segment_softmax_sum_v2(hl: torch.Tensor, hr: torch.Tensor,
                            receivers: torch.Tensor,
                            edge_mask: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """GATv2's plain path: ``[N, H, C]``."""
+    """GATv2's segment path: ``[N, H, C]``."""
     s, r = senders.long(), receivers.long()
     return softmax_sum(hl, _logits_v2(hl[s], hr[r], att),
                        _logits_v2(hl, hr, att), senders, receivers, edge_mask)
@@ -127,6 +140,11 @@ def fused_softmax_sum_v2(hl: torch.Tensor, hr: torch.Tensor,
     with hl as the self value."""
     o, d, m = gatv2_attention(hl, hr, att, plan)
     return merge_self(o, d, m, _logits_v2(hl, hr, att), hl)
+
+
+def _uses_kernel(heads: int, x: torch.Tensor) -> bool:
+    """A CUDA call that the JAX route sends to the kernels."""
+    return x.device.type != "cpu" and _attention_route(heads) == "kernel"
 
 
 class GATConv(nn.Module):
@@ -156,11 +174,11 @@ class GATConv(nn.Module):
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         h, a_src, a_dst = self.project(x)
-        if x.device.type == "cpu":
+        if _uses_kernel(self.heads, x):
+            out = fused_softmax_sum(h, a_src, a_dst, _plan(g, "GATConv"))
+        else:
             out = segment_softmax_sum(h, a_src, a_dst, g.senders,
                                       g.receivers, g.edge_mask)
-        else:
-            out = fused_softmax_sum(h, a_src, a_dst, _plan(g, "GATConv"))
         return out.reshape(x.shape[0], -1) + self.bias
 
 
@@ -204,10 +222,10 @@ class GATv2Conv(nn.Module):
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         hl, hr = self.project(x)
-        if x.device.type == "cpu":
-            out = segment_softmax_sum_v2(hl, hr, self.att[0], g.senders,
-                                         g.receivers, g.edge_mask)
-        else:
+        if _uses_kernel(self.heads, x):
             out = fused_softmax_sum_v2(hl, hr, self.att[0],
                                        _plan(g, "GATv2Conv"))
+        else:
+            out = segment_softmax_sum_v2(hl, hr, self.att[0], g.senders,
+                                         g.receivers, g.edge_mask)
         return out.reshape(x.shape[0], -1) + self.bias

@@ -42,18 +42,46 @@ The boundary keeps the JAX package's layout, heads x channels: wh, hl and
 hr are ``[N, H, C]`` (the kernels see them as ``[N, H*C]``), att is
 ``[H, C]``, per-head scalars are ``[N, H]``. A CPU tensor runs the plain
 version; a CUDA tensor launches the kernel in ``csrc/gat_attention.cu`` or
-``csrc/gatv2_attention.cu`` or raises. The kernels take (H, C) if and only
-if 1 <= H <= 32 and the edge group of ``edge_geometry(H, C)`` fits a warp
-(P <= 32): ``shape_ok``, the rule of ``csrc/edge_groups.cuh``. That reaches
-H*C = 512 (32 lanes of at most 16 channels), the ogbg-code2 widths (H8,
-C38), (H1, C304), (H8, C37) and (H1, C296) among them; a shape past it
-raises with the rule in the message. ``launches`` counts kernel launches.
+``csrc/gatv2_attention.cu`` or raises. A launch of those six kernels takes
+(H, C) if and only if 1 <= H <= 32 and the edge group of
+``edge_geometry(H, C)`` fits a warp (P <= 32): ``shape_ok``, the rule of
+``csrc/edge_groups.cuh``. That reaches H*C = 512 (32 lanes of at most 16
+channels), the ogbg-code2 widths (H8, C38), (H1, C304), (H8, C37) and (H1,
+C296) among them; a single launch past it raises with the rule in the
+message.
+
+Wider rows. ``gat_attention`` and ``gatv2_attention`` take any 1 <= H <= 32
+and C >= 1 (GATv2: C <= ``WIDE_MAX_CHANNELS``) by sweeping a row in
+several launches (``sweeps``, composed by ``run_sweeps``):
+
+- groups of whole heads whose edge group fits a warp, e.g. (3, 250) as
+  (2, 250) + (1, 250): each head's logits, m, d and o come from one
+  launch, so this is exact for GAT and GATv2;
+- a GAT head wider than 512 floats in channel ranges of one edge geometry
+  (equal where the count divides C), e.g. (1, 750) as 2 x (1, 375): GAT's
+  logit a_src[s] + a_dst[r] is a per-head scalar, so every launch forms
+  the same logits and, with one geometry, the same summation order: m and
+  d come out bitwise equal, and are taken from the first range. In the
+  backward q = sum_c g_o wh is additive over channels: g_d goes to the
+  first range only (zeros to the others), and d_asrc / d_adst are summed
+  over the ranges;
+- a GATv2 row with a head wider than 512 floats in one launch of
+  ``gatv2w_fwd``, ``gatv2w_bwd_t`` and ``gatv2w_bwd_f``
+  (``csrc/gatv2_attention_wide.cu``): a GATv2 logit needs the head's whole
+  row before the softmax, so its channels do not split. They have the
+  arguments and outputs of the narrow three, and take (H, C) if and only
+  if ``wide_shape_ok``: 1 <= H <= 32 and C <= ``WIDE_MAX_CHANNELS``. Their
+  plain versions are the narrow kernels' (``gatv2_*_plain`` take any
+  width).
+
+A shape that ``shape_ok`` takes is one launch, on the row as it is.
+``launches`` counts kernel launches, every sweep's.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,10 +95,14 @@ MAX_CHANS = 16         # kMaxChans in csrc/edge_groups.cuh
 MAX_WIDTH = 32 * MAX_CHANS   # the widest row (H*C) of any accepted shape
 SHAPE_RULE = (f"1 <= H <= {MAX_HEADS} heads and an edge group of at most 32 "
               f"lanes (edge_geometry(H, C)[0] <= 32, so H*C <= {MAX_WIDTH})")
+WIDE_MAX_CHANNELS = 4096   # kMaxWideChannels in csrc/gatv2_attention_wide.cu
+WIDE_RULE = (f"1 <= H <= {MAX_HEADS} heads of at most {WIDE_MAX_CHANNELS} "
+             f"channels each (so H*C <= {MAX_HEADS * WIDE_MAX_CHANNELS})")
 
 launches: Dict[str, int] = {"gat_fwd": 0, "gat_bwd_t": 0, "gat_bwd_f": 0,
                             "gatv2_fwd": 0, "gatv2_bwd_t": 0,
-                            "gatv2_bwd_f": 0}
+                            "gatv2_bwd_f": 0, "gatv2w_fwd": 0,
+                            "gatv2w_bwd_t": 0, "gatv2w_bwd_f": 0}
 
 
 def _leaky(z: torch.Tensor) -> torch.Tensor:
@@ -137,15 +169,18 @@ def gat_bwd_f_plain(wh, a_src, a_dst, m, g_o, g_d, rowptr, senders
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check(wh, heads_arrays, ptr, idx, heads=None):
+def _check(wh, heads_arrays, ptr, idx, heads=None, ok=None,
+           rule=SHAPE_RULE):
     """Shapes, types and devices every GAT and GATv2 kernel assumes (H from
-    ``heads`` or the first per-head array); returns ``(n, H, C)``."""
+    ``heads`` or the first per-head array), (H, C) by the launch's rule
+    ``ok`` (``shape_ok`` by default); returns ``(n, H, C)``."""
     dev = wh.device
     n, hc = wh.shape
     if heads is None:
         heads = heads_arrays[0][1].shape[1]
-    if heads < 1 or hc % heads or not shape_ok(heads, hc // heads):
-        raise ValueError(f"the attention kernels take {SHAPE_RULE}; got "
+    ok = ok or shape_ok
+    if heads < 1 or hc % heads or not ok(heads, hc // heads):
+        raise ValueError(f"the attention kernels take {rule}; got "
                          f"H={heads}, H*C={hc}")
     _build.check_tensor("wh", wh, torch.float32, dev)
     for name, t in heads_arrays:
@@ -161,9 +196,16 @@ def _needs_cuda(name, t):
                            f"{t.device}")
 
 
+def _library(name: str):
+    """The library of kernel ``name``: its prefix names the source."""
+    return _build.library(
+        "gatv2_attention_wide" if name.startswith("gatv2w")
+        else "gatv2_attention" if name.startswith("gatv2")
+        else "gat_attention")
+
+
 def _call(name, args, types):
-    lib = _build.library("gatv2_attention" if name.startswith("gatv2")
-                         else "gat_attention")
+    lib = _library(name)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = types + [ctypes.c_void_p]
@@ -235,15 +277,17 @@ def gat_bwd_f(wh, a_src, a_dst, m, g_o, g_d, rowptr, senders):
 
 
 class _GATAttention(torch.autograd.Function):
-    """Kernel 5 forward; kernels 6 and 7 backward. m is marked
-    non-differentiable, so its cotangent is dropped."""
+    """Kernel 5 forward; kernels 6 and 7 backward, each over the row's
+    sweeps. m is marked non-differentiable, so its cotangent is
+    dropped."""
 
     @staticmethod
     def forward(ctx, wh, a_src, a_dst, plan):
         n, heads, c = wh.shape
         wh2 = wh.reshape(n, heads * c).contiguous()
         a_src, a_dst = a_src.contiguous(), a_dst.contiguous()
-        o, d, m = gat_fwd(wh2, a_src, a_dst, plan.rowptr, plan.fwd_senders)
+        o, d, m = run_sweeps("gat_fwd", (wh2, a_src, a_dst, plan.rowptr,
+                                         plan.fwd_senders), heads, c)
         ctx.plan = plan
         ctx.save_for_backward(wh2, a_src, a_dst, m)
         ctx.mark_non_differentiable(m)
@@ -255,12 +299,15 @@ class _GATAttention(torch.autograd.Function):
         plan = ctx.plan
         g_o = g_o.reshape(wh2.shape).contiguous()
         g_d = g_d.contiguous()
-        d_wh, d_asrc = gat_bwd_t(wh2, a_src, a_dst, m, g_o, g_d,
-                                 plan.colptr, plan.bwd_receivers)
-        d_adst = gat_bwd_f(wh2, a_src, a_dst, m, g_o, g_d, plan.rowptr,
-                           plan.fwd_senders)
-        return d_wh.view(wh2.shape[0], a_src.shape[1], -1), d_asrc, d_adst, \
-            None
+        heads = a_src.shape[1]
+        c = wh2.shape[1] // heads
+        d_wh, d_asrc = run_sweeps("gat_bwd_t", (
+            wh2, a_src, a_dst, m, g_o, g_d, plan.colptr, plan.bwd_receivers),
+            heads, c)
+        d_adst = run_sweeps("gat_bwd_f", (wh2, a_src, a_dst, m, g_o, g_d,
+                                          plan.rowptr, plan.fwd_senders),
+                            heads, c)
+        return d_wh.view(wh2.shape[0], heads, c), d_asrc, d_adst, None
 
 
 def gat_attention(wh: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
@@ -347,10 +394,12 @@ def gatv2_bwd_f_plain(hl, hr, att, m, g_o, g_d, rowptr, senders
 # GATv2: kernel launches
 # ---------------------------------------------------------------------------
 
-def _check_v2(hl, hr, att, heads_arrays, ptr, idx):
+def _check_v2(hl, hr, att, heads_arrays, ptr, idx, ok=None,
+              rule=SHAPE_RULE):
     """The GAT checks plus hr like hl and att ``[H, C]``; ``(n, H, C)``."""
     heads = att.shape[0] if att.dim() == 2 else 0
-    n, heads, c = _check(hl, heads_arrays, ptr, idx, heads=heads)
+    n, heads, c = _check(hl, heads_arrays, ptr, idx, heads=heads, ok=ok,
+                         rule=rule)
     _build.check_tensor("hr", hr, torch.float32, hl.device, hl.shape)
     _build.check_tensor("att", att, torch.float32, hl.device, (heads, c))
     return n, heads, c
@@ -379,6 +428,24 @@ def shape_ok(heads: int, channels: int) -> bool:
     at most 32 lanes."""
     return (1 <= heads <= MAX_HEADS and channels >= 1
             and edge_geometry(heads, channels)[0] <= 32)
+
+
+def wide_shape_ok(heads: int, channels: int) -> bool:
+    """The shape rule of ``gatv2w_fwd``, ``gatv2w_bwd_t`` and
+    ``gatv2w_bwd_f`` (``wide_shape_ok`` in
+    ``csrc/gatv2_attention_wide.cu``): 1 <= H <= ``MAX_HEADS`` and
+    1 <= C <= ``WIDE_MAX_CHANNELS``. A warp owns one (row, head) and each
+    lane holds every 32nd channel of the head, its accumulators in
+    registers up to 768 channels and in shared memory past them, so C
+    bounds the shared memory a block needs."""
+    return 1 <= heads <= MAX_HEADS and 1 <= channels <= WIDE_MAX_CHANNELS
+
+
+def kernel_wide_shape_ok(heads: int, channels: int) -> bool:
+    """``wide_shape_ok`` as the compiled wide kernels report it."""
+    fn = _build.library("gatv2_attention_wide").gatv2w_shape_ok
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+    return bool(fn(heads, channels))
 
 
 def accepted_shapes() -> List[Tuple[int, int]]:
@@ -420,32 +487,42 @@ def kernel_gat_edge_geometry(heads: int, channels: int
                             channels)
 
 
-def _launch_v2_fwd(hl, hr, att, rowptr, senders):
-    _needs_cuda("gatv2_fwd", hl)
-    n, heads, c = _check_v2(hl, hr, att, [], rowptr, senders)
+def _v2_rule(name: str):
+    """``(ok, rule)`` of a GATv2 launch: the wide kernels' or the narrow."""
+    if name.startswith("gatv2w"):
+        return wide_shape_ok, WIDE_RULE
+    return shape_ok, SHAPE_RULE
+
+
+def _launch_v2_fwd(hl, hr, att, rowptr, senders, name="gatv2_fwd"):
+    _needs_cuda(name, hl)
+    ok, rule = _v2_rule(name)
+    n, heads, c = _check_v2(hl, hr, att, [], rowptr, senders, ok, rule)
     o = torch.empty_like(hl)
     d = hl.new_empty(n, heads)
     m = hl.new_empty(n, heads)
-    _call("gatv2_fwd", [hl, hr, att, rowptr, senders, n, heads, c, SLOPE,
-                        o, d, m],
+    _call(name, [hl, hr, att, rowptr, senders, n, heads, c, SLOPE, o, d, m],
           [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3)
     return o, d, m
 
 
 def _launch_v2_bwd(name, hl, hr, att, m, g_o, g_d, ptr, idx):
     _needs_cuda(name, hl)
-    n, heads, c = _check_v2(hl, hr, att, [("m", m), ("g_d", g_d)], ptr, idx)
+    ok, rule = _v2_rule(name)
+    n, heads, c = _check_v2(hl, hr, att, [("m", m), ("g_d", g_d)], ptr, idx,
+                            ok, rule)
     _build.check_tensor("g_o", g_o, torch.float32, hl.device, hl.shape)
     outs = [torch.empty_like(hl)]
-    if name == "gatv2_bwd_f":
+    if name.endswith("_bwd_f"):
         # one row of d_att partial sums per block, summed below
-        blocks = _build.library("gatv2_attention").gatv2_att_blocks
+        prefix = name[:-len("_bwd_f")]
+        blocks = getattr(_library(name), f"{prefix}_att_blocks")
         blocks.restype, blocks.argtypes = ctypes.c_int, [ctypes.c_int]
         outs.append(hl.new_empty(blocks(n), heads * c))
     _call(name, [hl, hr, att, m, g_o, g_d, ptr, idx, n, heads, c, SLOPE,
                  *outs],
           [_P] * 8 + [_I] * 3 + [_F] + [_P] * len(outs))
-    if name == "gatv2_bwd_t":
+    if name.endswith("_bwd_t"):
         return outs[0]
     return outs[0], outs[1].sum(0).view(heads, c)
 
@@ -478,9 +555,172 @@ def gatv2_bwd_f(hl, hr, att, m, g_o, g_d, rowptr, senders):
                           senders)
 
 
+def gatv2w_fwd(hl, hr, att, rowptr, senders):
+    """``gatv2_fwd`` for a head wider than 512 floats (``wide_shape_ok``)."""
+    if hl.device.type == "cpu":
+        return gatv2w_fwd_plain(hl, hr, att, rowptr, senders)
+    return _launch_v2_fwd(hl, hr, att, rowptr, senders, name="gatv2w_fwd")
+
+
+def gatv2w_bwd_t(hl, hr, att, m, g_o, g_d, colptr, receivers):
+    """``gatv2_bwd_t`` for a head wider than 512 floats."""
+    if hl.device.type == "cpu":
+        return gatv2w_bwd_t_plain(hl, hr, att, m, g_o, g_d, colptr,
+                                  receivers)
+    return _launch_v2_bwd("gatv2w_bwd_t", hl, hr, att, m, g_o, g_d, colptr,
+                          receivers)
+
+
+def gatv2w_bwd_f(hl, hr, att, m, g_o, g_d, rowptr, senders):
+    """``gatv2_bwd_f`` for a head wider than 512 floats."""
+    if hl.device.type == "cpu":
+        return gatv2w_bwd_f_plain(hl, hr, att, m, g_o, g_d, rowptr,
+                                  senders)
+    return _launch_v2_bwd("gatv2w_bwd_f", hl, hr, att, m, g_o, g_d, rowptr,
+                          senders)
+
+
+# the wide kernels compute the narrow ones' functions, whose plain versions
+# take any width
+gatv2w_fwd_plain = gatv2_fwd_plain
+gatv2w_bwd_t_plain = gatv2_bwd_t_plain
+gatv2w_bwd_f_plain = gatv2_bwd_f_plain
+
+
+# ---------------------------------------------------------------------------
+# rows wider than one launch: sweeps
+# ---------------------------------------------------------------------------
+
+class Sweep(NamedTuple):
+    """One launch of a row's sweep: ``heads`` heads from ``head`` on, with
+    channels ``chan`` .. ``chan + channels - 1`` of each; ``wide``: a
+    ``gatv2w_*`` launch."""
+    head: int
+    heads: int
+    chan: int
+    channels: int
+    wide: bool = False
+
+
+def _channel_ranges(channels: int) -> List[Tuple[int, int]]:
+    """``(first, count)`` of a GAT head's channel ranges past 512 floats:
+    the fewest ranges, each taken by ``shape_ok(1, .)``, whose widths
+    (equal where their number divides C, else one apart) share one edge
+    geometry P, so every launch sums m and d in the same order."""
+    parts = -(-channels // MAX_WIDTH)
+    while True:
+        bounds = [k * channels // parts for k in range(parts + 1)]
+        widths = {b - a for a, b in zip(bounds, bounds[1:])}
+        if len({edge_geometry(1, w)[0] for w in widths}) == 1:
+            return [(a, b - a) for a, b in zip(bounds, bounds[1:])]
+        parts += 1
+
+
+def sweeps(heads: int, channels: int, v2: bool = False) -> List[Sweep]:
+    """The launches that cover a row of (H, C) (``v2``: GATv2's). A shape
+    ``shape_ok`` takes is one launch. Else, for C <= 512, groups of whole
+    heads, each as many as ``shape_ok`` takes; for C > 512 each GAT head in
+    ``_channel_ranges``, and a GATv2 row in one ``gatv2w_*`` launch
+    (``wide_shape_ok``). Raises with the rule past 1 <= H <= 32 or, for
+    GATv2, past ``WIDE_MAX_CHANNELS``."""
+    if not (1 <= heads <= MAX_HEADS and channels >= 1):
+        raise ValueError(f"the attention kernels take 1 <= H <= "
+                         f"{MAX_HEADS} heads of C >= 1 channels; got "
+                         f"H={heads}, C={channels}")
+    if shape_ok(heads, channels):
+        return [Sweep(0, heads, 0, channels)]
+    if channels <= MAX_WIDTH:
+        group = max(k for k in range(1, heads + 1) if shape_ok(k, channels))
+        return [Sweep(h, min(group, heads - h), 0, channels)
+                for h in range(0, heads, group)]
+    if v2:
+        if not wide_shape_ok(heads, channels):
+            raise ValueError(f"the wide GATv2 kernels take {WIDE_RULE}; "
+                             f"got H={heads}, C={channels}")
+        return [Sweep(0, heads, 0, channels, wide=True)]
+    return [Sweep(h, 1, c0, nc) for h in range(heads)
+            for c0, nc in _channel_ranges(channels)]
+
+
+# Each kernel's arguments and outputs by role: R a row [N, H*C] (its
+# sweep's columns), S per-head scalars [N, H] (its heads), A att [H, C],
+# G g_d (its heads in a head's first channel range, zeros in the others),
+# P the graph, passed as it is. Outputs: R placed in the sweep's columns,
+# S1 per-head scalars from the first channel range (m and d are bitwise
+# equal in every range), S+ per-head scalars summed over the ranges, A
+# att's rows of the sweep's heads.
+_ROLES = {
+    "gat_fwd": ("RSSPP", ("R", "S1", "S1")),
+    "gat_bwd_t": ("RSSSRGPP", ("R", "S+")),
+    "gat_bwd_f": ("RSSSRGPP", ("S+",)),
+    "gatv2_fwd": ("RRAPP", ("R", "S1", "S1")),
+    "gatv2_bwd_t": ("RRASRGPP", ("R",)),
+    "gatv2_bwd_f": ("RRASRGPP", ("R", "A")),
+}
+
+
+def _piece(role: str, t: torch.Tensor, sw: Sweep, heads: int,
+           channels: int) -> torch.Tensor:
+    """The sweep's part of argument ``t`` of role ``role`` (a contiguous
+    copy where it is not the whole)."""
+    hs = slice(sw.head, sw.head + sw.heads)
+    cs = slice(sw.chan, sw.chan + sw.channels)
+    if role == "P":
+        return t
+    if role == "R":
+        return t.view(t.shape[0], heads, channels)[:, hs, cs].reshape(
+            t.shape[0], -1).contiguous()
+    if role == "A":
+        return t[hs, cs].contiguous()
+    if role == "G" and sw.chan > 0:
+        return t.new_zeros(t.shape[0], sw.heads)
+    return t[:, hs].contiguous()
+
+
+def run_sweeps(name: str, args: tuple, heads: int, channels: int,
+               kernels: Optional[Mapping[str, Callable]] = None):
+    """Kernel ``name`` (a narrow GAT or GATv2 kernel's) over rows of any
+    (H, C) that ``sweeps`` covers: each sweep's launch through
+    ``kernels[name]``, or ``kernels["gatv2w_*"]`` for a wide one (by
+    default this module's dispatch functions; the tests pass the plain
+    versions), composed into the outputs of one launch over the row."""
+    kernels = kernels or KERNELS
+    plan = sweeps(heads, channels, v2=name.startswith("gatv2"))
+    if len(plan) == 1:
+        return kernels[name.replace("gatv2", "gatv2w") if plan[0].wide
+                       else name](*args)
+    arg_roles, out_roles = _ROLES[name]
+    n = args[0].shape[0]
+    outs = None
+    for sw in plan:
+        got = kernels[name](*[_piece(role, a, sw, heads, channels)
+                              for role, a in zip(arg_roles, args)])
+        got = got if isinstance(got, tuple) else (got,)
+        if outs is None:
+            ref = args[0]
+            outs = [ref.new_empty(n, heads, channels) if role == "R"
+                    else ref.new_empty(heads, channels) if role == "A"
+                    else ref.new_zeros(n, heads) for role in out_roles]
+        hs = slice(sw.head, sw.head + sw.heads)
+        cs = slice(sw.chan, sw.chan + sw.channels)
+        for role, out, part in zip(out_roles, outs, got):
+            if role == "R":
+                out[:, hs, cs] = part.view(n, sw.heads, sw.channels)
+            elif role == "A":
+                out[hs, cs] = part.view(sw.heads, sw.channels)
+            elif role == "S+":
+                out[:, hs] += part
+            elif sw.chan == 0:
+                out[:, hs] = part
+    outs = [o.view(n, heads * channels) if role == "R" else o
+            for role, o in zip(out_roles, outs)]
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
 class _GATv2Attention(torch.autograd.Function):
-    """``gatv2_fwd`` forward; ``gatv2_bwd_t`` and ``gatv2_bwd_f`` backward.
-    m is marked non-differentiable, so its cotangent is dropped."""
+    """``gatv2_fwd`` forward; ``gatv2_bwd_t`` and ``gatv2_bwd_f`` backward,
+    each over the row's sweeps (the ``gatv2w_*`` kernels past 512 floats a
+    head). m is marked non-differentiable, so its cotangent is dropped."""
 
     @staticmethod
     def forward(ctx, hl, hr, att, plan):
@@ -488,7 +728,8 @@ class _GATv2Attention(torch.autograd.Function):
         hl2 = hl.reshape(n, heads * c).contiguous()
         hr2 = hr.reshape(n, heads * c).contiguous()
         att = att.contiguous()
-        o, d, m = gatv2_fwd(hl2, hr2, att, plan.rowptr, plan.fwd_senders)
+        o, d, m = run_sweeps("gatv2_fwd", (hl2, hr2, att, plan.rowptr,
+                                           plan.fwd_senders), heads, c)
         ctx.plan = plan
         ctx.save_for_backward(hl2, hr2, att, m)
         ctx.mark_non_differentiable(m)
@@ -500,10 +741,13 @@ class _GATv2Attention(torch.autograd.Function):
         plan = ctx.plan
         g_o = g_o.reshape(hl2.shape).contiguous()
         g_d = g_d.contiguous()
-        d_hl = gatv2_bwd_t(hl2, hr2, att, m, g_o, g_d, plan.colptr,
-                           plan.bwd_receivers)
-        d_hr, d_att = gatv2_bwd_f(hl2, hr2, att, m, g_o, g_d, plan.rowptr,
-                                  plan.fwd_senders)
+        heads, c = att.shape
+        d_hl = run_sweeps("gatv2_bwd_t", (hl2, hr2, att, m, g_o, g_d,
+                                          plan.colptr, plan.bwd_receivers),
+                          heads, c)
+        d_hr, d_att = run_sweeps("gatv2_bwd_f", (
+            hl2, hr2, att, m, g_o, g_d, plan.rowptr, plan.fwd_senders),
+            heads, c)
         shape = (hl2.shape[0],) + tuple(att.shape)
         return d_hl.view(shape), d_hr.view(shape), d_att, None
 
@@ -521,3 +765,7 @@ def gatv2_attention(hl: torch.Tensor, hr: torch.Tensor, att: torch.Tensor,
         raise ValueError(f"hl {tuple(hl.shape)}, hr {tuple(hr.shape)} and "
                          f"att {tuple(att.shape)} do not match")
     return _GATv2Attention.apply(hl, hr, att, plan)
+
+
+# the launch of each kernel name on a tensor's device (``run_sweeps``)
+KERNELS: Dict[str, Callable] = {name: globals()[name] for name in launches}

@@ -213,6 +213,76 @@ def _search_workers_run(tmp_path, monkeypatch):
     assert (tmp_path / "final_summary.json").exists()
 
 
+def _cut_rank(mesh, argv, pretrained):
+    """A rank of ``--partitions`` with the arxiv search cut to its first
+    two grid points at two iterations each (the final run too)."""
+    from egc_tpu_torch.exp import fullgraph as tfg
+    from egc_tpu_torch.exp import search as tsearch
+    grid = tsearch.GridSearchStrategy.generate
+    tsearch.GridSearchStrategy.generate = \
+        lambda self, space, rng: grid(self, space, rng)[:2]
+    tfg.ArxivConfig.stoppers = lambda self: tfg.StopperSpec(80, 2)
+    cli._partition_rank(mesh, argv, pretrained)
+
+
+def _partitioned_search(tmp_path, monkeypatch, capfd, workers):
+    """``gcn arxiv --hidden 8 --partitions 2 --search-workers W
+    --num-samples 2 --final-runs 1 --device cpu`` through ``cli.main``,
+    its two gloo ranks running ``_cut_rank``: what rank 0 printed."""
+    from egc_tpu_torch.parallel import mesh as tmesh
+    spawn = getattr(tmesh.spawn, "original", tmesh.spawn)
+
+    def cut(fn, world_size, **kw):
+        assert fn is cli._partition_rank and world_size == 2
+        return spawn(_cut_rank, world_size, timeout=240, **kw)
+
+    cut.original = spawn
+    monkeypatch.setattr(tmesh, "spawn", cut)
+    capfd.readouterr()
+    cli.main([str(tmp_path), "gcn", "arxiv", "--hidden", "8",
+              "--partitions", "2", "--search-workers", str(workers),
+              "--num-samples", "2", "--final-runs", "1", "--device", "cpu"])
+    return capfd.readouterr().out
+
+
+def test_partitions_run_the_search_of_search_workers(tmp_path, monkeypatch,
+                                                     capfd):
+    """``--partitions 2 --search-workers 2``: the two gloo ranks run the
+    trials in turn through the in-process search and say so once; rank 0
+    writes EXP_DIR (the search's two candidates, the final run) and the
+    other rank nothing there; the search is the one ``--search-workers 1``
+    runs (the same candidates in the same order, each trial's best val
+    within two of 800 validation nodes, the same best)."""
+    out = _partitioned_search(tmp_path / "w2", monkeypatch, capfd, 2)
+    lines = out.splitlines()
+    said = [line for line in lines if "the trials run in turn" in line]
+    assert said == ["--search-workers 2 with --partitions 2: the trials run "
+                    "in turn, each on all 2 ranks (the search of "
+                    "--search-workers 1)"]
+    assert sum(line.startswith("[search arxiv] trial") for line in lines) \
+        == 2
+    assert any(line.startswith("Best hparams:") for line in lines)
+    got = json.loads((tmp_path / "w2" / "search_results.json").read_text())
+    assert len(got["results"]) == 2
+    assert got["best"] in [r["hparams"] for r in got["results"]]
+    summary = json.loads((tmp_path / "w2" / "final_summary.json")
+                         .read_text())
+    assert summary["repeats"] == 1 and summary["hparams"] == got["best"]
+    assert (tmp_path / "w2" / "final" / "run_0").is_dir()
+    assert sorted(p.name for p in (tmp_path / "w2").iterdir()) == [
+        "curves.csv", "curves.png", "final", "final_summary.json",
+        "invocation.json", "search_results.json",
+        "test_metric_summaries.json"]
+    out = _partitioned_search(tmp_path / "w1", monkeypatch, capfd, 1)
+    assert "the trials run in turn" not in out
+    ref = json.loads((tmp_path / "w1" / "search_results.json").read_text())
+    assert [r["hparams"] for r in got["results"]] == \
+        [r["hparams"] for r in ref["results"]]
+    for a, b in zip(got["results"], ref["results"]):
+        assert abs(a["best_val"] - b["best_val"]) <= 2 / 800 + 1e-7
+    assert got["best"] == ref["best"]
+
+
 @pytest.mark.parametrize("run", [_pretrained_run, _partitions_run,
                                  _search_workers_run],
                          ids=["pretrained", "partitions", "search_workers"])

@@ -89,7 +89,9 @@ def test_cpu_run_launches_no_kernel():
     assert set(launch_counts()) == {"gather_reduce_fwd", "gather_reduce_bwd",
                                     "headmix_fwd", "headmix_bwd", "gat_fwd",
                                     "gat_bwd_t", "gat_bwd_f", "gatv2_fwd",
-                                    "gatv2_bwd_t", "gatv2_bwd_f"}
+                                    "gatv2_bwd_t", "gatv2_bwd_f",
+                                    "gatv2w_fwd", "gatv2w_bwd_t",
+                                    "gatv2w_bwd_f"}
     assert all(v == 0 for v in launch_counts().values())
 
 
