@@ -61,10 +61,13 @@ Phases, each of which raises (exit code 1) on any failed check:
    250), (1, 250) and the ``gatv2w_*`` kernels at (1, 750), each on the
    arxiv graph (values, the backward kernels, two launches bitwise, timed
    with bound and floor), on the small graph with gradients through the
-   autograd functions and the convs (the wide kernels also at (2, 600)
-   and (1, 1100), whose slots spill to shared memory), and the rows (3,
-   250) and (1, 750) through the convs over their sweeps; the compiled
-   wide rule against ``wide_shape_ok``. What phase 3 held is recorded
+   autograd functions and the convs (the wide kernels also at (2, 600),
+   (1, 1100), whose forward slots spill to shared memory, (3, 513) and
+   (1, 4096), so each variant of the backward blocks runs), and the rows
+   (3, 250) and (1, 750) through the convs over their sweeps; the
+   compiled wide rule against ``wide_shape_ok`` and the backward blocks'
+   geometry against ``wide_bwd_geometry``; the build's ``ptxas`` report
+   of the wide backward kernels without spills. What phase 3 held is recorded
    (``HELD``): every timed
    path and CLI run fails on a gather-reduce (F, primitives, masks; the
    forward without masks counted held with the masked one), head mix
@@ -487,9 +490,12 @@ WIDE_NETS = {"gat_wide": dict(kind="gat", hidden=750, heads=3),
              "gatv2_wide": dict(kind="gatv2", hidden=750, heads=3)}
 WIDE_ROWS = ((3, 250), (1, 750))
 WIDE_CLI = ["--hidden", "750", "--egc-num-heads", "3"]
-# the wide kernels also at a head whose slots spill past the registers
-# (C > 768) and at two heads, on the small graph
-WIDE_SMALL_SHAPES = ((1, 750), (2, 600), (1, 1100))
+# the wide kernels on the small graph: gatv2w_fwd also at a head whose
+# slots spill past the registers (C > 768) and at two heads; each variant
+# of the backward blocks (attention.wide_bwd_geometry): 2-float vectors (C
+# even) at 4, 6 and 22 warps (C = 4,096, the widest the rule takes), single
+# floats (C odd) at three heads
+WIDE_SMALL_SHAPES = ((1, 750), (2, 600), (1, 1100), (3, 513), (1, 4096))
 # the narrow launches of those sweeps, GAT's and GATv2's
 WIDE_SWEEP_SHAPES = ((2, 250), (1, 250), (1, 375))
 CLI_GATV2_SHAPES = ((8, 13), (1, 104), (8, 23), (1, 184))
@@ -613,8 +619,14 @@ def phase_build() -> dict:
         log(f"[build] {name}: {path.name}")
         report = path.with_suffix(".log")
         if report.exists():
-            for line in _build.ptxas_summary(report.read_text()):
+            lines = _build.ptxas_summary(report.read_text())
+            for line in lines:
                 log(f"[build]   {line}")
+            if name == "gatv2_attention_wide":
+                bwd = [ln for ln in lines if ln.startswith("gatv2w_bwd")]
+                check(len(bwd) == 4 and all(
+                    "0 bytes spill stores" in ln for ln in bwd),
+                    f"[build] the wide backward kernels: {bwd}")
     log(f"[build] {_build.build_seconds:.3f} s")
     return {"build_seconds": _build.build_seconds}
 
@@ -1993,6 +2005,11 @@ def kernels_wide_shapes(data) -> tuple:
            if at.kernel_wide_shape_ok(*hc) != at.wide_shape_ok(*hc)]
     check(not bad, f"the wide kernels' rule differs from wide_shape_ok at "
                    f"{bad}")
+    bad = [hc for hc in probe + list(WIDE_SMALL_SHAPES)
+           if at.wide_shape_ok(*hc)
+           and at.kernel_wide_bwd_geometry(*hc) != at.wide_bwd_geometry(*hc)]
+    check(not bad, f"the wide backward blocks differ from wide_bwd_geometry "
+                   f"at {bad}")
     g = data["graph"]
     plan, dev = g.kernel_plan, data["device"]
     n, e = plan.num_nodes, plan.num_edges

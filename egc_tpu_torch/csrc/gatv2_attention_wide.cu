@@ -21,8 +21,8 @@
 //     gatv2w_bwd_f, like gatv2_bwd_f (`_v2_edge_pass(_v2_bwd_f_kernel)`,
 //     `_v2_edge_pass_tp_f`), per receiver r over its in-edges (CSR):
 //         d_hr[r] = sum_s dz,   d_att = sum over every edge of de leaky(z)
-// d_att leaves gatv2w_bwd_f as one row of partial sums per block column;
-// the caller sums the rows.
+// d_att leaves gatv2w_bwd_f as gatv2w_att_rows(n, H, C) rows of partial
+// sums; the caller sums the rows.
 //
 // Layout: rows of F = H*C floats, heads x channels (column h*C + c), att
 // as F floats, per-head scalars [N, H]: the narrow kernels' arguments.
@@ -31,48 +31,89 @@
 // the softmax, so a head wider than the edge group of the narrow kernels
 // (32 lanes of at most 16 channels) cannot be split into column launches,
 // as a GAT head can. The JAX kernels take such a head in their column
-// passes; here a warp walks the head's row in 32-channel slots instead.
+// passes.
 //
 // What bounds them on an H100: device-memory bytes, as for the narrow
-// kernels: each edge gathers the head's C floats of the other endpoint (two
-// rows in gatv2w_bwd_t) and does ~5 flops a float.
+// kernels. Each edge gathers the head's C floats of the other endpoint:
+// hl[s] in gatv2w_fwd and gatv2w_bwd_f, hr[r] and g_o[r] in gatv2w_bwd_t
+// (3,000 and 6,000 B an edge at (1, 750)), and does ~5 flops a float.
+// The endpoints are random and the gathered arrays (508 MB each at the
+// arxiv shape) dwarf the 50 MB L2, so the floor is the gathered bytes
+// from HBM. To run at it, an SM needs ~20 KB of gathered rows in flight
+// (3.35 TB/s x ~1 us over 132 SMs), and each gathered float must come
+// from memory once.
 //
-// Design (simple first). One warp owns one (row, head): a receiver for
-// gatv2w_fwd and gatv2w_bwd_f, a sender of the transpose for
-// gatv2w_bwd_t. It walks the row one edge a step. Lane l holds channels
-// l, l + 32, l + 64, ... of the head (slot t is channel l + 32 t), so every
-// load of a slot is one coalesced 128-byte line. A head's logit and q are
-// the lanes' partial sums finished by a xor-butterfly over the warp, which
-// leaves the same bits in every lane. Each edge reads its gathered row
-// twice, once for the sums and once for the accumulation (the second read
-// mostly from L1); the own row and att are re-read from L1 per edge.
-// - Accumulators (o, d_hl, d_hr and d_att) live in kRegSlots registers a
-//   lane (768 channels a head) and past them in shared memory, laid out
-//   [warp][slot][lane] (dynamic, sized by C). C <= kMaxWideChannels bounds
-//   that memory (wide_shape_ok).
-// - gatv2w_fwd keeps the online softmax state (m, d, o) of the narrow
-//   kernels' online_add: per edge m' = max(m, e), c = exp(m - m'),
-//   p = exp(e - m'), d = d c + p, o = o c + p hl, from m = -1e30, d = 0,
-//   o = 0, so an empty receiver writes zeros and m = -1e30.
-// - gatv2w_bwd_f walks rows with a grid stride over at most
-//   kMaxWideAttBlocks blocks for each head (blockIdx.y); each warp sums its
-//   d_att terms in its own slots, and the block's warps add theirs in warp
-//   order into one row of partial sums: no atomics, deterministic.
-// Lanes past C are masked.
+// gatv2w_fwd (simple first): one warp owns one (row, head) and walks the
+// row one edge a step. Lane l holds channels l, l + 32, l + 64, ... of the
+// head (slot t is channel l + 32 t), so every load of a slot is one
+// coalesced 128-byte line; the logit is a xor-butterfly over the warp.
+// Each edge reads its gathered row twice, once for the logit and once for
+// the accumulation (the second read mostly from L1). o lives in kRegSlots
+// registers a lane (768 channels) and past them in shared memory, laid
+// out [warp][slot][lane]. The online softmax state is the narrow kernels'
+// online_add: per edge m' = max(m, e), c = exp(m - m'), p = exp(e - m'),
+// d = d c + p, o = o c + p hl, from m = -1e30, d = 0, o = 0.
+//
+// gatv2w_bwd_t and gatv2w_bwd_f. A warp per (row, head), as in gatv2w_fwd,
+// leaves each edge a dependent chain (loads, two butterflies, expf, a
+// second pass over the row), needs 24-48 register slots of accumulators a
+// lane (168 registers: 12 warps an SM) and keeps a few loads in flight a
+// warp, far below the floor's ~20 KB an SM. In the backward passes m is
+// given, so the edges of a row are independent apart from the final sum.
+// So:
+// - One block owns a (row, head) and splits the head's channels over its
+//   threads: kBwdChans = 6 a thread, in 2-float vectors where C is even
+//   (rows and heads then start 8 bytes aligned: F = 750 rows are only
+//   8-byte aligned, so no wider load is valid on every row), else single
+//   floats; vector j of thread t is j T + t (T threads), so each load
+//   instruction of a warp is one coalesced run. W = ceil(C / 192) warps:
+//   4 at C = 750, 22 at C = 4,096 (bwd_warps; the launch picks the vector
+//   width by C and the alignment of the pointers).
+// - The block walks its row G edges a step (kBwdTEdges, kBwdFEdges),
+//   with the next step's G neighbour indices loaded one step ahead. All G
+//   edges' gathered rows are requested before any is used, into
+//   registers, and read there once: for the logit and q sums and for the
+//   accumulation. What the accumulation needs of an edge stays in
+//   registers across the sums (g_o[r] and the signs of z in bwd_t, z in
+//   bwd_f). The own row is loaded once for the row, into registers; att_h
+//   once for the block, into shared memory (C floats), where it frees the
+//   registers that kept the kernels from spilling at 3 (bwd_t) and 4
+//   (bwd_f) edges a step.
+// - Registers: the launch bound of kMaxBwdWarps warps caps a thread at 80,
+//   so at C = 750 six blocks of 4 warps (24 warps) fit on an SM, each with
+//   12-18 KB of gathered rows requested at a step.
+// - The G (e, q) pairs of a step meet once: a xor-butterfly in each warp,
+//   then the warps' totals added in warp order from shared memory after
+//   one barrier (two buffers, so one barrier a step), the same bits in
+//   every thread.
+// - gatv2w_bwd_t: one block a (sender, head), grid (N, H).
+//   gatv2w_bwd_f: grid (B, H) of B = gatv2w_att_rows blocks a head, one
+//   wave of the card; block b walks receivers b, b + B, ... Each thread
+//   sums its channels' d_att terms over every edge the block walks, in
+//   registers, and writes them to row b of the partial sums at the end:
+//   no atomics, deterministic, one partial row a block.
+// Every output row is written once, zeros for a row without edges; lanes
+// past C and edges past the row's end are masked.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "edge_groups.cuh"  // edge_at
 #include "warp_rows.cuh"
 
 namespace {
 
-constexpr int kWideWarps = 4;           // warps a block
+constexpr int kWideWarps = 4;           // gatv2w_fwd: warps a block
 constexpr int kRegSlots = 24;           // a lane's register slots (768 ch)
 constexpr int kMaxWideChannels = 4096;  // C the kernels take
-constexpr int kMaxWideAttBlocks = 1024; // gatv2w_bwd_f: blocks a head
 constexpr int kStaticSmem = 48 * 1024;  // beyond it: an opt-in attribute
+constexpr int kBwdChans = 6;            // backward: channels a thread
+constexpr int kMaxBwdWarps = 24;        // backward: warps a block at most
+constexpr int kBwdTEdges = 3;           // gatv2w_bwd_t: edges a block step
+constexpr int kBwdFEdges = 4;           // gatv2w_bwd_f: edges a block step
+static_assert(kMaxBwdWarps * 32 * kBwdChans >= kMaxWideChannels,
+              "a backward block holds the widest head");
 
 // The one shape rule of the wide kernels (and of wide_shape_ok in
 // egc_tpu_torch/ops/cuda/attention.py).
@@ -110,18 +151,6 @@ __device__ __forceinline__ void each_slot(float (&reg)[kRegSlots],
     fn(lane + 32 * t, spill[(t - kRegSlots) * 32]);
 }
 
-// The same over two accumulators.
-template <typename Fn>
-__device__ __forceinline__ void each_slot2(float (&ra)[kRegSlots],
-                                           float* sa, float (&rb)[kRegSlots],
-                                           float* sb, int T, int lane,
-                                           Fn&& fn) {
-#pragma unroll
-  for (int t = 0; t < kRegSlots; ++t)
-    if (t < T) fn(lane + 32 * t, ra[t], rb[t]);
-  for (int t = kRegSlots; t < T; ++t)
-    fn(lane + 32 * t, sa[(t - kRegSlots) * 32], sb[(t - kRegSlots) * 32]);
-}
 
 // The lane's part of the head's logit: sum over its channels of
 // att leaky(x + y), x and y the two endpoints' head rows.
@@ -135,19 +164,6 @@ __device__ __forceinline__ float part_logit(const float* __restrict__ x,
   return e;
 }
 
-// The lane's parts of the logit and of q = sum_c go hl_s.
-__device__ __forceinline__ void part_logit_q(
-    const float* __restrict__ hls, const float* __restrict__ hrr,
-    const float* __restrict__ go, const float* __restrict__ att, int C,
-    int lane, float slope, float& e, float& q) {
-  e = 0.f;
-  q = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float x = __ldg(hls + c);
-    e = fmaf(__ldg(att + c), leaky(x + __ldg(hrr + c), slope), e);
-    q = fmaf(__ldg(go + c), x, q);
-  }
-}
 
 // gatv2w_fwd: warp (row, head) = divmod(global warp, heads).
 __global__ void __launch_bounds__(kWideWarps * 32)
@@ -195,8 +211,117 @@ gatv2w_fwd_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
   }
 }
 
-// gatv2w_bwd_t: warp (sender s, head) over s's out-edges (CSC).
-__global__ void __launch_bounds__(kWideWarps * 32)
+// ---------------------------------------------------------------------------
+// the backward passes: a block a (row, head), kBwdChans channels a thread
+
+// Warps of a backward block for a head of C channels.
+__host__ __device__ inline int bwd_warps(int channels) {
+  return (channels + 32 * kBwdChans - 1) / (32 * kBwdChans);
+}
+
+// The thread's channels of a head row p: vector j (V floats) is
+// j * T + t, of nvec = C / V; zeros past C.
+template <int V>
+__device__ __forceinline__ void load_chans(const float* __restrict__ p,
+                                           int t, int T, int nvec,
+                                           float (&x)[kBwdChans]) {
+#pragma unroll
+  for (int j = 0; j < kBwdChans / V; ++j) {
+    const int v = j * T + t;
+    if constexpr (V == 2) {
+      const float2 f = v < nvec
+                           ? __ldg(reinterpret_cast<const float2*>(p) + v)
+                           : make_float2(0.f, 0.f);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    } else {
+      x[j] = v < nvec ? __ldg(p + v) : 0.f;
+    }
+  }
+}
+
+// The same from the head's C floats in shared memory.
+template <int V>
+__device__ __forceinline__ void shared_chans(const float* s, int t, int T,
+                                             int nvec,
+                                             float (&x)[kBwdChans]) {
+#pragma unroll
+  for (int j = 0; j < kBwdChans / V; ++j) {
+    const int v = j * T + t;
+    if constexpr (V == 2) {
+      const float2 f = v < nvec ? reinterpret_cast<const float2*>(s)[v]
+                                : make_float2(0.f, 0.f);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    } else {
+      x[j] = v < nvec ? s[v] : 0.f;
+    }
+  }
+}
+
+// att_h (C floats) into the block's shared memory, for its whole walk.
+__device__ __forceinline__ void share_att(float* s,
+                                          const float* __restrict__ att_h,
+                                          int C) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) s[c] = __ldg(att_h + c);
+  __syncthreads();
+}
+
+template <int V>
+__device__ __forceinline__ void store_chans(float* __restrict__ p, int t,
+                                            int T, int nvec,
+                                            const float (&x)[kBwdChans]) {
+#pragma unroll
+  for (int j = 0; j < kBwdChans / V; ++j) {
+    const int v = j * T + t;
+    if (v >= nvec) continue;
+    if constexpr (V == 2)
+      reinterpret_cast<float2*>(p)[v] = make_float2(x[2 * j], x[2 * j + 1]);
+    else
+      p[v] = x[j];
+  }
+}
+
+// The block's totals of the G pairs (e_g, q_g), the same bits in every
+// thread: a butterfly in each warp, then the W warps' totals added in warp
+// order from red ([W][2G] floats, one of two buffers that the steps take
+// in turn, so one barrier a step suffices).
+template <int G>
+__device__ __forceinline__ void block_sums(float (&e)[G], float (&q)[G],
+                                           float* red, int lane, int warp,
+                                           int W) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    e[g] = warp_sum(e[g]);
+    q[g] = warp_sum(q[g]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      red[warp * 2 * G + g] = e[g];
+      red[warp * 2 * G + G + g] = q[g];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    e[g] = red[g];
+    q[g] = red[G + g];
+  }
+  for (int w = 1; w < W; ++w) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      e[g] += red[w * 2 * G + g];
+      q[g] += red[w * 2 * G + G + g];
+    }
+  }
+}
+
+// gatv2w_bwd_t: block (sender s = blockIdx.x, head h = blockIdx.y) over
+// s's out-edges (CSC). Per edge it keeps g_o[r] and the signs of z across
+// the sums.
+template <int V>
+__global__ void __launch_bounds__(kMaxBwdWarps * 32)
 gatv2w_bwd_t_kernel(const float* __restrict__ hl,
                     const float* __restrict__ hr,
                     const float* __restrict__ att,
@@ -204,53 +329,90 @@ gatv2w_bwd_t_kernel(const float* __restrict__ hl,
                     const float* __restrict__ g_o,
                     const float* __restrict__ g_d,
                     const int* __restrict__ colptr,
-                    const int* __restrict__ receivers, int n_rows, int heads,
+                    const int* __restrict__ receivers, int heads,
                     int channels, float slope, float* __restrict__ d_hl) {
-  extern __shared__ float s_spill[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long item = (long long)blockIdx.x * kWideWarps + warp;
-  if (item >= (long long)n_rows * heads) return;  // whole warps exit
-  const int row = (int)(item / heads), h = (int)(item % heads);
-  const int C = channels, F = heads * channels, T = slots_of(C);
-  float* spill = s_spill + (size_t)warp * spill_slots(C) * 32 + lane;
-  const float* hl_own = hl + (size_t)row * F + (size_t)h * C;
-  const float* att_h = att + (size_t)h * C;
+  constexpr int G = kBwdTEdges, K = kBwdChans;
+  __shared__ float s_red[2][kMaxBwdWarps * 2 * G];
+  extern __shared__ float s_att[];  // att_h: C floats
+  const int t = threadIdx.x, T = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, W = T >> 5;
+  const int row = blockIdx.x, h = blockIdx.y;
+  const int C = channels, F = heads * channels, nvec = channels / V;
+  const size_t hc = (size_t)h * C;
 
-  float acc[kRegSlots];
-  each_slot(acc, spill, T, lane, [&](int, float& a) { a = 0.f; });
+  float own[K], acc[K];
+  load_chans<V>(hl + (size_t)row * F + hc, t, T, nvec, own);
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  share_att(s_att, att + hc, C);
+
+  const int start = colptr[row];
   const int end = colptr[row + 1];
-  for (int i = colptr[row]; i < end; ++i) {
-    const int r = __ldg(receivers + i);
-    const size_t off = (size_t)r * F + (size_t)h * C;
-    const float* hr_r = hr + off;
-    const float* go_r = g_o + off;
-    float pe, pq;
-    part_logit_q(hl_own, hr_r, go_r, att_h, C, lane, slope, pe, pq);
-    pe = warp_sum(pe);
-    pq = warp_sum(pq);
-    const float a = expf(pe - __ldg(m + (size_t)r * heads + h));
-    const float de = a * (pq + __ldg(g_d + (size_t)r * heads + h));
-    each_slot(acc, spill, T, lane, [&](int c, float& s) {
-      if (c < C) {
-        const float lrp =
-            __ldg(hl_own + c) + __ldg(hr_r + c) >= 0.f ? 1.f : slope;
-        s = fmaf(a, __ldg(go_r + c), s);
-        s = fmaf(de * __ldg(att_h + c), lrp, s);
+  int r_next[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    r_next[g] = edge_at(receivers, start + g, end);
+  for (int base = start, step = 0; base < end; base += G, ++step) {
+    int r[G];
+    float hrv[G][K], go[G][K], mm[G], gd[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      r[g] = r_next[g];
+      r_next[g] = edge_at(receivers, base + G + g, end);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {  // every edge's rows before any sum
+      const size_t off = (size_t)(r[g] < 0 ? 0 : r[g]) * F + hc;
+      if (r[g] >= 0) {
+        load_chans<V>(hr + off, t, T, nvec, hrv[g]);
+        load_chans<V>(g_o + off, t, T, nvec, go[g]);
+        mm[g] = __ldg(m + (size_t)r[g] * heads + h);
+        gd[g] = __ldg(g_d + (size_t)r[g] * heads + h);
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) hrv[g][k] = go[g][k] = 0.f;
+        mm[g] = gd[g] = 0.f;
       }
-    });
+    }
+    float e[G], q[G], attv[K];
+    unsigned neg[G];  // bit k: z of channel k below 0
+    shared_chans<V>(s_att, t, T, nvec, attv);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      e[g] = q[g] = 0.f;
+      neg[g] = 0u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float z = own[k] + hrv[g][k];
+        e[g] = fmaf(attv[k], leaky(z, slope), e[g]);
+        q[g] = fmaf(go[g][k], own[k], q[g]);
+        neg[g] |= (z >= 0.f ? 0u : 1u) << k;
+      }
+    }
+    block_sums<G>(e, q, s_red[step & 1], lane, warp, W);
+    shared_chans<V>(s_att, t, T, nvec, attv);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (r[g] < 0) continue;  // the same for the whole block
+      const float a = expf(e[g] - mm[g]);
+      const float de = a * (q[g] + gd[g]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        acc[k] = fmaf(a, go[g][k], acc[k]);
+        acc[k] = fmaf(de * attv[k], (neg[g] >> k) & 1u ? slope : 1.f,
+                      acc[k]);
+      }
+    }
   }
-  float* out = d_hl + (size_t)row * F + (size_t)h * C;
-  each_slot(acc, spill, T, lane, [&](int c, float& s) {
-    if (c < C) out[c] = s;
-  });
+  store_chans<V>(d_hl + (size_t)row * F + hc, t, T, nvec, acc);
 }
 
-// gatv2w_bwd_f: head h = blockIdx.y; the block's warps take receivers
-// r = blockIdx.x * kWideWarps + warp, + gridDim.x * kWideWarps, ... over
-// their in-edges (CSR). Shared memory: each warp's spilled d_hr and d_att
-// slots, then one row of C floats where the warps add their d_att.
-__global__ void __launch_bounds__(kWideWarps * 32)
+// gatv2w_bwd_f: block (b = blockIdx.x, head h = blockIdx.y) over the
+// receivers r = b, b + gridDim.x, ... and their in-edges (CSR). Per edge it
+// keeps z across the sums; each thread sums its channels' d_att terms over
+// all the block's edges and writes them to row b of d_att_part.
+template <int V>
+__global__ void __launch_bounds__(kMaxBwdWarps * 32)
 gatv2w_bwd_f_kernel(const float* __restrict__ hl,
                     const float* __restrict__ hr,
                     const float* __restrict__ att,
@@ -261,69 +423,107 @@ gatv2w_bwd_f_kernel(const float* __restrict__ hl,
                     const int* __restrict__ senders, int n_rows, int heads,
                     int channels, float slope, float* __restrict__ d_hr,
                     float* __restrict__ d_att_part) {
-  extern __shared__ float s_spill[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  constexpr int G = kBwdFEdges, K = kBwdChans;
+  __shared__ float s_red[2][kMaxBwdWarps * 2 * G];
+  extern __shared__ float s_att[];  // att_h: C floats
+  const int t = threadIdx.x, T = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, W = T >> 5;
   const int h = blockIdx.y;
-  const int C = channels, F = heads * channels, T = slots_of(C);
-  const int S = spill_slots(C);
-  float* spill_acc = s_spill + (size_t)warp * 2 * S * 32 + lane;
-  float* spill_att = spill_acc + (size_t)S * 32;
-  float* s_row = s_spill + (size_t)kWideWarps * 2 * S * 32;  // [C]
-  const float* att_h = att + (size_t)h * C;
+  const int C = channels, F = heads * channels, nvec = channels / V;
+  const size_t hc = (size_t)h * C;
 
-  float datt[kRegSlots], acc[kRegSlots];
-  each_slot(datt, spill_att, T, lane, [&](int, float& a) { a = 0.f; });
-  for (int row = blockIdx.x * kWideWarps + warp; row < n_rows;
-       row += gridDim.x * kWideWarps) {
-    const size_t own = (size_t)row * F + (size_t)h * C;
-    const float* hr_own = hr + own;
-    const float* go_own = g_o + own;
+  float datt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) datt[k] = 0.f;
+  share_att(s_att, att + hc, C);
+  int step = 0;
+  for (int row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const size_t own = (size_t)row * F + hc;
+    float hr_own[K], go_own[K], acc[K];
+    load_chans<V>(hr + own, t, T, nvec, hr_own);
+    load_chans<V>(g_o + own, t, T, nvec, go_own);
     const float mm = __ldg(m + (size_t)row * heads + h);
     const float gd = __ldg(g_d + (size_t)row * heads + h);
-    each_slot(acc, spill_acc, T, lane, [&](int, float& a) { a = 0.f; });
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0.f;
+    const int start = rowptr[row];
     const int end = rowptr[row + 1];
-    for (int i = rowptr[row]; i < end; ++i) {
-      const float* src =
-          hl + (size_t)__ldg(senders + i) * F + (size_t)h * C;
-      float pe, pq;
-      part_logit_q(src, hr_own, go_own, att_h, C, lane, slope, pe, pq);
-      pe = warp_sum(pe);
-      pq = warp_sum(pq);
-      const float a = expf(pe - mm);
-      const float de = a * (pq + gd);
-      each_slot2(acc, spill_acc, datt, spill_att, T, lane,
-                 [&](int c, float& s, float& t) {
-                   if (c < C) {
-                     const float z = __ldg(src + c) + __ldg(hr_own + c);
-                     s = fmaf(de * __ldg(att_h + c), z >= 0.f ? 1.f : slope,
-                              s);
-                     t = fmaf(de, leaky(z, slope), t);
-                   }
-                 });
+    int s_next[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      s_next[g] = edge_at(senders, start + g, end);
+    for (int base = start; base < end; base += G, ++step) {
+      int s[G];
+      float z[G][K];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        s[g] = s_next[g];
+        s_next[g] = edge_at(senders, base + G + g, end);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {  // every edge's row before any sum
+        if (s[g] >= 0) {
+          load_chans<V>(hl + (size_t)s[g] * F + hc, t, T, nvec, z[g]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k) z[g][k] = 0.f;
+        }
+      }
+      float e[G], q[G], attv[K];
+      shared_chans<V>(s_att, t, T, nvec, attv);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        e[g] = q[g] = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          q[g] = fmaf(go_own[k], z[g][k], q[g]);
+          z[g][k] += hr_own[k];
+          e[g] = fmaf(attv[k], leaky(z[g][k], slope), e[g]);
+        }
+      }
+      block_sums<G>(e, q, s_red[step & 1], lane, warp, W);
+      shared_chans<V>(s_att, t, T, nvec, attv);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (s[g] < 0) continue;  // the same for the whole block
+        const float a = expf(e[g] - mm);
+        const float de = a * (q[g] + gd);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float zk = z[g][k];
+          acc[k] = fmaf(de * attv[k], zk >= 0.f ? 1.f : slope, acc[k]);
+          datt[k] = fmaf(de, leaky(zk, slope), datt[k]);
+        }
+      }
     }
-    float* out = d_hr + own;
-    each_slot(acc, spill_acc, T, lane, [&](int c, float& s) {
-      if (c < C) out[c] = s;
-    });
+    store_chans<V>(d_hr + own, t, T, nvec, acc);
   }
-
-  // the block's d_att row: the warps' sums added in warp order
-  for (int w = 0; w < kWideWarps; ++w) {
-    __syncthreads();
-    if (warp == w)
-      each_slot(datt, spill_att, T, lane, [&](int c, float& t) {
-        if (c < C) s_row[c] = w == 0 ? t : s_row[c] + t;
-      });
-  }
-  __syncthreads();
-  float* part = d_att_part + (size_t)blockIdx.x * F + (size_t)h * C;
-  for (int c = threadIdx.x; c < C; c += kWideWarps * 32) part[c] = s_row[c];
+  store_chans<V>(d_att_part + (size_t)blockIdx.x * F + hc, t, T, nvec,
+                 datt);
 }
 
-inline unsigned att_blocks(int n_rows) {
-  const unsigned b = (unsigned)((n_rows + kWideWarps - 1) / kWideWarps);
-  return b < (unsigned)kMaxWideAttBlocks ? b : (unsigned)kMaxWideAttBlocks;
+// Dynamic shared memory of a backward block: att_h.
+inline size_t att_bytes(int channels) {
+  return (size_t)channels * sizeof(float);
+}
+
+// Rows of d_att partial sums, one a gatv2w_bwd_f block: the blocks a head
+// of one wave of the card at the occupancy of the launch's kernel, at most
+// n_rows; 0 if the device cannot be asked.
+int att_rows(int n_rows, int heads, int channels) {
+  if (n_rows <= 0) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  const int threads = bwd_warps(channels) * 32;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm,
+          channels % 2 ? gatv2w_bwd_f_kernel<1> : gatv2w_bwd_f_kernel<2>,
+          threads, att_bytes(channels)) != cudaSuccess)
+    return 0;
+  const int want = sms * per_sm / heads;
+  return want < 1 ? 1 : (want < n_rows ? want : n_rows);
 }
 
 struct Args {
@@ -344,41 +544,59 @@ cudaError_t shared_bytes(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+inline bool aligned8(const void* p) {
+  return ((uintptr_t)p & 7u) == 0;
+}
+
+// The backward passes load 2-float vectors where C is even and every row
+// pointer is 8-byte aligned (every PyTorch allocation is), else floats.
+inline int bwd_vector(const Args& a) {
+  const void* ptrs[] = {a.hl, a.hr, a.att, a.g_o, a.out0};
+  if (a.channels % 2) return 1;
+  for (const void* p : ptrs)
+    if (!aligned8(p)) return 1;
+  return 2;
+}
+
+template <int V>
+void launch_bwd(int which, const Args& a, cudaStream_t s) {
+  const dim3 threads(bwd_warps(a.channels) * 32);
+  if (which == 1) {
+    const dim3 grid((unsigned)a.n_rows, (unsigned)a.heads);
+    gatv2w_bwd_t_kernel<V><<<grid, threads, att_bytes(a.channels), s>>>(
+        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.heads,
+        a.channels, a.slope, a.out0);
+  } else {
+    const dim3 grid((unsigned)att_rows(a.n_rows, a.heads, a.channels),
+                    (unsigned)a.heads);
+    gatv2w_bwd_f_kernel<V><<<grid, threads, att_bytes(a.channels), s>>>(
+        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
+        a.heads, a.channels, a.slope, a.out0, a.out1);
+  }
+}
+
 // which: 0 gatv2w_fwd, 1 gatv2w_bwd_t, 2 gatv2w_bwd_f
 int run(int which, const Args& a, void* stream) {
   if (!wide_shape_ok(a.heads, a.channels)) return (int)cudaErrorInvalidValue;
   if (a.n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = kWideWarps * 32;
-  const size_t warp_bytes = (size_t)spill_slots(a.channels) * 32 *
-                            sizeof(float);
-  const long long items = (long long)a.n_rows * a.heads;
-  const unsigned blocks =
-      (unsigned)((items + kWideWarps - 1) / kWideWarps);
-  cudaError_t err;
   if (which == 0) {
-    const size_t bytes = kWideWarps * warp_bytes;
+    const int threads = kWideWarps * 32;
+    const size_t bytes = kWideWarps * (size_t)spill_slots(a.channels) * 32 *
+                         sizeof(float);
+    const long long items = (long long)a.n_rows * a.heads;
+    const unsigned blocks =
+        (unsigned)((items + kWideWarps - 1) / kWideWarps);
+    cudaError_t err;
     if ((err = shared_bytes(gatv2w_fwd_kernel, bytes)) != cudaSuccess)
       return (int)err;
     gatv2w_fwd_kernel<<<blocks, threads, bytes, s>>>(
         a.hl, a.hr, a.att, a.ptr, a.idx, a.n_rows, a.heads, a.channels,
         a.slope, a.out0, a.out1, a.out2);
-  } else if (which == 1) {
-    const size_t bytes = kWideWarps * warp_bytes;
-    if ((err = shared_bytes(gatv2w_bwd_t_kernel, bytes)) != cudaSuccess)
-      return (int)err;
-    gatv2w_bwd_t_kernel<<<blocks, threads, bytes, s>>>(
-        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
-        a.heads, a.channels, a.slope, a.out0);
+  } else if (bwd_vector(a) == 2) {
+    launch_bwd<2>(which, a, s);
   } else {
-    const size_t bytes =
-        kWideWarps * 2 * warp_bytes + (size_t)a.channels * sizeof(float);
-    if ((err = shared_bytes(gatv2w_bwd_f_kernel, bytes)) != cudaSuccess)
-      return (int)err;
-    const dim3 grid(att_blocks(a.n_rows), (unsigned)a.heads);
-    gatv2w_bwd_f_kernel<<<grid, threads, bytes, s>>>(
-        a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
-        a.heads, a.channels, a.slope, a.out0, a.out1);
+    launch_bwd<1>(which, a, s);
   }
   return (int)cudaGetLastError();
 }
@@ -396,8 +614,21 @@ int gatv2w_shape_ok(int heads, int channels) {
   return wide_shape_ok(heads, channels) ? 1 : 0;
 }
 
-// Rows of d_att partial sums that gatv2w_bwd_f writes for n_rows receivers.
-int gatv2w_att_blocks(int n_rows) { return (int)att_blocks(n_rows); }
+// The backward blocks' geometry for (heads, channels) that wide_shape_ok
+// takes, on 8-byte aligned tensors: out = {warps a block, floats a
+// vector}. 0, or cudaErrorInvalidValue for a shape the rule refuses.
+int gatv2w_bwd_geometry(int heads, int channels, int* out) {
+  if (!wide_shape_ok(heads, channels)) return (int)cudaErrorInvalidValue;
+  out[0] = bwd_warps(channels);
+  out[1] = channels % 2 ? 1 : 2;
+  return 0;
+}
+
+// Rows of d_att partial sums that gatv2w_bwd_f writes for n_rows
+// receivers at (heads, channels) on the current device.
+int gatv2w_att_rows(int n_rows, int heads, int channels) {
+  return att_rows(n_rows, heads, channels);
+}
 
 // hl, hr, o: [n_rows, heads*channels]; att: [heads*channels]; d, m:
 // [n_rows, heads]; (heads, channels) as wide_shape_ok takes them (checked
@@ -423,7 +654,7 @@ int gatv2w_bwd_t(const float* hl, const float* hr, const float* att,
 }
 
 // (rowptr, senders): the forward graph, receiver-sorted. d_att_part:
-// [gatv2w_att_blocks(n_rows), heads*channels].
+// [gatv2w_att_rows(n_rows, heads, channels), heads*channels].
 int gatv2w_bwd_f(const float* hl, const float* hr, const float* att,
                  const float* m, const float* g_o, const float* g_d,
                  const int* rowptr, const int* senders, int n_rows,

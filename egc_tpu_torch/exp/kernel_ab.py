@@ -1,13 +1,14 @@
 """Time builds of the gather-reduce kernels, the head-mix kernels, the
-three GAT kernels and the three GATv2 kernels against each other on one
-card, at the shapes of their paths.
+three GAT kernels, the three GATv2 kernels and the three wide GATv2
+kernels against each other on one card, at the shapes of their paths.
 
     python3 -m egc_tpu_torch.exp.kernel_ab --versions DIR [DIR ...] \\
         [--rounds 2] [--cases PREFIX ...] [--out results.json]
 
 Each DIR holds another build's ``gather_reduce.cu``, ``headmix.cu``,
-``gat_attention.cu`` and ``gatv2_attention.cu`` (with the ``*.cuh``
-headers they include), for example an earlier commit's
+``gat_attention.cu``, ``gatv2_attention.cu`` and
+``gatv2_attention_wide.cu`` (with the ``*.cuh`` headers they include; a
+case runs only the source it names), for example an earlier commit's
 ``egc_tpu_torch/csrc/``; the package's own sources are the version
 ``current``. Every version is built with the package's nvcc flags, its
 ``ptxas`` register report kept, its output held against the plain PyTorch
@@ -31,11 +32,15 @@ synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges) at F = 128.
   ``torch.einsum("nhba,nabl->nhl")`` and backward beside the two einsum
   calls of its gradient (``"nhl,nabl->nhba"`` for dw, ``"nhba,nhl->nabl"``
   for dy); ``gat_fwd``, ``gat_bwd_t`` and ``gat_bwd_f`` at (H8, C19) and
-  (H1, C152); and ``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at
-  (H8, C14) and (H1, C112).
+  (H1, C152); ``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at
+  (H8, C14) and (H1, C112); and ``gatv2w_bwd_t``, ``gatv2w_bwd_f`` and
+  ``gatv2w_fwd`` at (H1, C750), the head of GATv2 h750 H3's last layer
+  (a build's d_att partial rows by its ``gatv2w_att_rows`` or, before
+  it, ``gatv2w_att_blocks``).
 
 Outputs are held at rtol = atol = 1e-5 (the masks exactly), except
-``gatv2_bwd_f``'s d_att (a sum over every edge whose terms cancel), held
+``gatv2_bwd_f``'s and ``gatv2w_bwd_f``'s d_att (a sum over every edge
+whose terms cancel), held
 after its rows are summed at relative L2 <= 1e-4; two launches of a
 version must agree bitwise. ``--cases`` keeps the cases whose names start
 with one of its prefixes. Prints one JSON line per measurement and the
@@ -60,7 +65,7 @@ from egc_tpu_torch.ops.cuda import gather_reduce as gr
 from egc_tpu_torch.ops.cuda import headmix as hm
 
 KERNEL_SOURCES = ("gather_reduce", "headmix", "gat_attention",
-                  "gatv2_attention")
+                  "gatv2_attention", "gatv2_attention_wide")
 GATHER_PRIMS = {"sum,wsum,max": ("sum", "wsum", "max"),
                 "6 aggregators": ("sum", "sumsq", "max", "min")}
 _COEFF_OF = {"sum": "c_sum", "wsum": "c_wsum", "sumsq": "c_sumsq2",
@@ -69,6 +74,7 @@ _OLD_SEGS = ("c_sum", "c_wsum", "c_sumsq2", "mx", "c_max", "mn", "c_min")
 HEADMIX_SHAPE = dict(H=4, B=4, A=3, L=32)
 GAT_SHAPES = ((8, 19), (1, 152))
 GATV2_SHAPES = ((8, 14), (1, 112))
+GATV2_WIDE_SHAPES = ((1, 750),)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -329,16 +335,49 @@ def gatv2_bwd_t(lib, hl, hr, att, m, g_o, g_d, colptr, receivers):
     return (d_hl,)
 
 
-def gatv2_bwd_f(lib, hl, hr, att, m, g_o, g_d, rowptr, senders):
+def _att_rows(lib, prefix, n, heads, c) -> int:
+    """Rows of d_att partial sums of a build's ``{prefix}_bwd_f``: by its
+    ``gatv2w_att_rows(n, H, C)`` where it has one, else by
+    ``{prefix}_att_blocks(n)``."""
+    if hasattr(lib, f"{prefix}_att_rows"):
+        fn, args = getattr(lib, f"{prefix}_att_rows"), (n, heads, c)
+    else:
+        fn, args = getattr(lib, f"{prefix}_att_blocks"), (n,)
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * len(args)
+    return fn(*args)
+
+
+def gatv2_bwd_f(lib, hl, hr, att, m, g_o, g_d, rowptr, senders,
+                prefix="gatv2"):
     """``(d_hr, d_att)``, d_att summed from the build's partial rows."""
-    blocks = lib.gatv2_att_blocks
-    blocks.restype, blocks.argtypes = ctypes.c_int, [ctypes.c_int]
     d_hr = torch.empty_like(hl)
-    part = hl.new_empty(blocks(hl.shape[0]), hl.shape[1])
-    _attention(lib, "gatv2_bwd_f",
+    part = hl.new_empty(_att_rows(lib, prefix, hl.shape[0], *att.shape),
+                        hl.shape[1])
+    _attention(lib, f"{prefix}_bwd_f",
                (hl, hr, att, m, g_o, g_d, rowptr, senders), (d_hr, part),
                *att.shape)
     return d_hr, part.sum(0).view(att.shape)
+
+
+def gatv2w_fwd(lib, hl, hr, att, rowptr, senders):
+    n, heads = hl.shape[0], att.shape[0]
+    outs = (torch.empty_like(hl), hl.new_empty(n, heads),
+            hl.new_empty(n, heads))
+    _attention(lib, "gatv2w_fwd", (hl, hr, att, rowptr, senders), outs,
+               *att.shape)
+    return outs
+
+
+def gatv2w_bwd_t(lib, hl, hr, att, m, g_o, g_d, colptr, receivers):
+    d_hl = torch.empty_like(hl)
+    _attention(lib, "gatv2w_bwd_t",
+               (hl, hr, att, m, g_o, g_d, colptr, receivers), (d_hl,),
+               *att.shape)
+    return (d_hl,)
+
+
+def gatv2w_bwd_f(lib, *args):
+    return gatv2_bwd_f(lib, *args, prefix="gatv2w")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -418,7 +457,11 @@ def _cases(dev):
         cases[f"gat_bwd_f {shape}"] = (
             "gat_attention", lambda lib, a=bwd_f: gat_bwd_f(lib, *a),
             (at.gat_bwd_f_plain(*bwd_f),), (), None, False)
-    for heads, c in GATV2_SHAPES:
+    narrow = ("gatv2_attention", gatv2_fwd, gatv2_bwd_t, gatv2_bwd_f)
+    wide = ("gatv2_attention_wide", gatv2w_fwd, gatv2w_bwd_t, gatv2w_bwd_f)
+    for heads, c, (src, fn_fwd, fn_t, fn_f) in (
+            [(h, c, narrow) for h, c in GATV2_SHAPES]
+            + [(h, c, wide) for h, c in GATV2_WIDE_SHAPES]):
         f = heads * c
         hl, hr = randn(n, f), randn(n, f)
         att = randn(heads, c, scale=1 / math.sqrt(c))
@@ -429,14 +472,14 @@ def _cases(dev):
         bwd_t = (hl, hr, att, m, g_o, g_d, plan.colptr, plan.bwd_receivers)
         bwd_f = (hl, hr, att, m, g_o, g_d, plan.rowptr, plan.fwd_senders)
         shape = f"H{heads} C{c}"
-        cases[f"gatv2_bwd_t {shape}"] = (
-            "gatv2_attention", lambda lib, a=bwd_t: gatv2_bwd_t(lib, *a),
+        cases[f"{fn_t.__name__} {shape}"] = (
+            src, lambda lib, a=bwd_t, fn=fn_t: fn(lib, *a),
             (at.gatv2_bwd_t_plain(*bwd_t),), (), None, False)
-        cases[f"gatv2_fwd {shape}"] = (
-            "gatv2_attention", lambda lib, a=fwd: gatv2_fwd(lib, *a),
+        cases[f"{fn_fwd.__name__} {shape}"] = (
+            src, lambda lib, a=fwd, fn=fn_fwd: fn(lib, *a),
             ref_fwd, (), None, False)
-        cases[f"gatv2_bwd_f {shape}"] = (
-            "gatv2_attention", lambda lib, a=bwd_f: gatv2_bwd_f(lib, *a),
+        cases[f"{fn_f.__name__} {shape}"] = (
+            src, lambda lib, a=bwd_f, fn=fn_f: fn(lib, *a),
             at.gatv2_bwd_f_plain(*bwd_f), (1,), None, False)
     return cases
 

@@ -4,6 +4,9 @@ JAX package on the CPU:
 - ``sweeps`` covers every column of every (H, C) with H <= 32 and
   H*C <= 2,048 exactly once, each launch one that ``shape_ok`` takes, or
   for GATv2 one ``gatv2w_*`` launch of a head wider than 512 floats;
+- ``wide_bwd_geometry`` against the constants of the wide kernels'
+  source, and ``chip_smoke.WIDE_SMALL_SHAPES`` reaching each of its
+  variants;
 - the sweeps composed with the plain versions standing in for the
   launches (``run_sweeps``) against the whole-row plain versions, and
   ``gat_attention`` / ``gatv2_attention`` at (3, 250), (1, 750), (2, 600)
@@ -20,7 +23,9 @@ loss rtol 1e-5); the composition against the whole row relative L2 <=
 1e-6 (the same sums, split into launches).
 """
 
+import ast
 import re
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -231,6 +236,55 @@ def test_sweeps_refuse_shapes_past_their_rule():
     with pytest.raises(ValueError, match="at most 4096 channels"):
         tat.sweeps(1, tat.WIDE_MAX_CHANNELS + 1, v2=True)
     assert tat.sweeps(1, tat.WIDE_MAX_CHANNELS + 1)   # GAT: any width
+
+
+ROOT = Path(__file__).resolve().parents[1]
+WIDE_CU = ROOT / "egc_tpu_torch" / "csrc" / "gatv2_attention_wide.cu"
+
+
+def _cu_constant(name: str) -> int:
+    found = re.search(rf"constexpr int {name} = (\d+);", WIDE_CU.read_text())
+    assert found, name
+    return int(found.group(1))
+
+
+def test_wide_bwd_geometry_is_the_kernels_rule():
+    """``wide_bwd_geometry`` against the constants of
+    ``csrc/gatv2_attention_wide.cu``: for every C the rule takes, the
+    fewest warps of ``WIDE_BWD_CHANS`` channels a thread that hold the
+    head, at most ``WIDE_MAX_BWD_WARPS``; 2-float vectors where C is even;
+    any H the rule takes alike; a shape the rule refuses raises."""
+    assert tat.WIDE_BWD_CHANS == _cu_constant("kBwdChans")
+    assert tat.WIDE_MAX_BWD_WARPS == _cu_constant("kMaxBwdWarps")
+    assert tat.WIDE_MAX_CHANNELS == _cu_constant("kMaxWideChannels")
+    lanes = 32 * tat.WIDE_BWD_CHANS
+    for c in range(1, tat.WIDE_MAX_CHANNELS + 1):
+        warps, vector = tat.wide_bwd_geometry(1, c)
+        assert 1 <= warps <= tat.WIDE_MAX_BWD_WARPS
+        assert (warps - 1) * lanes < c <= warps * lanes
+        assert vector == (1 if c % 2 else 2)
+        assert tat.wide_bwd_geometry(tat.MAX_HEADS, c) == (warps, vector)
+    assert tat.wide_bwd_geometry(1, 750) == (4, 2)
+    for hc in ((0, 8), (tat.MAX_HEADS + 1, 8), (1, 0),
+               (1, tat.WIDE_MAX_CHANNELS + 1)):
+        with pytest.raises(ValueError, match="wide GATv2 kernels take"):
+            tat.wide_bwd_geometry(*hc)
+
+
+def test_chip_smoke_holds_every_wide_backward_variant():
+    """``chip_smoke.WIDE_SMALL_SHAPES`` reach both vector widths of the
+    backward blocks and the most warps the rule needs (C = 4,096), and
+    hold the arxiv head (1, 750)."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    shapes = next(ast.literal_eval(node.value) for node in ast.walk(tree)
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "WIDE_SMALL_SHAPES"
+                          for t in node.targets))
+    geometries = {tat.wide_bwd_geometry(*hc) for hc in shapes}
+    assert {vector for _, vector in geometries} == {1, 2}
+    assert max(warps for warps, _ in geometries) == \
+        tat.wide_bwd_geometry(1, tat.WIDE_MAX_CHANNELS)[0]
+    assert (1, 750) in shapes
 
 
 def _kernel_args(name, plan, n, heads, c, seed):
