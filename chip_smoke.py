@@ -62,12 +62,12 @@ Phases, each of which raises (exit code 1) on any failed check:
    arxiv graph (values, the backward kernels, two launches bitwise, timed
    with bound and floor), on the small graph with gradients through the
    autograd functions and the convs (the wide kernels also at (2, 600),
-   (1, 1100), whose forward slots spill to shared memory, (3, 513) and
-   (1, 4096), so each variant of the backward blocks runs), and the rows
-   (3, 250) and (1, 750) through the convs over their sweeps; the
-   compiled wide rule against ``wide_shape_ok`` and the backward blocks'
-   geometry against ``wide_bwd_geometry``; the build's ``ptxas`` report
-   of the wide backward kernels without spills. What phase 3 held is recorded
+   (1, 1100), (3, 513) and (1, 4096), so each variant of their blocks
+   runs), and the rows (3, 250) and (1, 750) through the convs over their
+   sweeps; the compiled wide rule against ``wide_shape_ok`` and the
+   blocks' geometry against ``wide_geometry``; the build's ``ptxas``
+   report of the six wide instantiations without spills. What phase 3
+   held is recorded
    (``HELD``): every timed
    path and CLI run fails on a gather-reduce (F, primitives, masks; the
    forward without masks counted held with the masked one), head mix
@@ -490,11 +490,10 @@ WIDE_NETS = {"gat_wide": dict(kind="gat", hidden=750, heads=3),
              "gatv2_wide": dict(kind="gatv2", hidden=750, heads=3)}
 WIDE_ROWS = ((3, 250), (1, 750))
 WIDE_CLI = ["--hidden", "750", "--egc-num-heads", "3"]
-# the wide kernels on the small graph: gatv2w_fwd also at a head whose
-# slots spill past the registers (C > 768) and at two heads; each variant
-# of the backward blocks (attention.wide_bwd_geometry): 2-float vectors (C
-# even) at 4, 6 and 22 warps (C = 4,096, the widest the rule takes), single
-# floats (C odd) at three heads
+# the wide kernels on the small graph: each variant of their blocks
+# (attention.wide_geometry): 2-float vectors (C even) at 4, 6 and 22 warps
+# (C = 4,096, the widest the rule takes) and at two heads, single floats (C
+# odd) at three heads
 WIDE_SMALL_SHAPES = ((1, 750), (2, 600), (1, 1100), (3, 513), (1, 4096))
 # the narrow launches of those sweeps, GAT's and GATv2's
 WIDE_SWEEP_SHAPES = ((2, 250), (1, 250), (1, 375))
@@ -623,10 +622,10 @@ def phase_build() -> dict:
             for line in lines:
                 log(f"[build]   {line}")
             if name == "gatv2_attention_wide":
-                bwd = [ln for ln in lines if ln.startswith("gatv2w_bwd")]
-                check(len(bwd) == 4 and all(
-                    "0 bytes spill stores" in ln for ln in bwd),
-                    f"[build] the wide backward kernels: {bwd}")
+                wide = [ln for ln in lines if ln.startswith("gatv2w_")]
+                check(len(wide) == 6 and all(
+                    "0 bytes spill stores" in ln for ln in wide),
+                    f"[build] the wide kernels: {wide}")
     log(f"[build] {_build.build_seconds:.3f} s")
     return {"build_seconds": _build.build_seconds}
 
@@ -1707,9 +1706,9 @@ def _small_attention_graph(dev):
     senders with exactly 1, 2 or 3 out-edges and ten receivers with exactly
     1, 2 or 3 in-edges (fewer than a warp's edge groups), receivers with
     exactly G - 1 and G + 1 in-edges for every count G of edge groups per
-    warp step that the attention kernels take at the checked shapes (a
-    group runs past the row's end); and masks of the empty and the silent
-    rows."""
+    warp step that the attention kernels take at the checked shapes and
+    for the wide forward's edges a block step (a group runs past the
+    row's end); and masks of the empty and the silent rows."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.structure import Graph
@@ -1726,6 +1725,7 @@ def _small_attention_graph(dev):
               for h, c in GAT_SMALL_SHAPES + GAT_SHAPES + CODE_GAT_SHAPES
               + CLI_GAT_SHAPES + GATV2_SMALL_SHAPES + GATV2_SHAPES
               + CODE_GATV2_SHAPES + CLI_GATV2_SHAPES + WIDE_SWEEP_SHAPES}
+    groups.add(at.WIDE_FWD_EDGES)
     near = sorted({k for g in groups for k in (g - 1, g + 1) if k > 0})
     check(len(near) <= 10, f"small graph: {near} needs more nodes")
     few_out = [(0, 70), (1, 100), (2, 150)] + few
@@ -2007,9 +2007,9 @@ def kernels_wide_shapes(data) -> tuple:
                    f"{bad}")
     bad = [hc for hc in probe + list(WIDE_SMALL_SHAPES)
            if at.wide_shape_ok(*hc)
-           and at.kernel_wide_bwd_geometry(*hc) != at.wide_bwd_geometry(*hc)]
-    check(not bad, f"the wide backward blocks differ from wide_bwd_geometry "
-                   f"at {bad}")
+           and at.kernel_wide_geometry(*hc) != at.wide_geometry(*hc)]
+    check(not bad, f"the wide kernels' blocks differ from wide_geometry at "
+                   f"{bad}")
     g = data["graph"]
     plan, dev = g.kernel_plan, data["device"]
     n, e = plan.num_nodes, plan.num_edges

@@ -43,57 +43,55 @@
 // (3.35 TB/s x ~1 us over 132 SMs), and each gathered float must come
 // from memory once.
 //
-// gatv2w_fwd (simple first): one warp owns one (row, head) and walks the
-// row one edge a step. Lane l holds channels l, l + 32, l + 64, ... of the
-// head (slot t is channel l + 32 t), so every load of a slot is one
-// coalesced 128-byte line; the logit is a xor-butterfly over the warp.
-// Each edge reads its gathered row twice, once for the logit and once for
-// the accumulation (the second read mostly from L1). o lives in kRegSlots
-// registers a lane (768 channels) and past them in shared memory, laid
-// out [warp][slot][lane]. The online softmax state is the narrow kernels'
-// online_add: per edge m' = max(m, e), c = exp(m - m'), p = exp(e - m'),
-// d = d c + p, o = o c + p hl, from m = -1e30, d = 0, o = 0.
-//
-// gatv2w_bwd_t and gatv2w_bwd_f. A warp per (row, head), as in gatv2w_fwd,
-// leaves each edge a dependent chain (loads, two butterflies, expf, a
-// second pass over the row), needs 24-48 register slots of accumulators a
-// lane (168 registers: 12 warps an SM) and keeps a few loads in flight a
-// warp, far below the floor's ~20 KB an SM. In the backward passes m is
-// given, so the edges of a row are independent apart from the final sum.
-// So:
+// The design, the same in all three. A warp per (row, head) that walks
+// the row one edge a step leaves each edge a dependent chain (the
+// neighbour index, loads, a butterfly, expf, a second read of the row for
+// the accumulation), needs 24-48 register slots of accumulators a lane
+// past 768 channels and keeps about one gathered row in flight a warp,
+// far below the floor's ~20 KB an SM. So:
 // - One block owns a (row, head) and splits the head's channels over its
-//   threads: kBwdChans = 6 a thread, in 2-float vectors where C is even
+//   threads: kWideChans = 6 a thread, in 2-float vectors where C is even
 //   (rows and heads then start 8 bytes aligned: F = 750 rows are only
 //   8-byte aligned, so no wider load is valid on every row), else single
 //   floats; vector j of thread t is j T + t (T threads), so each load
 //   instruction of a warp is one coalesced run. W = ceil(C / 192) warps:
-//   4 at C = 750, 22 at C = 4,096 (bwd_warps; the launch picks the vector
-//   width by C and the alignment of the pointers).
-// - The block walks its row G edges a step (kBwdTEdges, kBwdFEdges),
-//   with the next step's G neighbour indices loaded one step ahead. All G
-//   edges' gathered rows are requested before any is used, into
-//   registers, and read there once: for the logit and q sums and for the
+//   4 at C = 750, 22 at C = 4,096 (wide_warps; the launch picks the
+//   vector width by C and the alignment of the pointers, wide_vector).
+// - The block walks its row G edges a step (kFwdEdges, kBwdTEdges,
+//   kBwdFEdges), with the next step's G neighbour indices loaded one step
+//   ahead. All G edges' gathered rows are requested before any is used,
+//   into registers, and read there once: for the step's sums and for the
 //   accumulation. What the accumulation needs of an edge stays in
-//   registers across the sums (g_o[r] and the signs of z in bwd_t, z in
-//   bwd_f). The own row is loaded once for the row, into registers; att_h
-//   once for the block, into shared memory (C floats), where it frees the
-//   registers that kept the kernels from spilling at 3 (bwd_t) and 4
-//   (bwd_f) edges a step.
-// - Registers: the launch bound of kMaxBwdWarps warps caps a thread at 80,
-//   so at C = 750 six blocks of 4 warps (24 warps) fit on an SM, each with
-//   12-18 KB of gathered rows requested at a step.
-// - The G (e, q) pairs of a step meet once: a xor-butterfly in each warp,
-//   then the warps' totals added in warp order from shared memory after
-//   one barrier (two buffers, so one barrier a step), the same bits in
-//   every thread.
-// - gatv2w_bwd_t: one block a (sender, head), grid (N, H).
-//   gatv2w_bwd_f: grid (B, H) of B = gatv2w_att_rows blocks a head, one
-//   wave of the card; block b walks receivers b, b + B, ... Each thread
-//   sums its channels' d_att terms over every edge the block walks, in
-//   registers, and writes them to row b of the partial sums at the end:
-//   no atomics, deterministic, one partial row a block.
-// Every output row is written once, zeros for a row without edges; lanes
-// past C and edges past the row's end are masked.
+//   registers across the sums (hl[s] in fwd, g_o[r] and the signs of z in
+//   bwd_t, z in bwd_f). The own row is loaded once for the row, into
+//   registers; att_h once for the block, into shared memory (C floats),
+//   where it frees the registers that kept the backward kernels from
+//   spilling at 3 (bwd_t) and 4 (bwd_f) edges a step.
+// - Registers: the launch bound of kMaxWideWarps warps caps a thread at
+//   80, so at C = 750 six blocks of 4 warps (24 warps) fit on an SM, each
+//   with 12-18 KB of gathered rows requested at a step.
+// - The step's G logits (in the backward passes with the G q's) meet
+//   once (block_sums): a xor-butterfly in each warp, then the warps'
+//   totals added in warp order from shared memory after one barrier (two
+//   buffers, so one barrier a step), the same bits in every thread.
+// - gatv2w_fwd: one block a (receiver, head), grid (N, H). Every thread
+//   holds the same bits of the step's logits, so it keeps the same online
+//   softmax state (m, d) beside its channels of o, and the step's G edges
+//   fold into it in one rescale, with no state merged into another:
+//   m' = max(m, e_g over the step's edges), c = exp(m - m'),
+//   p_g = exp(e_g - m') (0 past the row's end), d = d c + sum_g p_g,
+//   o = o c + sum_g p_g hl_g, g in order, from m = -1e30, d = 0, o = 0.
+// - In the backward passes m is given, so the edges of a row are
+//   independent apart from the final sum. gatv2w_bwd_t: one block a
+//   (sender, head), grid (N, H). gatv2w_bwd_f: grid (B, H) of B =
+//   gatv2w_att_rows blocks a head, one wave of the card; block b walks
+//   receivers b, b + B, ... Each thread sums its channels' d_att terms
+//   over every edge the block walks, in registers, and writes them to row
+//   b of the partial sums at the end: no atomics, deterministic, one
+//   partial row a block.
+// Every output row is written once, zeros for a row without edges (m =
+// -1e30 in the forward); channels past C and edges past the row's end are
+// masked.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,31 +102,20 @@
 
 namespace {
 
-constexpr int kWideWarps = 4;           // gatv2w_fwd: warps a block
-constexpr int kRegSlots = 24;           // a lane's register slots (768 ch)
 constexpr int kMaxWideChannels = 4096;  // C the kernels take
-constexpr int kStaticSmem = 48 * 1024;  // beyond it: an opt-in attribute
-constexpr int kBwdChans = 6;            // backward: channels a thread
-constexpr int kMaxBwdWarps = 24;        // backward: warps a block at most
+constexpr int kWideChans = 6;           // channels a thread
+constexpr int kMaxWideWarps = 24;       // warps a block at most
+constexpr int kFwdEdges = 4;            // gatv2w_fwd: edges a block step
 constexpr int kBwdTEdges = 3;           // gatv2w_bwd_t: edges a block step
 constexpr int kBwdFEdges = 4;           // gatv2w_bwd_f: edges a block step
-static_assert(kMaxBwdWarps * 32 * kBwdChans >= kMaxWideChannels,
-              "a backward block holds the widest head");
+static_assert(kMaxWideWarps * 32 * kWideChans >= kMaxWideChannels,
+              "a block holds the widest head");
 
 // The one shape rule of the wide kernels (and of wide_shape_ok in
 // egc_tpu_torch/ops/cuda/attention.py).
 inline bool wide_shape_ok(int heads, int channels) {
   return heads >= 1 && heads <= kMaxHeads && channels >= 1 &&
          channels <= kMaxWideChannels;
-}
-
-__host__ __device__ inline int slots_of(int channels) {
-  return (channels + 31) / 32;
-}
-
-__host__ __device__ inline int spill_slots(int channels) {
-  const int t = slots_of(channels);
-  return t > kRegSlots ? t - kRegSlots : 0;
 }
 
 // The warp's total of v, the same bits in every lane.
@@ -138,85 +125,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// fn(channel, acc) for each of the lane's T slots: the first kRegSlots in
-// registers, the rest at spill[(t - kRegSlots) * 32].
-template <typename Fn>
-__device__ __forceinline__ void each_slot(float (&reg)[kRegSlots],
-                                          float* spill, int T, int lane,
-                                          Fn&& fn) {
-#pragma unroll
-  for (int t = 0; t < kRegSlots; ++t)
-    if (t < T) fn(lane + 32 * t, reg[t]);
-  for (int t = kRegSlots; t < T; ++t)
-    fn(lane + 32 * t, spill[(t - kRegSlots) * 32]);
-}
-
-
-// The lane's part of the head's logit: sum over its channels of
-// att leaky(x + y), x and y the two endpoints' head rows.
-__device__ __forceinline__ float part_logit(const float* __restrict__ x,
-                                            const float* __restrict__ y,
-                                            const float* __restrict__ att,
-                                            int C, int lane, float slope) {
-  float e = 0.f;
-  for (int c = lane; c < C; c += 32)
-    e = fmaf(__ldg(att + c), leaky(__ldg(x + c) + __ldg(y + c), slope), e);
-  return e;
-}
-
-
-// gatv2w_fwd: warp (row, head) = divmod(global warp, heads).
-__global__ void __launch_bounds__(kWideWarps * 32)
-gatv2w_fwd_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
-                  const float* __restrict__ att,
-                  const int* __restrict__ rowptr,
-                  const int* __restrict__ senders, int n_rows, int heads,
-                  int channels, float slope, float* __restrict__ o,
-                  float* __restrict__ d, float* __restrict__ m_out) {
-  extern __shared__ float s_spill[];  // [warp][slot - kRegSlots][lane]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long item = (long long)blockIdx.x * kWideWarps + warp;
-  if (item >= (long long)n_rows * heads) return;  // whole warps exit
-  const int row = (int)(item / heads), h = (int)(item % heads);
-  const int C = channels, F = heads * channels, T = slots_of(C);
-  float* spill = s_spill + (size_t)warp * spill_slots(C) * 32 + lane;
-  const float* hr_own = hr + (size_t)row * F + (size_t)h * C;
-  const float* att_h = att + (size_t)h * C;
-
-  float acc[kRegSlots];
-  each_slot(acc, spill, T, lane, [&](int, float& a) { a = 0.f; });
-  float m = kEmptyMax, dsum = 0.f;
-  const int end = rowptr[row + 1];
-  for (int i = rowptr[row]; i < end; ++i) {
-    const float* src = hl + (size_t)__ldg(senders + i) * F + (size_t)h * C;
-    const float e = warp_sum(part_logit(src, hr_own, att_h, C, lane, slope));
-    const float m_new = fmaxf(m, e);
-    const float corr = expf(m - m_new);
-    const float p = expf(e - m_new);
-    dsum = fmaf(dsum, corr, p);
-    m = m_new;
-    each_slot(acc, spill, T, lane, [&](int c, float& a) {
-      const float v = c < C ? __ldg(src + c) : 0.f;
-      a = fmaf(p, v, a * corr);
-    });
-  }
-  float* o_row = o + (size_t)row * F + (size_t)h * C;
-  each_slot(acc, spill, T, lane, [&](int c, float& a) {
-    if (c < C) o_row[c] = a;
-  });
-  if (lane == 0) {
-    d[(size_t)row * heads + h] = dsum;
-    m_out[(size_t)row * heads + h] = m;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the backward passes: a block a (row, head), kBwdChans channels a thread
-
-// Warps of a backward block for a head of C channels.
-__host__ __device__ inline int bwd_warps(int channels) {
-  return (channels + 32 * kBwdChans - 1) / (32 * kBwdChans);
+// Warps of a block for a head of C channels.
+__host__ __device__ inline int wide_warps(int channels) {
+  return (channels + 32 * kWideChans - 1) / (32 * kWideChans);
 }
 
 // The thread's channels of a head row p: vector j (V floats) is
@@ -224,9 +135,9 @@ __host__ __device__ inline int bwd_warps(int channels) {
 template <int V>
 __device__ __forceinline__ void load_chans(const float* __restrict__ p,
                                            int t, int T, int nvec,
-                                           float (&x)[kBwdChans]) {
+                                           float (&x)[kWideChans]) {
 #pragma unroll
-  for (int j = 0; j < kBwdChans / V; ++j) {
+  for (int j = 0; j < kWideChans / V; ++j) {
     const int v = j * T + t;
     if constexpr (V == 2) {
       const float2 f = v < nvec
@@ -244,9 +155,9 @@ __device__ __forceinline__ void load_chans(const float* __restrict__ p,
 template <int V>
 __device__ __forceinline__ void shared_chans(const float* s, int t, int T,
                                              int nvec,
-                                             float (&x)[kBwdChans]) {
+                                             float (&x)[kWideChans]) {
 #pragma unroll
-  for (int j = 0; j < kBwdChans / V; ++j) {
+  for (int j = 0; j < kWideChans / V; ++j) {
     const int v = j * T + t;
     if constexpr (V == 2) {
       const float2 f = v < nvec ? reinterpret_cast<const float2*>(s)[v]
@@ -270,9 +181,9 @@ __device__ __forceinline__ void share_att(float* s,
 template <int V>
 __device__ __forceinline__ void store_chans(float* __restrict__ p, int t,
                                             int T, int nvec,
-                                            const float (&x)[kBwdChans]) {
+                                            const float (&x)[kWideChans]) {
 #pragma unroll
-  for (int j = 0; j < kBwdChans / V; ++j) {
+  for (int j = 0; j < kWideChans / V; ++j) {
     const int v = j * T + t;
     if (v >= nvec) continue;
     if constexpr (V == 2)
@@ -282,38 +193,126 @@ __device__ __forceinline__ void store_chans(float* __restrict__ p, int t,
   }
 }
 
-// The block's totals of the G pairs (e_g, q_g), the same bits in every
-// thread: a butterfly in each warp, then the W warps' totals added in warp
-// order from red ([W][2G] floats, one of two buffers that the steps take
-// in turn, so one barrier a step suffices).
-template <int G>
-__device__ __forceinline__ void block_sums(float (&e)[G], float (&q)[G],
-                                           float* red, int lane, int warp,
-                                           int W) {
+// The block's totals of the NV x G values v of a step (the G logits; in
+// the backward passes also the G q's), the same bits in every thread: a
+// butterfly in each warp, then the W warps' totals added in warp order
+// from red ([W][NV G] floats, one of two buffers that the steps take in
+// turn, so one barrier a step suffices).
+template <int NV, int G>
+__device__ __forceinline__ void block_sums(float (&v)[NV][G], float* red,
+                                           int lane, int warp, int W) {
+  constexpr int S = NV * G;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    e[g] = warp_sum(e[g]);
-    q[g] = warp_sum(q[g]);
+  for (int i = 0; i < NV; ++i) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) v[i][g] = warp_sum(v[i][g]);
   }
   if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      red[warp * 2 * G + g] = e[g];
-      red[warp * 2 * G + G + g] = q[g];
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) red[warp * S + i * G + g] = v[i][g];
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    e[g] = red[g];
-    q[g] = red[G + g];
+  for (int i = 0; i < NV; ++i) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) v[i][g] = red[i * G + g];
   }
   for (int w = 1; w < W; ++w) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      e[g] += red[w * 2 * G + g];
-      q[g] += red[w * 2 * G + G + g];
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) v[i][g] += red[w * S + i * G + g];
     }
+  }
+}
+
+// gatv2w_fwd: block (receiver r = blockIdx.x, head h = blockIdx.y) over
+// r's in-edges (CSR). Per edge it keeps hl[s] across the sum, for the
+// accumulation.
+template <int V>
+__global__ void __launch_bounds__(kMaxWideWarps * 32)
+gatv2w_fwd_kernel(const float* __restrict__ hl, const float* __restrict__ hr,
+                  const float* __restrict__ att,
+                  const int* __restrict__ rowptr,
+                  const int* __restrict__ senders, int heads, int channels,
+                  float slope, float* __restrict__ o, float* __restrict__ d,
+                  float* __restrict__ m_out) {
+  constexpr int G = kFwdEdges, K = kWideChans;
+  __shared__ float s_red[2][kMaxWideWarps * G];
+  extern __shared__ float s_att[];  // att_h: C floats
+  const int t = threadIdx.x, T = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, W = T >> 5;
+  const int row = blockIdx.x, h = blockIdx.y;
+  const int C = channels, F = heads * channels, nvec = channels / V;
+  const size_t hc = (size_t)h * C, own = (size_t)row * F + hc;
+
+  float hr_own[K], acc[K];
+  load_chans<V>(hr + own, t, T, nvec, hr_own);
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  share_att(s_att, att + hc, C);
+
+  float m = kEmptyMax, dsum = 0.f;
+  const int start = rowptr[row];
+  const int end = rowptr[row + 1];
+  int s_next[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s_next[g] = edge_at(senders, start + g, end);
+  for (int base = start, step = 0; base < end; base += G, ++step) {
+    int s[G];
+    float x[G][K];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      s[g] = s_next[g];
+      s_next[g] = edge_at(senders, base + G + g, end);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {  // every edge's row before any sum
+      if (s[g] >= 0) {
+        load_chans<V>(hl + (size_t)s[g] * F + hc, t, T, nvec, x[g]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) x[g][k] = 0.f;
+      }
+    }
+    float e[1][G], attv[K];
+    shared_chans<V>(s_att, t, T, nvec, attv);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      e[0][g] = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        e[0][g] = fmaf(attv[k], leaky(x[g][k] + hr_own[k], slope), e[0][g]);
+    }
+    block_sums<1, G>(e, s_red[step & 1], lane, warp, W);
+    // one rescale for the step's edges; an edge past the row's end adds 0
+    float m_new = m;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (s[g] >= 0) m_new = fmaxf(m_new, e[0][g]);
+    const float corr = expf(m - m_new);
+    float p[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      p[g] = s[g] >= 0 ? expf(e[0][g] - m_new) : 0.f;
+    dsum *= corr;
+#pragma unroll
+    for (int g = 0; g < G; ++g) dsum += p[g];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      acc[k] *= corr;
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[k] = fmaf(p[g], x[g][k], acc[k]);
+    }
+    m = m_new;
+  }
+  store_chans<V>(o + own, t, T, nvec, acc);
+  if (t == 0) {
+    d[(size_t)row * heads + h] = dsum;
+    m_out[(size_t)row * heads + h] = m;
   }
 }
 
@@ -321,7 +320,7 @@ __device__ __forceinline__ void block_sums(float (&e)[G], float (&q)[G],
 // s's out-edges (CSC). Per edge it keeps g_o[r] and the signs of z across
 // the sums.
 template <int V>
-__global__ void __launch_bounds__(kMaxBwdWarps * 32)
+__global__ void __launch_bounds__(kMaxWideWarps * 32)
 gatv2w_bwd_t_kernel(const float* __restrict__ hl,
                     const float* __restrict__ hr,
                     const float* __restrict__ att,
@@ -331,8 +330,8 @@ gatv2w_bwd_t_kernel(const float* __restrict__ hl,
                     const int* __restrict__ colptr,
                     const int* __restrict__ receivers, int heads,
                     int channels, float slope, float* __restrict__ d_hl) {
-  constexpr int G = kBwdTEdges, K = kBwdChans;
-  __shared__ float s_red[2][kMaxBwdWarps * 2 * G];
+  constexpr int G = kBwdTEdges, K = kWideChans;
+  __shared__ float s_red[2][kMaxWideWarps * 2 * G];
   extern __shared__ float s_att[];  // att_h: C floats
   const int t = threadIdx.x, T = blockDim.x;
   const int lane = t & 31, warp = t >> 5, W = T >> 5;
@@ -374,7 +373,9 @@ gatv2w_bwd_t_kernel(const float* __restrict__ hl,
         mm[g] = gd[g] = 0.f;
       }
     }
-    float e[G], q[G], attv[K];
+    float eq[2][G], attv[K];
+    float(&e)[G] = eq[0];
+    float(&q)[G] = eq[1];
     unsigned neg[G];  // bit k: z of channel k below 0
     shared_chans<V>(s_att, t, T, nvec, attv);
 #pragma unroll
@@ -389,7 +390,7 @@ gatv2w_bwd_t_kernel(const float* __restrict__ hl,
         neg[g] |= (z >= 0.f ? 0u : 1u) << k;
       }
     }
-    block_sums<G>(e, q, s_red[step & 1], lane, warp, W);
+    block_sums<2, G>(eq, s_red[step & 1], lane, warp, W);
     shared_chans<V>(s_att, t, T, nvec, attv);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -412,7 +413,7 @@ gatv2w_bwd_t_kernel(const float* __restrict__ hl,
 // keeps z across the sums; each thread sums its channels' d_att terms over
 // all the block's edges and writes them to row b of d_att_part.
 template <int V>
-__global__ void __launch_bounds__(kMaxBwdWarps * 32)
+__global__ void __launch_bounds__(kMaxWideWarps * 32)
 gatv2w_bwd_f_kernel(const float* __restrict__ hl,
                     const float* __restrict__ hr,
                     const float* __restrict__ att,
@@ -423,8 +424,8 @@ gatv2w_bwd_f_kernel(const float* __restrict__ hl,
                     const int* __restrict__ senders, int n_rows, int heads,
                     int channels, float slope, float* __restrict__ d_hr,
                     float* __restrict__ d_att_part) {
-  constexpr int G = kBwdFEdges, K = kBwdChans;
-  __shared__ float s_red[2][kMaxBwdWarps * 2 * G];
+  constexpr int G = kBwdFEdges, K = kWideChans;
+  __shared__ float s_red[2][kMaxWideWarps * 2 * G];
   extern __shared__ float s_att[];  // att_h: C floats
   const int t = threadIdx.x, T = blockDim.x;
   const int lane = t & 31, warp = t >> 5, W = T >> 5;
@@ -469,7 +470,9 @@ gatv2w_bwd_f_kernel(const float* __restrict__ hl,
           for (int k = 0; k < K; ++k) z[g][k] = 0.f;
         }
       }
-      float e[G], q[G], attv[K];
+      float eq[2][G], attv[K];
+      float(&e)[G] = eq[0];
+      float(&q)[G] = eq[1];
       shared_chans<V>(s_att, t, T, nvec, attv);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -481,7 +484,7 @@ gatv2w_bwd_f_kernel(const float* __restrict__ hl,
           e[g] = fmaf(attv[k], leaky(z[g][k], slope), e[g]);
         }
       }
-      block_sums<G>(e, q, s_red[step & 1], lane, warp, W);
+      block_sums<2, G>(eq, s_red[step & 1], lane, warp, W);
       shared_chans<V>(s_att, t, T, nvec, attv);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -502,7 +505,7 @@ gatv2w_bwd_f_kernel(const float* __restrict__ hl,
                  datt);
 }
 
-// Dynamic shared memory of a backward block: att_h.
+// Dynamic shared memory of a block: att_h.
 inline size_t att_bytes(int channels) {
   return (size_t)channels * sizeof(float);
 }
@@ -513,7 +516,7 @@ inline size_t att_bytes(int channels) {
 int att_rows(int n_rows, int heads, int channels) {
   if (n_rows <= 0) return 0;
   int dev = 0, sms = 0, per_sm = 0;
-  const int threads = bwd_warps(channels) * 32;
+  const int threads = wide_warps(channels) * 32;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
@@ -534,23 +537,13 @@ struct Args {
   float *out0, *out1, *out2;
 };
 
-// Dynamic shared memory of a launch; above kStaticSmem the kernel must opt
-// in first.
-template <typename K>
-cudaError_t shared_bytes(K kernel, size_t bytes) {
-  if (bytes <= (size_t)kStaticSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 inline bool aligned8(const void* p) {
   return ((uintptr_t)p & 7u) == 0;
 }
 
-// The backward passes load 2-float vectors where C is even and every row
-// pointer is 8-byte aligned (every PyTorch allocation is), else floats.
-inline int bwd_vector(const Args& a) {
+// The kernels load 2-float vectors where C is even and every row pointer
+// is 8-byte aligned (every PyTorch allocation is), else floats.
+inline int wide_vector(const Args& a) {
   const void* ptrs[] = {a.hl, a.hr, a.att, a.g_o, a.out0};
   if (a.channels % 2) return 1;
   for (const void* p : ptrs)
@@ -558,46 +551,38 @@ inline int bwd_vector(const Args& a) {
   return 2;
 }
 
+// which: 0 gatv2w_fwd, 1 gatv2w_bwd_t, 2 gatv2w_bwd_f
 template <int V>
-void launch_bwd(int which, const Args& a, cudaStream_t s) {
-  const dim3 threads(bwd_warps(a.channels) * 32);
-  if (which == 1) {
+void launch(int which, const Args& a, cudaStream_t s) {
+  const dim3 threads(wide_warps(a.channels) * 32);
+  const size_t bytes = att_bytes(a.channels);
+  if (which == 0) {
     const dim3 grid((unsigned)a.n_rows, (unsigned)a.heads);
-    gatv2w_bwd_t_kernel<V><<<grid, threads, att_bytes(a.channels), s>>>(
+    gatv2w_fwd_kernel<V><<<grid, threads, bytes, s>>>(
+        a.hl, a.hr, a.att, a.ptr, a.idx, a.heads, a.channels, a.slope,
+        a.out0, a.out1, a.out2);
+  } else if (which == 1) {
+    const dim3 grid((unsigned)a.n_rows, (unsigned)a.heads);
+    gatv2w_bwd_t_kernel<V><<<grid, threads, bytes, s>>>(
         a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.heads,
         a.channels, a.slope, a.out0);
   } else {
     const dim3 grid((unsigned)att_rows(a.n_rows, a.heads, a.channels),
                     (unsigned)a.heads);
-    gatv2w_bwd_f_kernel<V><<<grid, threads, att_bytes(a.channels), s>>>(
+    gatv2w_bwd_f_kernel<V><<<grid, threads, bytes, s>>>(
         a.hl, a.hr, a.att, a.m, a.g_o, a.g_d, a.ptr, a.idx, a.n_rows,
         a.heads, a.channels, a.slope, a.out0, a.out1);
   }
 }
 
-// which: 0 gatv2w_fwd, 1 gatv2w_bwd_t, 2 gatv2w_bwd_f
 int run(int which, const Args& a, void* stream) {
   if (!wide_shape_ok(a.heads, a.channels)) return (int)cudaErrorInvalidValue;
   if (a.n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (which == 0) {
-    const int threads = kWideWarps * 32;
-    const size_t bytes = kWideWarps * (size_t)spill_slots(a.channels) * 32 *
-                         sizeof(float);
-    const long long items = (long long)a.n_rows * a.heads;
-    const unsigned blocks =
-        (unsigned)((items + kWideWarps - 1) / kWideWarps);
-    cudaError_t err;
-    if ((err = shared_bytes(gatv2w_fwd_kernel, bytes)) != cudaSuccess)
-      return (int)err;
-    gatv2w_fwd_kernel<<<blocks, threads, bytes, s>>>(
-        a.hl, a.hr, a.att, a.ptr, a.idx, a.n_rows, a.heads, a.channels,
-        a.slope, a.out0, a.out1, a.out2);
-  } else if (bwd_vector(a) == 2) {
-    launch_bwd<2>(which, a, s);
-  } else {
-    launch_bwd<1>(which, a, s);
-  }
+  if (wide_vector(a) == 2)
+    launch<2>(which, a, s);
+  else
+    launch<1>(which, a, s);
   return (int)cudaGetLastError();
 }
 
@@ -614,12 +599,13 @@ int gatv2w_shape_ok(int heads, int channels) {
   return wide_shape_ok(heads, channels) ? 1 : 0;
 }
 
-// The backward blocks' geometry for (heads, channels) that wide_shape_ok
-// takes, on 8-byte aligned tensors: out = {warps a block, floats a
-// vector}. 0, or cudaErrorInvalidValue for a shape the rule refuses.
-int gatv2w_bwd_geometry(int heads, int channels, int* out) {
+// The three kernels' block geometry for (heads, channels) that
+// wide_shape_ok takes, on 8-byte aligned tensors: out = {warps a block,
+// floats a vector}. 0, or cudaErrorInvalidValue for a shape the rule
+// refuses.
+int gatv2w_geometry(int heads, int channels, int* out) {
   if (!wide_shape_ok(heads, channels)) return (int)cudaErrorInvalidValue;
-  out[0] = bwd_warps(channels);
+  out[0] = wide_warps(channels);
   out[1] = channels % 2 ? 1 : 2;
   return 0;
 }

@@ -36,15 +36,21 @@ synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges) at F = 128.
   (H8, C14) and (H1, C112); and ``gatv2w_bwd_t``, ``gatv2w_bwd_f`` and
   ``gatv2w_fwd`` at (H1, C750), the head of GATv2 h750 H3's last layer
   (a build's d_att partial rows by its ``gatv2w_att_rows`` or, before
-  it, ``gatv2w_att_blocks``).
+  it, ``gatv2w_att_blocks``), on the graph and again (the cases ending
+  in ``hub``) on the graph with ``HUB_EDGES`` more in-edges into one
+  receiver and as many more out-edges from one sender, which one block
+  of each kernel walks serially.
 
 Outputs are held at rtol = atol = 1e-5 (the masks exactly), except
 ``gatv2_bwd_f``'s and ``gatv2w_bwd_f``'s d_att (a sum over every edge
-whose terms cancel), held
-after its rows are summed at relative L2 <= 1e-4; two launches of a
-version must agree bitwise. ``--cases`` keeps the cases whose names start
-with one of its prefixes. Prints one JSON line per measurement and the
-card's ``nvidia-smi`` name and power limit. Needs a CUDA device.
+whose terms cancel), held after its rows are summed at relative L2 <=
+1e-4, and in the hub cases the hub rows of every output (sums of
+``HUB_EDGES`` terms), each held at relative L2 <= 1e-4; two launches of
+a version must agree bitwise. ``--cases`` keeps the cases whose names start
+with one of its prefixes. Prints one JSON line per measurement, then
+each case's median per version beside the ``ptxas`` registers and spills
+of that version's kernel, and the card's ``nvidia-smi`` name and power
+limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ HEADMIX_SHAPE = dict(H=4, B=4, A=3, L=32)
 GAT_SHAPES = ((8, 19), (1, 152))
 GATV2_SHAPES = ((8, 14), (1, 112))
 GATV2_WIDE_SHAPES = ((1, 750),)
+HUB_EDGES = 10_000   # the hub cases' extra edges into / out of one node
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -230,22 +237,22 @@ def _gather_cases(plan, randn):
             plan.colptr, plan.bwd_receivers, **level_kw),)
         cases[f"gather_reduce_fwd {label}"] = (
             "gather_reduce",
-            lambda lib, p=prims: gr_fwd(lib, vals, plan, p), ref_fwd, (),
+            lambda lib, p=prims: gr_fwd(lib, vals, plan, p), ref_fwd, {},
             None, True)
         cases[f"gather_reduce_fwd {label}, no mask"] = (
             "gather_reduce",
             lambda lib, p=prims: gr_fwd(lib, vals, plan, p, False),
-            ref_fwd[:len(prims)], (), None, True)
+            ref_fwd[:len(prims)], {}, None, True)
         cases[f"gather_reduce_bwd {label}"] = (
             "gather_reduce",
             lambda lib, c=coeffs, p=prims, pk=packed: gr_bwd(
                 lib, plan, c, vals, own_masks(lib, vals, plan, p), pk),
-            ref_bwd, (), None, True)
+            ref_bwd, {}, None, True)
         cases[f"gather_reduce_bwd {label}, _FusedPrimitives.backward"] = (
             "gather_reduce",
             lambda lib, c=cts, x=ext, p=prims: gr_backward_level(
                 lib, plan, c, vals, x, own_masks(lib, vals, plan, p)),
-            ref_level, (), None, True)
+            ref_level, {}, None, True)
     return cases
 
 
@@ -397,6 +404,50 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _v2_cases(cases, plan, heads, c, kernels, randn, suffix="", hubs=()):
+    """The three GATv2 cases of ``kernels`` (source, fwd, bwd_t, bwd_f)
+    at (heads, c) on ``plan``, named ``<kernel> H<heads> C<c><suffix>``;
+    the rows ``hubs`` (sums of ``HUB_EDGES`` terms) held by relative L2."""
+    src, fn_fwd, fn_t, fn_f = kernels
+    n, f = plan.num_nodes, heads * c
+    hl, hr = randn(n, f), randn(n, f)
+    att = randn(heads, c, scale=1 / math.sqrt(c))
+    g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
+    fwd = (hl, hr, att, plan.rowptr, plan.fwd_senders)
+    ref_fwd = at.gatv2_fwd_plain(*fwd)
+    m = ref_fwd[2]
+    bwd_t = (hl, hr, att, m, g_o, g_d, plan.colptr, plan.bwd_receivers)
+    bwd_f = (hl, hr, att, m, g_o, g_d, plan.rowptr, plan.fwd_senders)
+    shape = f"H{heads} C{c}{suffix}"
+    cases[f"{fn_t.__name__} {shape}"] = (
+        src, lambda lib, a=bwd_t, fn=fn_t: fn(lib, *a),
+        (at.gatv2_bwd_t_plain(*bwd_t),), {0: hubs}, None, False)
+    cases[f"{fn_fwd.__name__} {shape}"] = (
+        src, lambda lib, a=fwd, fn=fn_fwd: fn(lib, *a),
+        ref_fwd, dict.fromkeys(range(3), hubs), None, False)
+    cases[f"{fn_f.__name__} {shape}"] = (
+        src, lambda lib, a=bwd_f, fn=fn_f: fn(lib, *a),
+        at.gatv2_bwd_f_plain(*bwd_f), {0: hubs, 1: None}, None, False)
+
+
+def _hub_plan(plan, dev):
+    """``plan``'s graph with ``HUB_EDGES`` more in-edges into receiver 0
+    and as many more out-edges from sender 1, each from or to distinct
+    random nodes, beside their earlier edges."""
+    import numpy as np
+    from egc_tpu_torch.ops.dispatch import build_kernel_plan
+    n = plan.num_nodes
+    rowptr = plan.rowptr.cpu().numpy()
+    r = np.repeat(np.arange(n), np.diff(rowptr))
+    s = plan.fwd_senders.cpu().numpy()
+    rng = np.random.default_rng(0)
+    s = np.concatenate([s, rng.choice(n, HUB_EDGES, replace=False),
+                        np.full(HUB_EDGES, 1)])
+    r = np.concatenate([r, np.zeros(HUB_EDGES, np.int64),
+                        rng.choice(n, HUB_EDGES, replace=False)])
+    return build_kernel_plan(s, r, n, device=dev)
+
+
 def _cases(dev):
     """case -> (kernel source, run(lib) -> outputs, the plain version's
     outputs, the indices of the outputs held by relative L2, (name, the
@@ -436,7 +487,7 @@ def _cases(dev):
 
     cases["headmix_bwd H4 B4 A3 L32"] = (
         "headmix", lambda lib: headmix_bwd(lib, w2d, ys, dz, H, B, A, L),
-        (dw_ref, *dys_ref), (), ("einsum pair", einsum_pair), False)
+        (dw_ref, *dys_ref), {}, ("einsum pair", einsum_pair), False)
     for heads, c in GAT_SHAPES:
         f = heads * c
         wh, a_src, a_dst = randn(n, f), randn(n, heads), randn(n, heads)
@@ -450,58 +501,55 @@ def _cases(dev):
         shape = f"H{heads} C{c}"
         cases[f"gat_fwd {shape}"] = (
             "gat_attention", lambda lib, a=fwd: gat_fwd(lib, *a), ref_fwd,
-            (), None, False)
+            {}, None, False)
         cases[f"gat_bwd_t {shape}"] = (
             "gat_attention", lambda lib, a=bwd_t: gat_bwd_t(lib, *a),
-            at.gat_bwd_t_plain(*bwd_t), (), None, False)
+            at.gat_bwd_t_plain(*bwd_t), {}, None, False)
         cases[f"gat_bwd_f {shape}"] = (
             "gat_attention", lambda lib, a=bwd_f: gat_bwd_f(lib, *a),
-            (at.gat_bwd_f_plain(*bwd_f),), (), None, False)
+            (at.gat_bwd_f_plain(*bwd_f),), {}, None, False)
     narrow = ("gatv2_attention", gatv2_fwd, gatv2_bwd_t, gatv2_bwd_f)
     wide = ("gatv2_attention_wide", gatv2w_fwd, gatv2w_bwd_t, gatv2w_bwd_f)
-    for heads, c, (src, fn_fwd, fn_t, fn_f) in (
-            [(h, c, narrow) for h, c in GATV2_SHAPES]
-            + [(h, c, wide) for h, c in GATV2_WIDE_SHAPES]):
-        f = heads * c
-        hl, hr = randn(n, f), randn(n, f)
-        att = randn(heads, c, scale=1 / math.sqrt(c))
-        g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
-        fwd = (hl, hr, att, plan.rowptr, plan.fwd_senders)
-        ref_fwd = at.gatv2_fwd_plain(*fwd)
-        m = ref_fwd[2]
-        bwd_t = (hl, hr, att, m, g_o, g_d, plan.colptr, plan.bwd_receivers)
-        bwd_f = (hl, hr, att, m, g_o, g_d, plan.rowptr, plan.fwd_senders)
-        shape = f"H{heads} C{c}"
-        cases[f"{fn_t.__name__} {shape}"] = (
-            src, lambda lib, a=bwd_t, fn=fn_t: fn(lib, *a),
-            (at.gatv2_bwd_t_plain(*bwd_t),), (), None, False)
-        cases[f"{fn_fwd.__name__} {shape}"] = (
-            src, lambda lib, a=fwd, fn=fn_fwd: fn(lib, *a),
-            ref_fwd, (), None, False)
-        cases[f"{fn_f.__name__} {shape}"] = (
-            src, lambda lib, a=bwd_f, fn=fn_f: fn(lib, *a),
-            at.gatv2_bwd_f_plain(*bwd_f), (1,), None, False)
+    for heads, c in GATV2_SHAPES:
+        _v2_cases(cases, plan, heads, c, narrow, randn)
+    hub = _hub_plan(plan, dev)
+    for heads, c in GATV2_WIDE_SHAPES:
+        _v2_cases(cases, plan, heads, c, wide, randn)
+        _v2_cases(cases, hub, heads, c, wide, randn, " hub", hubs=(0, 1))
     return cases
 
 
-def _held(got, ref, rel_l2_outputs) -> dict:
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+def _held(got, ref, rel_l2_rows) -> dict:
     """Each output against the plain version's: max abs error, and whether
-    all are within rtol = atol = 1e-5 (relative L2 <= 1e-4 for the outputs
-    in ``rel_l2_outputs``; an integer output, a mask, exactly)."""
+    all are within rtol = atol = 1e-5; an integer output, a mask,
+    exactly. ``rel_l2_rows`` maps an output's index to what is held by
+    relative L2 <= 1e-4 instead, a sum whose terms cancel: the whole
+    output (None) or each of the rows it names."""
     ok, errs, rels = True, [], {}
     for i, (a, b) in enumerate(zip(got, ref)):
         if a.shape != b.shape:
             ok = False
             continue
         errs.append(float((a - b).abs().max()))
+        rows = rel_l2_rows.get(i, ())
         if not a.is_floating_point():
             ok = ok and torch.equal(a, b)
-        elif i in rel_l2_outputs:
-            rels[i] = float((a.double() - b.double()).norm()
-                            / b.double().norm().clamp_min(1e-30))
+        elif rows is None:
+            rels[i] = _rel_l2(a, b)
             ok = ok and rels[i] <= 1e-4
         else:
-            ok = ok and torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+            rest = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+            rest[list(rows)] = False
+            ok = ok and torch.allclose(a[rest], b[rest], rtol=1e-5,
+                                       atol=1e-5)
+            for row in rows:
+                rels[f"{i}[{row}]"] = _rel_l2(a[row], b[row])
+                ok = ok and rels[f"{i}[{row}]"] <= 1e-4
     return dict(allclose=ok, max_abs_err=max(errs, default=None),
                 rel_l2=rels)
 
@@ -532,7 +580,7 @@ def main(argv=None) -> int:
             for line in report:
                 print(f"[ptxas] {label}/{name}: {line}", flush=True)
     results = []
-    for case, (src, run, ref, rel_l2_outputs, library,
+    for case, (src, run, ref, rel_l2_rows, library,
                across) in cases.items():
         current = run(versions["current"][src][0])
         for label, built in versions.items():
@@ -547,7 +595,7 @@ def main(argv=None) -> int:
                                 repeat_bitwise=same,
                                 equal_to_current=as_current if across
                                 else None,
-                                **_held(got, ref, rel_l2_outputs)))
+                                **_held(got, ref, rel_l2_rows)))
             print(json.dumps(results[-1]), flush=True)
         others = [v for v in versions if v != "current"]
         order = (["current"] + others + others[::-1] + ["current"]) \
@@ -568,11 +616,21 @@ def main(argv=None) -> int:
                 r["version"], []).append(r["ms"])
     summary = {c: {v: statistics.median(t) for v, t in vs.items()}
                for c, vs in summary.items()}
+    registers = {}
+    for case, by_version in summary.items():
+        kernel = case.split()[0] + "_kernel"
+        for label, ms in by_version.items():
+            lines = [ln for ln in versions[label][cases[case][0]][1]
+                     if ln.startswith(kernel)] if label in versions else []
+            registers.setdefault(case, {})[label] = lines
+            print(f"[median] {case} | {label}: {ms:.4f} ms | "
+                  f"{'; '.join(lines) or '-'}", flush=True)
     print(json.dumps({"summary_median_ms": summary, "card": smi}))
     print(smi)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"results": results, "summary": summary, "card": smi,
+                       "registers": registers,
                        "ptxas": {f"{lb}/{n}": rep for lb, b in versions.items()
                                  for n, (_, rep) in b.items()}}, fh, indent=1)
     bad = [r for r in results if r.get("check")

@@ -72,10 +72,11 @@ several launches (``sweeps``, composed by ``run_sweeps``):
   arguments and outputs of the narrow three, and take (H, C) if and only
   if ``wide_shape_ok``: 1 <= H <= 32 and C <= ``WIDE_MAX_CHANNELS``. Their
   plain versions are the narrow kernels' (``gatv2_*_plain`` take any
-  width). The two backward kernels give a block a (row, head), its
-  threads ``WIDE_BWD_CHANS`` channels each (``wide_bwd_geometry``), and
-  ``gatv2w_bwd_f`` writes one row of d_att partial sums a block, as many
-  as ``gatv2w_att_rows`` says for the device.
+  width). The three give a block a (row, head), its threads
+  ``WIDE_CHANS`` channels each (``wide_geometry``); the forward walks a
+  row ``WIDE_FWD_EDGES`` edges a step, with one online-softmax update a
+  step, and ``gatv2w_bwd_f`` writes one row of d_att partial sums a
+  block, as many as ``gatv2w_att_rows`` says for the device.
 
 A shape that ``shape_ok`` takes is one launch, on the row as it is.
 ``launches`` counts kernel launches, every sweep's.
@@ -99,8 +100,9 @@ MAX_WIDTH = 32 * MAX_CHANS   # the widest row (H*C) of any accepted shape
 SHAPE_RULE = (f"1 <= H <= {MAX_HEADS} heads and an edge group of at most 32 "
               f"lanes (edge_geometry(H, C)[0] <= 32, so H*C <= {MAX_WIDTH})")
 WIDE_MAX_CHANNELS = 4096   # kMaxWideChannels in csrc/gatv2_attention_wide.cu
-WIDE_BWD_CHANS = 6         # kBwdChans: a backward thread's channels
-WIDE_MAX_BWD_WARPS = 24    # kMaxBwdWarps: a backward block's warps at most
+WIDE_CHANS = 6             # kWideChans: a thread's channels
+WIDE_MAX_WARPS = 24        # kMaxWideWarps: a block's warps at most
+WIDE_FWD_EDGES = 4         # kFwdEdges: gatv2w_fwd's edges a block step
 WIDE_RULE = (f"1 <= H <= {MAX_HEADS} heads of at most {WIDE_MAX_CHANNELS} "
              f"channels each (so H*C <= {MAX_HEADS * WIDE_MAX_CHANNELS})")
 
@@ -439,37 +441,35 @@ def wide_shape_ok(heads: int, channels: int) -> bool:
     """The shape rule of ``gatv2w_fwd``, ``gatv2w_bwd_t`` and
     ``gatv2w_bwd_f`` (``wide_shape_ok`` in
     ``csrc/gatv2_attention_wide.cu``): 1 <= H <= ``MAX_HEADS`` and
-    1 <= C <= ``WIDE_MAX_CHANNELS``. In ``gatv2w_fwd`` a warp owns one
-    (row, head) and each lane holds every 32nd channel of the head, its
-    accumulators in registers up to 768 channels and in shared memory
-    past them, so C bounds the shared memory a block needs; in the
-    backward kernels C bounds a block's warps (``wide_bwd_geometry``)."""
+    1 <= C <= ``WIDE_MAX_CHANNELS``. A block of each owns one (row,
+    head), its threads ``WIDE_CHANS`` channels each, so C bounds a block's
+    warps (``wide_geometry``)."""
     return 1 <= heads <= MAX_HEADS and 1 <= channels <= WIDE_MAX_CHANNELS
 
 
-def wide_bwd_geometry(heads: int, channels: int) -> Tuple[int, int]:
-    """``(warps, vector)`` of a ``gatv2w_bwd_t`` / ``gatv2w_bwd_f`` block
-    (``gatv2w_bwd_geometry`` in ``csrc/gatv2_attention_wide.cu``) for a
-    shape ``wide_shape_ok`` takes, on 8-byte aligned tensors (every
-    PyTorch allocation): the block owns one (row, head), each thread
-    ``WIDE_BWD_CHANS`` of its channels, so ceil(C / (32 *
-    ``WIDE_BWD_CHANS``)) warps; the threads load 2-float vectors where C
-    is even, else single floats (the launch also takes floats where a
-    pointer is not 8-byte aligned)."""
+def wide_geometry(heads: int, channels: int) -> Tuple[int, int]:
+    """``(warps, vector)`` of a ``gatv2w_fwd``, ``gatv2w_bwd_t`` and
+    ``gatv2w_bwd_f`` block (``gatv2w_geometry`` in
+    ``csrc/gatv2_attention_wide.cu``) for a shape ``wide_shape_ok`` takes,
+    on 8-byte aligned tensors (every PyTorch allocation): the block owns
+    one (row, head), each thread ``WIDE_CHANS`` of its channels, so
+    ceil(C / (32 * ``WIDE_CHANS``)) warps; the threads load 2-float
+    vectors where C is even, else single floats (the launch also takes
+    floats where a pointer is not 8-byte aligned)."""
     if not wide_shape_ok(heads, channels):
         raise ValueError(f"the wide GATv2 kernels take {WIDE_RULE}; got "
                          f"H={heads}, C={channels}")
-    return -(-channels // (32 * WIDE_BWD_CHANS)), 1 if channels % 2 else 2
+    return -(-channels // (32 * WIDE_CHANS)), 1 if channels % 2 else 2
 
 
-def kernel_wide_bwd_geometry(heads: int, channels: int) -> Tuple[int, int]:
-    """``wide_bwd_geometry`` as the compiled wide kernels report it."""
-    fn = _build.library("gatv2_attention_wide").gatv2w_bwd_geometry
+def kernel_wide_geometry(heads: int, channels: int) -> Tuple[int, int]:
+    """``wide_geometry`` as the compiled wide kernels report it."""
+    fn = _build.library("gatv2_attention_wide").gatv2w_geometry
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 2)()
     if fn(heads, channels, out) != 0:
-        raise ValueError(f"gatv2w_bwd_geometry refuses H={heads}, "
+        raise ValueError(f"gatv2w_geometry refuses H={heads}, "
                          f"C={channels}")
     return tuple(out)
 

@@ -4,9 +4,12 @@ JAX package on the CPU:
 - ``sweeps`` covers every column of every (H, C) with H <= 32 and
   H*C <= 2,048 exactly once, each launch one that ``shape_ok`` takes, or
   for GATv2 one ``gatv2w_*`` launch of a head wider than 512 floats;
-- ``wide_bwd_geometry`` against the constants of the wide kernels'
-  source, and ``chip_smoke.WIDE_SMALL_SHAPES`` reaching each of its
-  variants;
+- ``wide_geometry`` against the constants of the wide kernels' source,
+  and ``chip_smoke.WIDE_SMALL_SHAPES`` reaching each of its variants;
+- a torch model of ``gatv2w_fwd``'s step rule (``WIDE_FWD_EDGES`` edges
+  a step, one online-softmax update a step, masked edges past a row's
+  end, a start from -1e30) against JAX's ``gatv2_attention`` in Pallas
+  interpret mode and against the plain version;
 - the sweeps composed with the plain versions standing in for the
   launches (``run_sweeps``) against the whole-row plain versions, and
   ``gat_attention`` / ``gatv2_attention`` at (3, 250), (1, 750), (2, 600)
@@ -249,42 +252,58 @@ def _cu_constant(name: str) -> int:
 
 
 def test_wide_bwd_geometry_is_the_kernels_rule():
-    """``wide_bwd_geometry`` against the constants of
-    ``csrc/gatv2_attention_wide.cu``: for every C the rule takes, the
-    fewest warps of ``WIDE_BWD_CHANS`` channels a thread that hold the
-    head, at most ``WIDE_MAX_BWD_WARPS``; 2-float vectors where C is even;
-    any H the rule takes alike; a shape the rule refuses raises."""
-    assert tat.WIDE_BWD_CHANS == _cu_constant("kBwdChans")
-    assert tat.WIDE_MAX_BWD_WARPS == _cu_constant("kMaxBwdWarps")
+    """``wide_geometry``, the blocks of all three wide kernels, against
+    the constants of ``csrc/gatv2_attention_wide.cu``: for every C the
+    rule takes, the fewest warps of ``WIDE_CHANS`` channels a thread that
+    hold the head, at most ``WIDE_MAX_WARPS``; 2-float vectors where C is
+    even; any H the rule takes alike; a shape the rule refuses raises.
+    The forward's edges a step, ``WIDE_FWD_EDGES``, is the source's, and
+    its step rule keeps G rows of ``WIDE_CHANS`` floats a thread."""
+    assert tat.WIDE_CHANS == _cu_constant("kWideChans")
+    assert tat.WIDE_MAX_WARPS == _cu_constant("kMaxWideWarps")
     assert tat.WIDE_MAX_CHANNELS == _cu_constant("kMaxWideChannels")
-    lanes = 32 * tat.WIDE_BWD_CHANS
+    assert tat.WIDE_FWD_EDGES == _cu_constant("kFwdEdges")
+    assert 3 <= tat.WIDE_FWD_EDGES <= 6
+    src = WIDE_CU.read_text()
+    for kernel in ("gatv2w_fwd_kernel", "gatv2w_bwd_t_kernel",
+                   "gatv2w_bwd_f_kernel"):
+        assert re.search(r"__launch_bounds__\(kMaxWideWarps \* 32\)\n"
+                         rf"{kernel}\(", src), kernel
+    assert src.count("wide_warps(a.channels) * 32") == 1   # one launch
+    lanes = 32 * tat.WIDE_CHANS
     for c in range(1, tat.WIDE_MAX_CHANNELS + 1):
-        warps, vector = tat.wide_bwd_geometry(1, c)
-        assert 1 <= warps <= tat.WIDE_MAX_BWD_WARPS
+        warps, vector = tat.wide_geometry(1, c)
+        assert 1 <= warps <= tat.WIDE_MAX_WARPS
         assert (warps - 1) * lanes < c <= warps * lanes
         assert vector == (1 if c % 2 else 2)
-        assert tat.wide_bwd_geometry(tat.MAX_HEADS, c) == (warps, vector)
-    assert tat.wide_bwd_geometry(1, 750) == (4, 2)
+        assert tat.wide_geometry(tat.MAX_HEADS, c) == (warps, vector)
+    assert tat.wide_geometry(1, 750) == (4, 2)
     for hc in ((0, 8), (tat.MAX_HEADS + 1, 8), (1, 0),
                (1, tat.WIDE_MAX_CHANNELS + 1)):
         with pytest.raises(ValueError, match="wide GATv2 kernels take"):
-            tat.wide_bwd_geometry(*hc)
+            tat.wide_geometry(*hc)
 
 
 def test_chip_smoke_holds_every_wide_backward_variant():
     """``chip_smoke.WIDE_SMALL_SHAPES`` reach both vector widths of the
-    backward blocks and the most warps the rule needs (C = 4,096), and
-    hold the arxiv head (1, 750)."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    blocks of all three wide kernels and the most warps the rule needs
+    (C = 4,096), and hold the arxiv head (1, 750) and more than one head;
+    phase 2 checks all six instantiations (two of each kernel) for
+    spills; the small graph has receivers of G - 1 and G + 1 in-edges for
+    the forward's G edges a step."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
     shapes = next(ast.literal_eval(node.value) for node in ast.walk(tree)
                   if isinstance(node, ast.Assign)
                   and any(getattr(t, "id", None) == "WIDE_SMALL_SHAPES"
                           for t in node.targets))
-    geometries = {tat.wide_bwd_geometry(*hc) for hc in shapes}
+    geometries = {tat.wide_geometry(*hc) for hc in shapes}
     assert {vector for _, vector in geometries} == {1, 2}
     assert max(warps for warps, _ in geometries) == \
-        tat.wide_bwd_geometry(1, tat.WIDE_MAX_CHANNELS)[0]
-    assert (1, 750) in shapes
+        tat.wide_geometry(1, tat.WIDE_MAX_CHANNELS)[0]
+    assert (1, 750) in shapes and max(h for h, _ in shapes) > 1
+    assert 'ln.startswith("gatv2w_")' in text and "len(wide) == 6" in text
+    assert "groups.add(at.WIDE_FWD_EDGES)" in text
 
 
 def _kernel_args(name, plan, n, heads, c, seed):
@@ -436,6 +455,97 @@ def test_gatv2_sweeps_and_wide_match_jax(heads, c):
               (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32))
     _against_jax(lambda p: jax_gatv2(p, heads, c), tat.gatv2_attention,
                  inputs, s, r, n, seed=12)
+
+
+def step_rule_graph(g, n=64):
+    """A hub receiver (node 0, 48 in-edges), receivers of exactly 1,
+    g - 1, g, g + 1 and 2 g + 1 in-edges (nodes 1-5) and 6 receivers
+    without in-edges (the last); (s, r) coalesced."""
+    rng = np.random.default_rng(g)
+    counts = {0: 48, 1: 1, 2: g - 1, 3: g, 4: g + 1, 5: 2 * g + 1}
+    s, r = [rng.integers(0, n, 160)], [rng.integers(6, n - 6, 160)]
+    for node, k in counts.items():
+        s.append(rng.choice(n, k, replace=False))
+        r.append(np.full(k, node))
+    s, r, _ = coalesce_np(np.concatenate(s).astype(np.int32),
+                          np.concatenate(r).astype(np.int32), n)
+    in_deg = np.bincount(r, minlength=n)
+    assert [in_deg[v] for v in counts] == list(counts.values())
+    assert (in_deg[n - 6:] == 0).all()
+    return s, r
+
+
+def wide_fwd_steps(hl, hr, att, rowptr, senders, steps):
+    """``gatv2w_fwd``'s step rule in torch: each row walks its in-edges
+    ``steps`` at a time; a step's logits fold into one (m, d, o) state
+    per (row, head) in one rescale, m' = max(m, the step's logits),
+    c = exp(m - m'), p_g = exp(e_g - m') (0 past the row's end),
+    d = d c + sum_g p_g, o = o c + sum_g p_g hl_g in g order, from
+    m = -1e30, d = 0, o = 0. A row past its end takes steps that change
+    nothing (c = 1, p = 0)."""
+    n = rowptr.shape[0] - 1
+    heads, c = att.shape
+    hl3, hr3 = hl.view(-1, heads, c), hr.view(n, heads, c)
+    start, deg = rowptr[:-1].long(), (rowptr[1:] - rowptr[:-1]).long()
+    m = torch.full((n, heads), tat.EMPTY_MAX)
+    d = torch.zeros(n, heads)
+    o = torch.zeros(n, heads, c)
+    for base in range(0, int(deg.max()), steps):
+        k = base + torch.arange(steps)
+        valid = k[None, :] < deg[:, None]                       # [n, G]
+        x = hl3[senders.long()[torch.where(valid, start[:, None] + k, 0)]]
+        x = torch.where(valid[..., None, None], x, 0.0)         # [n, G, H, C]
+        z = x + hr3[:, None]
+        e = (att * torch.where(z >= 0, z, tat.SLOPE * z)).sum(-1)
+        e = torch.where(valid[..., None], e, -torch.inf)        # [n, G, H]
+        m_new = torch.maximum(m, e.amax(1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(valid[..., None], torch.exp(e - m_new[:, None]), 0.0)
+        d, o = d * corr, o * corr[..., None]
+        for g in range(steps):
+            d = d + p[:, g]
+            o = o + p[:, g, :, None] * x[:, g]
+        m = m_new
+    return o.reshape(n, heads * c), d, m
+
+
+@pytest.mark.parametrize("heads,c", [(1, 750), (3, 513)])
+def test_wide_fwd_step_rule_matches_jax(heads, c):
+    """The forward kernel's order (``wide_fwd_steps`` at the kernel's
+    ``WIDE_FWD_EDGES``) on rows of 0, 1, G - 1, G, G + 1, 2 G + 1 and 48
+    in-edges: o, d and m against JAX's ``gatv2_attention`` in Pallas
+    interpret mode and against the plain version, rtol = atol = 1e-5 on
+    receivers with in-edges; a receiver without in-edges o = d = 0 and
+    m = -1e30 exactly."""
+    steps = tat.WIDE_FWD_EDGES
+    n = 64
+    s, r = step_rule_graph(steps, n)
+    rng = np.random.default_rng(heads * 1000 + c)
+    hl = rng.normal(size=(n, heads, c)).astype(np.float32)
+    hr = rng.normal(size=(n, heads, c)).astype(np.float32)
+    att = (rng.normal(size=(heads, c)) / np.sqrt(c)).astype(np.float32)
+    plan = build_kernel_plan(s, r, n)
+    args = (torch.as_tensor(hl).reshape(n, -1),
+            torch.as_tensor(hr).reshape(n, -1), torch.as_tensor(att),
+            plan.rowptr, plan.fwd_senders)
+    got = wide_fwd_steps(*args, steps)
+    jplan = jax_plan(s, r, n)
+
+    def pad(x):
+        return jnp.zeros((jplan.n_pad,) + x.shape[1:]).at[:n].set(x)
+
+    jo, jd, jm = jax_gatv2(jplan, heads, c)(pad(hl), pad(hr),
+                                            jnp.asarray(att))
+    has = np.bincount(r, minlength=n) > 0
+    for a, b in zip(got, (np.asarray(jo)[:n].reshape(n, -1),
+                          np.asarray(jd)[:n], np.asarray(jm)[:n])):
+        np.testing.assert_allclose(a.numpy()[has], b[has], rtol=1e-5,
+                                   atol=1e-5)
+    for a, b in zip(got, tat.gatv2w_fwd_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    o, d, m = (t[torch.as_tensor(~has)] for t in got)
+    assert torch.all(o == 0) and torch.all(d == 0)
+    assert torch.all(m == tat.EMPTY_MAX)
 
 
 # ---------------------------------------------------------------------------
