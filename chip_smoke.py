@@ -204,7 +204,24 @@ Phases, each of which raises (exit code 1) on any failed check:
    EGC-M batch against one device; ``python -m egc_tpu_torch ...
    --partitions 1 --check --check-epochs 2`` as a subprocess, and
    ``--partitions`` past the visible cards exiting 2 before any rank
-   starts. ``[harness]`` (last): ``--pretrained`` for arxiv EGC-M h136 H4
+   starts. ``[multihost]`` (beside phase 5's CLI runs):
+   ``exp/multihost_smoke`` as one rank that
+   joins from ``torch.distributed.run``'s environment (``--standalone
+   --nproc-per-node 1 ... --worker``: NCCL, world 1, on
+   ``cuda:LOCAL_RANK``) and as ``--reference --world 1`` (a ``spawn``
+   rank), started at once: psum, DP loss and partitioned loss within
+   1e-6, their seconds (more than one card is not measured here).
+   ``[bf16_dense]``: ``EGC_TPU_BF16_DENSE=1``, set inside the phase only:
+   the bf16 GEMMs (``nn/conv/egc.bf16_matmuls``) against their plain
+   version on the card at the arxiv and mag layer shapes (value at
+   relative L2 1e-5, the cotangents at 1e-2: the card's backward rounds
+   the f32 cotangent to bf16), their forward timed beside the f32 ``mm``;
+   then arxiv EGC-M h128 and MagNet h352 with the opt-in beside f32: a
+   dropout-0 step of each from one seed (the loss's and gradients'
+   relative L2), 2 warm-up and 10 timed steps of each in turns of 5 (f32,
+   bf16, bf16, f32) with the launch counters, each mode's peak memory,
+   and a profiler window of two steps each (device busy, the matmul
+   kernels' ms). ``[harness]`` (last): ``--pretrained`` for arxiv EGC-M h136 H4
    B4 symadd/max/mean from a ``checkpoint.pt`` the phase writes (the
    printed accuracies against an in-process eval; rows 2 and 4, 3 each,
    the head mix's scalar L 34 variant), then ``run_search_parallel`` on
@@ -4607,6 +4624,309 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
     return res, entries
 
 
+# ---------------------------------------------------------------------------
+# [multihost] and [bf16_dense]
+# ---------------------------------------------------------------------------
+
+MULTIHOST_TOL = 1e-6          # env-joined rank vs spawn's rank, both world 1
+MULTIHOST_TIMEOUT = 300
+# the bf16 GEMMs of EGConv at the paths' layer shapes (rows, fan-in,
+# columns): arxiv EGC-M h128 H4 B4 A3 (bases 128, comb 48, two products),
+# MagNet h352 H8 B4 A1 (layer 0 from 128 features: bases 176, comb 32;
+# layer 1 at fan-in 352, one product over [bases | comb], 208)
+BF16_SHAPES = {"main": ((128, 128), (128, 48)),
+               "mag": ((128, 176), (128, 32), (352, 208))}
+BF16_VALUE_REL = 1e-5         # f32 sums of bf16 products in another order
+BF16_GRAD_REL = 1e-2          # the card's backward rounds the f32
+#   cotangent to bf16 (unit roundoff 2^-9) before its bf16 GEMMs
+BF16_TURN = 5                 # timed steps a turn: f32, bf16, bf16, f32
+MATMUL_OPS = re.compile(r"gemm|xmma|nvjet|cutlass", re.I)
+
+
+@contextlib.contextmanager
+def phase_multihost():
+    """``[multihost]``, run beside the block it wraps (its two processes
+    spend most of their ~30 s starting up; the CLI phase's seconds are
+    reported, not compared): ``exp/multihost_smoke`` on the card as one
+    rank that joins from ``torch.distributed.run``'s environment
+    (``--standalone --nproc-per-node 1 ... --worker``: NCCL, world 1,
+    ``cuda:LOCAL_RANK``) and as ``--reference --world 1`` (a ``spawn``
+    rank), both started at once; their psum, DP loss and partitioned loss
+    must agree within ``MULTIHOST_TOL``. Yields the dict its results land
+    in after the block; both processes are stopped on the way out. The
+    multi-card case needs more than one card."""
+    import os
+    import signal
+    import tempfile
+    import threading
+    import torch
+    mod = ["-m", "egc_tpu_torch.exp.multihost_smoke"]
+    runs = {"worker": [sys.executable, "-m", "torch.distributed.run",
+                       "--standalone", "--nproc-per-node", "1", *mod,
+                       "--worker", "--device", "cuda"],
+            "reference": [sys.executable, *mod, "--reference", "--world",
+                          "1", "--device", "cuda"]}
+    res = {}
+    with contextlib.ExitStack() as files:
+        outs = {k: [files.enter_context(tempfile.TemporaryFile("w+"))
+                    for _ in range(2)] for k in runs}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(argv, stdout=outs[k][0],
+                                     stderr=outs[k][1], text=True,
+                                     start_new_session=True)
+                 for k, argv in runs.items()}
+        secs = {}
+
+        def clock(k):     # each run's seconds to its exit
+            procs[k].wait()
+            secs[k] = time.perf_counter() - t0
+
+        clocks = [threading.Thread(target=clock, args=(k,), daemon=True)
+                  for k in procs]
+        for c in clocks:
+            c.start()
+        try:
+            yield res
+            out = {}
+            for k, p in procs.items():
+                p.wait(timeout=MULTIHOST_TIMEOUT)
+                stdout, stderr = (f.seek(0) or f.read() for f in outs[k])
+                check(p.returncode == 0, f"[multihost] {k}: exit "
+                                         f"{p.returncode}\n{stderr[-3000:]}")
+                lines = [ln for ln in stdout.splitlines()
+                         if ln.startswith("{")]
+                check(len(lines) == 1, f"[multihost] {k} printed {stdout!r}")
+                out[k] = json.loads(lines[0])
+        finally:
+            # SIGTERM first: torchrun's agent then stops its rank, which
+            # runs in a session of its own; then each run's process group
+            for sig in (signal.SIGTERM, signal.SIGKILL):
+                for p in procs.values():
+                    if p.poll() is None:
+                        with contextlib.suppress(ProcessLookupError):
+                            os.killpg(p.pid, sig)
+                with contextlib.suppress(subprocess.TimeoutExpired):
+                    for p in procs.values():
+                        p.wait(timeout=30)
+            for c in clocks:
+                c.join(timeout=1)
+    w, ref = out["worker"], out["reference"]
+    check(w["ok"] and ref["ok"] and w["psum"] == ref["psum"] == 1.0,
+          f"[multihost] {w} vs {ref}")
+    check(w["ranks"] == [{"rank": 0, "local_rank": 0, "device": "cuda:0"}]
+          and torch.cuda.device_count() >= 1,
+          f"[multihost] the rank is not on cuda:LOCAL_RANK: {w['ranks']}")
+    gaps = {k: abs(w[k] - ref[k]) for k in ("loss", "ploss")}
+    check(all(v <= MULTIHOST_TOL for v in gaps.values()),
+          f"[multihost] env-joined {w} vs spawned {ref}")
+    log(f"[multihost] torchrun --standalone --nproc-per-node 1 ... --worker "
+        f"(NCCL, world 1, {w['ranks'][0]['device']}): loss {w['loss']!r}, "
+        f"ploss {w['ploss']!r}, psum {w['psum']}; --reference --world 1: "
+        f"loss {ref['loss']!r}, ploss {ref['ploss']!r}; gaps {gaps}; "
+        f"seconds to each exit {({k: round(v, 1) for k, v in secs.items()})}"
+        f" (both started at once, beside the CLI phase); more than one "
+        f"card: not measured here")
+    res.update({"worker": w, "reference": ref, "gaps": gaps,
+                "seconds": secs})
+
+
+@contextlib.contextmanager
+def _bf16_dense(on: bool):
+    """``EGC_TPU_BF16_DENSE`` set to 1 (or unset) inside the block only;
+    the value it had is restored after."""
+    import os
+    before = os.environ.get("EGC_TPU_BF16_DENSE")
+    if on:
+        os.environ["EGC_TPU_BF16_DENSE"] = "1"
+    else:
+        os.environ.pop("EGC_TPU_BF16_DENSE", None)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("EGC_TPU_BF16_DENSE", None)
+        else:
+            os.environ["EGC_TPU_BF16_DENSE"] = before
+
+
+def _bf16_gemms(path: str, n: int, dev) -> list:
+    """``bf16_matmuls`` on the card against its plain version on the card
+    (``_BF16MatMuls``' CPU arithmetic, f32 matmuls of the bf16 values,
+    TF32 off) at ``path``'s layer shapes over ``n`` rows: the value and
+    both cotangents, and the forward's and the f32 matmul's ms."""
+    import torch
+    from egc_tpu_torch.nn.conv.egc import bf16_matmuls
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for k, m in BF16_SHAPES[path]:
+        x = torch.randn(n, k, device=dev, generator=gen).requires_grad_()
+        w = torch.randn(k, m, device=dev, generator=gen).requires_grad_()
+        ct = torch.randn(n, m, device=dev, generator=gen)
+        y, = bf16_matmuls(x, w)
+        y.backward(ct)
+        xb, wb = x.detach().bfloat16().float(), w.detach().bfloat16().float()
+        ref = xb @ wb
+        dx = (ct @ wb.t()).bfloat16().float()
+        dw = (xb.t() @ ct).bfloat16().float()
+        e = {"path": path, "n": n, "k": k, "m": m,
+             "value_rel_l2": rel_l2(y.detach(), ref),
+             "dx_rel_l2": rel_l2(x.grad, dx), "dw_rel_l2": rel_l2(w.grad, dw),
+             "max_abs_err": float((y.detach() - ref).abs().max())}
+        check(e["value_rel_l2"] <= BF16_VALUE_REL
+              and max(e["dx_rel_l2"], e["dw_rel_l2"]) <= BF16_GRAD_REL,
+              f"[bf16_dense] GEMM {e}")
+        with torch.no_grad():
+            e["ms"] = time_ms(lambda: bf16_matmuls(x, w))
+            e["f32_ms"] = time_ms(lambda: x @ w)
+        out.append(e)
+        log(f"[bf16_dense] {path} [{n}, {k}] x [{k}, {m}]: value rel L2 "
+            f"{e['value_rel_l2']:.2e} (max abs {e['max_abs_err']:.2e}), dx "
+            f"{e['dx_rel_l2']:.2e}, dw {e['dw_rel_l2']:.2e} against the "
+            f"plain version; forward {e['ms']:.3f} ms (casts included) vs "
+            f"f32 {e['f32_ms']:.3f} ms")
+        del x, w, ct, y, xb, wb, ref, dx, dw
+    return out
+
+
+def _bf16_path(path: str, build, step, data) -> dict:
+    """One EGC path with the opt-in beside f32: ``build(dropout0)`` a
+    model and its optimizer from the path's seed, ``step(model, opt,
+    it)`` one training step returning the loss. A dropout-0 step of each
+    from the same weights (the loss's and gradients' relative L2 of bf16
+    against f32); then 2 warm-up steps of each and ``2 * BF16_TURN``
+    timed steps of each in turns (f32, bf16, bf16, f32; host clock around
+    each step, which ends in its loss read), the launch counters over
+    them; the peak memory of each mode's warm-up; a profiler window of two
+    steps each: device busy and the matmul kernels' ms a step."""
+    import torch
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from egc_tpu_torch.utils.profiling import device_op_table, profile_trace
+    res = {}
+    loss, grads = {}, {}
+    for mode in ("f32", "bf16"):
+        model, opt = build(True)
+        with _bf16_dense(mode == "bf16"):
+            loss[mode] = step(model, opt, 0)
+        grads[mode] = _grads(model)
+        del model, opt
+    whole, worst = _grad_gap(f"bf16_{path}", grads["bf16"], grads["f32"],
+                             _zero_names(path))
+    res["vs_f32"] = {"loss": loss, "loss_rel": abs(loss["bf16"] - loss["f32"])
+                     / abs(loss["f32"]), "grad_rel_l2": whole,
+                     "worst": worst}
+    check(math.isfinite(loss["bf16"]) and res["vs_f32"]["loss_rel"] <= 1e-2,
+          f"[bf16_dense] {path}: {res['vs_f32']}")
+    del grads
+    models, peaks = {}, {}
+    for mode in ("f32", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        models[mode] = build(False)
+        with _bf16_dense(mode == "bf16"):
+            for it in range(STEPS_WARMUP):
+                step(*models[mode], it)
+        peaks[mode] = torch.cuda.max_memory_allocated()
+    seconds = {"f32": [], "bf16": []}
+    reset_launch_counts()
+    with _instantiations() as seen:
+        for mode in ("f32", "bf16", "bf16", "f32"):
+            with _bf16_dense(mode == "bf16"):
+                for _ in range(BF16_TURN):
+                    it = STEPS_WARMUP + len(seconds[mode])
+                    t0 = time.perf_counter()
+                    step(*models[mode], it)
+                    seconds[mode].append(time.perf_counter() - t0)
+    counts = launch_counts()
+    _check_held(f"bf16_{path}", seen)
+    _check_path_instantiation(path, seen)
+    steps = 4 * BF16_TURN
+    for name, c in counts.items():
+        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] else 0
+        check(c == want, f"[bf16_dense] {path}: {name} launched {c} times in "
+                         f"{steps} steps, expected {want}")
+    for mode in ("f32", "bf16"):
+        with _bf16_dense(mode == "bf16"), profile_trace() as prof:
+            for it in range(2):
+                step(*models[mode], 100 + it)
+        ops = device_op_table(prof)
+        mm = [(k, v / 2e3) for k, v in ops if MATMUL_OPS.search(k)]
+        timed = seconds[mode]
+        res[mode] = {
+            "step_seconds_mean": sum(timed) / len(timed),
+            "step_seconds_median": statistics.median(timed),
+            "step_seconds": timed, "peak_memory_bytes": peaks[mode],
+            "device_busy_ms": sum(v for _, v in ops) / 2e3,
+            "matmul_ms": sum(v for _, v in mm),
+            "matmul_ops_ms": mm[:8]}
+    res["launches"] = counts
+    f, b = res["f32"], res["bf16"]
+    log(f"[bf16_dense] {path}: dropout-0 step, bf16 vs f32: loss "
+        f"{loss['bf16']:.6f} vs {loss['f32']:.6f} (rel "
+        f"{res['vs_f32']['loss_rel']:.2e}), gradients rel L2 {whole:.2e} "
+        f"(worst {worst[0]:.2e} {worst[1]})")
+    log(f"[bf16_dense] {path}: step f32 {f['step_seconds_mean'] * 1e3:.3f} ms "
+        f"(median {f['step_seconds_median'] * 1e3:.3f}), bf16 "
+        f"{b['step_seconds_mean'] * 1e3:.3f} ms (median "
+        f"{b['step_seconds_median'] * 1e3:.3f}); {2 * BF16_TURN} timed steps "
+        f"each in turns; matmul kernels {f['matmul_ms']:.3f} vs "
+        f"{b['matmul_ms']:.3f} ms a step, device busy "
+        f"{f['device_busy_ms']:.3f} vs {b['device_busy_ms']:.3f}; peak "
+        f"{f['peak_memory_bytes'] / 2**30:.3f} vs "
+        f"{b['peak_memory_bytes'] / 2**30:.3f} GiB")
+    log(f"[bf16_dense] {path}: matmul kernels (ms a step), f32: "
+        + "; ".join(f"{v:.3f} {k[:60]}" for k, v in f["matmul_ops_ms"])
+        + " | bf16: "
+        + "; ".join(f"{v:.3f} {k[:60]}" for k, v in b["matmul_ops_ms"]))
+    return res
+
+
+def phase_bf16_dense(data, mag_cfg, mag_data) -> dict:
+    """``[bf16_dense]``: ``EGC_TPU_BF16_DENSE=1`` on the card, set inside
+    this phase only. The bf16 GEMMs (``nn/conv/egc.bf16_matmuls``) against
+    their plain version at the arxiv and mag layer shapes, then arxiv
+    EGC-M h128 H4 B4 symnorm/max/mean ("main", ArxivConfig's Adam, dropout
+    0.2) and MagNet h352 H8 B4 ("mag", ``MagConfig``'s hooks) with the
+    opt-in beside f32 (``_bf16_path``)."""
+    import os
+    import torch
+    from egc_tpu_torch.exp.fullgraph import arxiv_net, train_step
+    from egc_tpu_torch.models.nets import ConvSpec
+    check(os.environ.get("EGC_TPU_BF16_DENSE") is None,
+          "[bf16_dense] EGC_TPU_BF16_DENSE is set outside the phase")
+    dev = data["device"]
+    res = {"gemms": _bf16_gemms("main", data["graph"].num_nodes, dev)
+           + _bf16_gemms("mag", mag_data["graph"].num_nodes, dev)}
+    spec = ConvSpec(kind="egc", heads=4, bases=4,
+                    aggrs=("symnorm", "max", "mean"))
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def arxiv_build(check_step):
+        model = arxiv_net(spec, 128, dropout=0.0 if check_step else 0.2,
+                          seed=0, device=dev)
+        return model, torch.optim.Adam(model.parameters(), lr=0.01,
+                                       weight_decay=5e-4)
+
+    def arxiv_step(model, opt, it):
+        return float(train_step(model, opt, data, gen))
+
+    res["main"] = _bf16_path("main", arxiv_build, arxiv_step, data)
+    hp = MAG_NET["hp"]
+    rng = mag_cfg.rng(0)
+
+    def mag_build(check_step):
+        h = {**hp, "dropout": 0.0} if check_step else hp
+        model = mag_cfg.model(h, seed=0)
+        return model, mag_cfg.init_state(model, h, mag_data, 0)
+
+    def mag_step(model, state, it):
+        return mag_cfg.train(model, state, mag_data, rng, it)[1][
+            "train_loss"]
+
+    res["mag"] = _bf16_path("mag", mag_build, mag_step, mag_data)
+    check(os.environ.get("EGC_TPU_BF16_DENSE") is None,
+          "[bf16_dense] EGC_TPU_BF16_DENSE was left set")
+    return res
+
+
 def search_config(dataset: str, model: str, *, record_dir: str,
                   workers: int, device=None, **kw):
     """The search workers' config factory: ``cli.build_config`` whose
@@ -4878,6 +5198,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     results.update(phase_partitioned(raw, data))
     phases["partitioned"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results["bf16_dense"] = phase_bf16_dense(data, mag[0], mag[2])
+    phases["bf16 dense"] = time.perf_counter() - t0
     del data, d_cpu, checked
     t0 = time.perf_counter()
     for path, net in (("code_gat", CODE_GAT_NET),
@@ -4912,9 +5235,11 @@ def main(argv=None) -> int:
         results[path] = phase_batched_path(path, net)
     phases["batched paths"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    results["cli"] = phase_cli()
-    results["cli_datasets"] = phase_cli_datasets()
-    phases["cli"] = time.perf_counter() - t0
+    with phase_multihost() as multihost:
+        results["cli"] = phase_cli()
+        results["cli_datasets"] = phase_cli_datasets()
+    results["multihost"] = multihost
+    phases["cli and multihost"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     results.update(phase_harness())
     phases["harness"] = time.perf_counter() - t0

@@ -18,10 +18,19 @@ every aggregator a virtual self-loop. Parameters carry the reference's
 the upstreamed ``EGConv``'s (reference ``optimized_layers.py``), the
 MagNet layer's: one ``bases_weight`` [in, B*L], ``comb_weight``, whose
 rows are aggregator-major, (h, a*B + b), and ``bias``.
+
+``EGC_TPU_BF16_DENSE=1`` (JAX's opt-in, ``egc_tpu/nn/conv/egc.py:125-138``)
+makes the bases and comb matmuls take bf16 inputs, accumulating and
+returning f32 (``bf16_matmuls``), where the layer runs on a graph with a
+kernel plan of at least ``BF16_MIN_ROWS`` rows: JAX's ``use_fused_mix``
+conditions less its backend test. The port's kernel path and plain path
+compute the same function, so the rule does not look at the device. The
+default is f32.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -36,6 +45,76 @@ from egc_tpu_torch.ops.dispatch import conv_aggregate
 from egc_tpu_torch.ops.segment import canonical_aggr
 
 WEIGHTINGS = ("none", "softmax", "sigmoid", "hardtanh")
+BF16_MIN_ROWS = 4096     # egc_tpu/ops/pallas/headmix.py:259-261
+BF16_FUSED_FAN_IN = 192  # JAX's one product over [bases | comb] from here
+
+
+def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``, accumulated and returned in f32: on the card a cuBLAS
+    GEMM of two bf16 matrices (``aten::mm.dtype``, the bf16 tensor
+    cores); on the CPU the plain version, an f32 matmul of the values
+    (exact products where both are bf16 values)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _BF16MatMuls(torch.autograd.Function):
+    """JAX's ``xm = x.astype(bf16)`` and ``matmul(xm, w.astype(bf16),
+    preferred_element_type=f32)`` for each ``w``, and their transpose:
+    each cotangent is computed in f32 and rounded to bf16 (its operand's
+    dtype), the bf16 cotangents of ``xm`` are summed in bf16
+    (``add_any``), and each arrives back as f32. The plain version takes
+    the f32 output cotangents as JAX does; the card's GEMMs take them
+    rounded to bf16, so that every product runs on the bf16 tensor
+    cores."""
+
+    @staticmethod
+    def forward(ctx, x, *ws):
+        xb = x.bfloat16()
+        wbs = [w.bfloat16() for w in ws]
+        ctx.save_for_backward(xb, *wbs)
+        return tuple(_mm_f32_out(xb, wb) for wb in wbs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        xb, *wbs = ctx.saved_tensors
+        need_x, *need_w = ctx.needs_input_grad
+        dx, dws = None, []
+        for g, wb, need in zip(gs, wbs, need_w):
+            if g.is_cuda:
+                g = g.bfloat16()
+            if need_x:
+                dxi = _mm_f32_out(g, wb.t()).bfloat16()
+                dx = dxi if dx is None else dx + dxi
+            dws.append(_mm_f32_out(xb.t(), g).bfloat16().float()
+                       if need else None)
+        return (None if dx is None else dx.float(), *dws)
+
+
+def bf16_matmuls(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
+    """``x [N, K] @ w [K, M]`` for each ``w``, with bf16 inputs, f32
+    accumulation and f32 results; the gradients of x and of each w arrive
+    rounded to bf16, as JAX's."""
+    return _BF16MatMuls.apply(x, *ws)
+
+
+def bf16_dense(g, n: int) -> bool:
+    """Whether a layer over ``n`` rows of ``g`` takes its matmuls in bf16:
+    ``EGC_TPU_BF16_DENSE=1``, a kernel plan, and ``n >= BF16_MIN_ROWS``."""
+    return (os.environ.get("EGC_TPU_BF16_DENSE") == "1"
+            and g.kernel_plan is not None and n >= BF16_MIN_ROWS)
+
+
+def _bf16_bases_and_comb(x, wb, wc, bc):
+    """JAX's bf16 branch: ``x wb`` and ``x wc + bc``, the bias added in
+    f32 after the product; one product over ``[wb | wc]`` when the fan-in
+    is at least ``BF16_FUSED_FAN_IN``, as JAX takes it."""
+    if x.shape[1] >= BF16_FUSED_FAN_IN:
+        out, = bf16_matmuls(x, torch.cat([wb, wc], dim=1))
+        return out[:, :wb.shape[1]], out[:, wb.shape[1]:] + bc
+    bases, w = bf16_matmuls(x, wb, wc)
+    return bases, w + bc
 
 
 class EGConv(nn.Module):
@@ -70,18 +149,22 @@ class EGConv(nn.Module):
         einit.glorot_per_base_(self.bases_weight, in_channels, generator)
         einit.torch_linear_(self.comb_weights, generator)
 
-    def bases_and_comb(self, x: torch.Tensor):
+    def bases_and_comb(self, x: torch.Tensor, bf16: bool = False):
         """``x Theta`` [N, B*L] and the head-mix weights [N, H*B*A], their
-        columns in (h, b, a) order."""
-        return (x @ torch.cat(list(self.bases_weight), dim=1),
-                self.comb_weights(x))
+        columns in (h, b, a) order; with ``bf16``, through
+        ``bf16_matmuls``."""
+        wb = torch.cat(list(self.bases_weight), dim=1)
+        if bf16:
+            return _bf16_bases_and_comb(x, wb, self.comb_weights.weight.t(),
+                                        self.comb_weights.bias)
+        return x @ wb, self.comb_weights(x)
 
-    def bases_and_weights(self, x: torch.Tensor):
+    def bases_and_weights(self, x: torch.Tensor, bf16: bool = False):
         """``bases_and_comb`` with the weighting applied to the head-mix
         weights, ``[N, H*B*A]``."""
         H, B, A = self.H, self.B, self.A
         n = x.shape[0]
-        bases, w = self.bases_and_comb(x)
+        bases, w = self.bases_and_comb(x, bf16)
         if self.weighting == "softmax":
             # softmax over all bases x aggregators of a head
             w = torch.softmax(w.reshape(n, H, B * A), dim=-1)
@@ -94,7 +177,7 @@ class EGConv(nn.Module):
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         H, B, A, L = self.H, self.B, self.A, self.L
         n = x.shape[0]
-        bases, w2d = self.bases_and_weights(x)
+        bases, w2d = self.bases_and_weights(x, bf16_dense(g, n))
 
         sym_ew = sym_sw = None
         if "symnorm" in self.aggrs:
@@ -140,7 +223,9 @@ class OptimizedEGConv(EGConv):
         self.register_buffer("perm", torch.as_tensor(
             comb_perm(H, B, A), device=device), persistent=False)
 
-    def bases_and_comb(self, x: torch.Tensor):
-        return (x @ self.bases_weight,
-                F.linear(x, self.comb_weight.weight[self.perm],
-                         self.comb_weight.bias[self.perm]))
+    def bases_and_comb(self, x: torch.Tensor, bf16: bool = False):
+        wc = self.comb_weight.weight[self.perm]
+        bc = self.comb_weight.bias[self.perm]
+        if bf16:
+            return _bf16_bases_and_comb(x, self.bases_weight, wc.t(), bc)
+        return x @ self.bases_weight, F.linear(x, wc, bc)

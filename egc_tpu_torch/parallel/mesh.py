@@ -13,7 +13,13 @@ is never swapped behind the caller's back.
 - ``spawn`` starts ``world_size`` ranks from one process (``spawn``, never
   ``fork``), runs ``fn(mesh, *args)`` on each and returns their results in
   rank order. A rank that raises, dies or outlives ``timeout`` makes it
-  raise, after the others are stopped.
+  raise, after the others are stopped. Its ranks all sit on one host.
+- ``init_mesh_from_env`` joins the group that a launcher started, on one
+  host or several (``torch.distributed.run``, or any launcher that sets
+  its variables): the counterpart of an argument-less
+  ``jax.distributed.initialize()``. The rank's card is
+  ``cuda:LOCAL_RANK``, and the card count is held against the host's
+  ``LOCAL_WORLD_SIZE`` ranks, not the world's.
 - ``all_reduce_sum`` and ``all_to_all`` are the differentiable
   collectives: the backward of a sum all-reduce is a sum all-reduce
   (``psum``'s transpose), and an all-to-all of equal chunks is its own
@@ -21,8 +27,8 @@ is never swapped behind the caller's back.
   once and the caller waits on the handle it appended before reading the
   result.
 
-Asking for more CUDA ranks than there are visible cards raises, as
-``make_mesh`` does (``egc_tpu/parallel/mesh.py:29-33``).
+Asking for more CUDA ranks on a host than it has visible cards raises,
+as ``make_mesh`` does (``egc_tpu/parallel/mesh.py:29-33``).
 """
 
 from __future__ import annotations
@@ -60,8 +66,8 @@ class Mesh:
 
 
 def check_world_size(world_size: int, device) -> None:
-    """Raise unless ``world_size`` ranks fit on ``device``'s kind: one
-    card a rank under CUDA."""
+    """Raise unless ``world_size`` ranks fit on this host's ``device``
+    kind: one card a rank under CUDA."""
     if world_size < 1:
         raise ValueError(f"world size must be at least 1, got {world_size}")
     if torch.device(device).type == "cuda" and world_size > device_count():
@@ -71,14 +77,16 @@ def check_world_size(world_size: int, device) -> None:
             "two ranks on one card)")
 
 
-def init_mesh(rank: int, world_size: int, *, device, init_method: str
-              ) -> Mesh:
-    """Join the process group at ``init_method`` as ``rank``: NCCL on
-    ``cuda:<rank>`` for a CUDA ``device``, gloo for the CPU."""
+def rank_device(device, local_rank: int) -> torch.device:
+    """The device of the rank that is ``local_rank`` on its host:
+    ``cuda:<local_rank>`` for a CUDA ``device``, else ``device``."""
     dev = torch.device(device)
-    check_world_size(world_size, dev)
+    return torch.device("cuda", local_rank) if dev.type == "cuda" else dev
+
+
+def _join(rank: int, world_size: int, dev: torch.device, init_method: str
+          ) -> Mesh:
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
         backend, extra = "nccl", {"device_id": dev}
     elif dev.type == "cpu":
@@ -88,6 +96,61 @@ def init_mesh(rank: int, world_size: int, *, device, init_method: str
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank, **extra)
     return Mesh(rank, world_size, dev, backend)
+
+
+def init_mesh(rank: int, world_size: int, *, device, init_method: str
+              ) -> Mesh:
+    """Join the process group at ``init_method`` as ``rank``: NCCL on
+    ``cuda:<rank>`` for a CUDA ``device``, gloo for the CPU. Every rank
+    is on this host (``spawn``'s)."""
+    check_world_size(world_size, device)
+    return _join(rank, world_size, rank_device(device, rank), init_method)
+
+
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT")
+
+
+def launcher_env(environ=None) -> dict:
+    """The rendezvous variables that ``torch.distributed.run`` sets for a
+    rank (``LAUNCHER_ENV``), the four counts as ints. Raises, naming
+    them, if any is missing, or if the counts do not describe a rank of
+    the world and of its host."""
+    environ = os.environ if environ is None else environ
+    missing = [k for k in LAUNCHER_ENV if not environ.get(k)]
+    if missing:
+        raise ValueError(
+            f"joining from the launcher's environment needs "
+            f"{', '.join(missing)} set (torch.distributed.run sets "
+            f"{', '.join(LAUNCHER_ENV)})")
+    env = {k: environ[k] for k in LAUNCHER_ENV}
+    for k in LAUNCHER_ENV[:4]:
+        env[k] = int(env[k])
+    if not (0 <= env["RANK"] < env["WORLD_SIZE"]
+            and 0 <= env["LOCAL_RANK"] < env["LOCAL_WORLD_SIZE"]
+            <= env["WORLD_SIZE"]):
+        raise ValueError(f"inconsistent launcher environment {env}")
+    return env
+
+
+def env_rank(device, environ=None) -> tuple:
+    """``(rank, world_size, device)`` of the rank that the launcher's
+    environment describes, its card ``cuda:LOCAL_RANK``, after holding
+    the host's ``LOCAL_WORLD_SIZE`` ranks against its visible cards."""
+    env = launcher_env(environ)
+    check_world_size(env["LOCAL_WORLD_SIZE"], device)
+    return (env["RANK"], env["WORLD_SIZE"],
+            rank_device(device, env["LOCAL_RANK"]))
+
+
+def init_mesh_from_env(device) -> Mesh:
+    """Join the group a launcher started (``init_method="env://"``, from
+    ``MASTER_ADDR`` and ``MASTER_PORT``) as ``RANK`` of ``WORLD_SIZE``,
+    on ``cuda:LOCAL_RANK`` under NCCL for a CUDA ``device``, or under gloo
+    on the CPU. A missing variable raises; nothing falls back to
+    ``spawn``, to one process or to the CPU."""
+    rank, world_size, dev = env_rank(device)
+    return _join(rank, world_size, dev, "env://")
 
 
 def free_port() -> int:
