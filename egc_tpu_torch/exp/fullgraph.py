@@ -13,7 +13,10 @@ and h76, ``egc_tpu/exp/pretrained.py:59-70``).
 One step is the ``ArxivConfig`` epoch: a full-graph forward in training
 mode, the NLL averaged over the train split, backward, and one
 ``torch.optim.Adam(lr, weight_decay=wd)`` step (L2 added to the gradient,
-as the reference and ``egc_tpu.train.optim`` do).
+as the reference and ``egc_tpu.train.optim`` do). The ``train`` hook is
+the span ``egc.step`` (``float(loss)``'s read included), and
+``train_step`` splits it into ``egc.forward``, ``egc.loss``,
+``egc.backward`` and ``egc.optimizer`` (``utils.profiling.span``).
 
 ``ArxivConfig`` follows the JAX one: the synthetic graph of 4,000 nodes
 at degree 12 and 40 classes (or ``load_ogbn_arxiv`` with ``synthetic =
@@ -74,6 +77,7 @@ from egc_tpu_torch.train.loop import fold_in
 from egc_tpu_torch.train.losses import gather_label_scores
 from egc_tpu_torch.train.metrics import split_accuracies
 from egc_tpu_torch.train.optim import plateau_init
+from egc_tpu_torch.utils.profiling import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -144,11 +148,16 @@ def train_step(model: ArxivNet, optimizer: torch.optim.Optimizer,
     """One full-graph training step; returns the loss (a device scalar).
     The parameters' ``.grad`` hold this step's gradients afterwards."""
     model.train()
-    optimizer.zero_grad(set_to_none=True)
-    out = model(data["graph"], generator=generator)
-    loss = masked_nll(out, data["y"], data["masks"]["train"])
-    loss.backward()
-    optimizer.step()
+    with span("egc.optimizer"):
+        optimizer.zero_grad(set_to_none=True)
+    with span("egc.forward"):
+        out = model(data["graph"], generator=generator)
+    with span("egc.loss"):
+        loss = masked_nll(out, data["y"], data["masks"]["train"])
+    with span("egc.backward"):
+        loss.backward()
+    with span("egc.optimizer"):
+        optimizer.step()
     return loss.detach()
 
 
@@ -242,8 +251,9 @@ class FullGraphConfig(ExperimentConfig):
                         avg_log_deg=self._avg_log_deg)
 
     def train(self, model, state, data, rng, iteration: int):
-        loss = train_step(model, state, data, rng)
-        return state, {"train_loss": float(loss)}
+        with span("egc.step"):
+            loss = train_step(model, state, data, rng)
+            return state, {"train_loss": float(loss)}
 
     @torch.no_grad()
     def val(self, model, state, data):

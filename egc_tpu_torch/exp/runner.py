@@ -9,6 +9,11 @@ early-stop check -> persist], then the final test. Exposed as
 ``result.json``, ``history.json`` and ``final_summary.json`` carry the
 JAX package's keys; a trial directory holds ``checkpoint.pt`` and
 ``checkpoint.json`` (``train/checkpoint.py``).
+
+An iteration's five phases are spans (``utils.profiling.span``):
+``egc.trial.train``, ``egc.trial.val``, ``egc.trial.plateau``,
+``egc.trial.persist`` (when a checkpoint is written) and
+``egc.trial.report`` (the ``report`` callback).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from egc_tpu_torch.exp.config import ExperimentConfig
 from egc_tpu_torch.exp.summaries import TestMetricSummaries, TrialCurvePlotter
 from egc_tpu_torch.train.checkpoint import load_checkpoint
 from egc_tpu_torch.train.state import num_params
+from egc_tpu_torch.utils.profiling import span
 
 
 def run_trial(
@@ -78,9 +84,13 @@ def run_trial(
     history: List[Dict[str, float]] = []
     t0 = time.time()
     for it in range(start_iter, max_iters):
-        state, train_metrics = config.train(model, state, data, rng, it)
-        val_metrics = config.val(model, state, data)
-        state, plateau = config.apply_plateau(state, plateau, val_metrics)
+        with span("egc.trial.train"):
+            state, train_metrics = config.train(model, state, data, rng, it)
+        with span("egc.trial.val"):
+            val_metrics = config.val(model, state, data)
+        with span("egc.trial.plateau"):
+            state, plateau = config.apply_plateau(state, plateau,
+                                                  val_metrics)
         row = {"iteration": it, **train_metrics, **val_metrics,
                "lr": plateau.lr, "time_s": time.time() - t0}
         history.append(row)
@@ -94,10 +104,14 @@ def run_trial(
         periodic = settings.checkpoint_freq and \
             (it + 1) % settings.checkpoint_freq == 0
         if trial_dir is not None and (improved or periodic):
-            config.persist_trial(trial_dir, model, state, plateau, hparams,
-                                 extra={"iteration": it})
-        if report is not None and report(it, row):
-            break
+            with span("egc.trial.persist"):
+                config.persist_trial(trial_dir, model, state, plateau,
+                                     hparams, extra={"iteration": it})
+        if report is not None:
+            with span("egc.trial.report"):
+                stop = report(it, row)
+            if stop:
+                break
         if it - best_iter >= patience:   # PatientStopper semantics
             break
 

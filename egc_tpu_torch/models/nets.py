@@ -25,6 +25,7 @@ from egc_tpu_torch.nn.mlp import MLP, linear
 from egc_tpu_torch.models.encoders import ASTNodeEncoder, AtomEncoder
 from egc_tpu_torch.nn.norm import MaskedBatchNorm
 from egc_tpu_torch.nn.pool import get_pool, global_mean_pool
+from egc_tpu_torch.utils.profiling import span
 
 SEQ_LEN = 5    # CodeNet's token positions (reference code/models.py:95-98)
 
@@ -253,15 +254,20 @@ class ArxivNet(nn.Module):
 
     def forward(self, g, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.embed(g.nodes)
+        with span("egc.embed"):
+            x = self.embed(g.nodes)
         for conv, bn in zip(self.convs, self.bns):
             identity = x
-            x = conv(g, x)
-            x = torch.relu(bn(x, g.node_mask))
-            x = dropout(x, self.dropout, self.training, generator)
-            x = x + identity
-        x = self.out(x)
-        return torch.log_softmax(x, dim=-1) if self.log_probs else x
+            with span("egc.conv"):
+                x = conv(g, x)
+            x = bn(x, g.node_mask)
+            with span("egc.pointwise"):
+                x = torch.relu(x)
+                x = dropout(x, self.dropout, self.training, generator)
+                x = x + identity
+        with span("egc.head"):
+            x = self.out(x)
+            return torch.log_softmax(x, dim=-1) if self.log_probs else x
 
 
 class CodeNet(nn.Module):
@@ -337,9 +343,12 @@ class MagNet(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = g.nodes
         for i, conv in enumerate(self.convs):
-            x = conv(g, x)
+            with span("egc.conv"):
+                x = conv(g, x)
             if i < len(self.convs) - 1:
-                x = dropout(torch.relu(x), self.dropout, self.training,
-                            generator)
-        x = x[:, :self.out_true]
-        return torch.log_softmax(x, dim=-1) if self.log_probs else x
+                with span("egc.pointwise"):
+                    x = dropout(torch.relu(x), self.dropout, self.training,
+                                generator)
+        with span("egc.head"):
+            x = x[:, :self.out_true]
+            return torch.log_softmax(x, dim=-1) if self.log_probs else x

@@ -43,6 +43,7 @@ from egc_tpu_torch.nn import init as einit
 from egc_tpu_torch.ops.cuda.headmix import head_mix_fused
 from egc_tpu_torch.ops.dispatch import conv_aggregate
 from egc_tpu_torch.ops.segment import canonical_aggr
+from egc_tpu_torch.utils.profiling import span
 
 WEIGHTINGS = ("none", "softmax", "sigmoid", "hardtanh")
 BF16_MIN_ROWS = 4096     # egc_tpu/ops/pallas/headmix.py:259-261
@@ -160,11 +161,12 @@ class EGConv(nn.Module):
         return x @ wb, self.comb_weights(x)
 
     def bases_and_weights(self, x: torch.Tensor, bf16: bool = False):
-        """``bases_and_comb`` with the weighting applied to the head-mix
-        weights, ``[N, H*B*A]``."""
+        """``bases_and_comb`` (the span ``egc.conv.dense``) with the
+        weighting applied to the head-mix weights, ``[N, H*B*A]``."""
         H, B, A = self.H, self.B, self.A
         n = x.shape[0]
-        bases, w = self.bases_and_comb(x, bf16)
+        with span("egc.conv.dense"):
+            bases, w = self.bases_and_comb(x, bf16)
         if self.weighting == "softmax":
             # softmax over all bases x aggregators of a head
             w = torch.softmax(w.reshape(n, H, B * A), dim=-1)

@@ -29,6 +29,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from egc_tpu_torch.utils.profiling import span
+
 
 MOMENTUM = 0.1
 EPS = 1e-5
@@ -51,34 +53,37 @@ class MaskedBatchNorm(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [N, F]; mask: [N] bool (None: every row is valid). Training
         mode uses and updates batch statistics, eval mode the running
-        ones."""
-        if not self.training:
-            mean, var = self.running_mean, self.running_var
-        else:
-            xf = x.float()
-            if mask is None:
-                s, ssq = xf.sum(0), (xf * xf).sum(0)
-                n = torch.tensor(float(x.shape[0]), device=x.device)
+        ones. The span ``egc.norm``."""
+        with span("egc.norm"):
+            if not self.training:
+                mean, var = self.running_mean, self.running_var
             else:
-                m = mask.to(torch.float32)[:, None]
-                s, ssq = (xf * m).sum(0), (xf * xf * m).sum(0)
-                n = m.sum()
-            if self.process_group is not None:
-                from egc_tpu_torch.parallel.mesh import all_reduce_sum
-                f = s.shape[0]
-                tot = all_reduce_sum(torch.cat([s, ssq, n.reshape(1)]),
-                                     self.process_group)
-                s, ssq, n = tot[:f], tot[f:2 * f], tot[2 * f]
-            n = torch.clamp(n, min=1.0)
-            mean = s / n
-            var = torch.clamp(ssq / n - mean * mean, min=0.0)
-            with torch.no_grad():
-                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                self.running_mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mean)
-                self.running_var.mul_(1 - MOMENTUM).add_(MOMENTUM * unbiased)
-                self.num_batches_tracked.add_(1)
-        y = (x.float() - mean) * torch.reciprocal(torch.sqrt(var + EPS))
-        return (y * self.weight + self.bias).to(x.dtype)
+                xf = x.float()
+                if mask is None:
+                    s, ssq = xf.sum(0), (xf * xf).sum(0)
+                    n = torch.tensor(float(x.shape[0]), device=x.device)
+                else:
+                    m = mask.to(torch.float32)[:, None]
+                    s, ssq = (xf * m).sum(0), (xf * xf * m).sum(0)
+                    n = m.sum()
+                if self.process_group is not None:
+                    from egc_tpu_torch.parallel.mesh import all_reduce_sum
+                    f = s.shape[0]
+                    tot = all_reduce_sum(torch.cat([s, ssq, n.reshape(1)]),
+                                         self.process_group)
+                    s, ssq, n = tot[:f], tot[f:2 * f], tot[2 * f]
+                n = torch.clamp(n, min=1.0)
+                mean = s / n
+                var = torch.clamp(ssq / n - mean * mean, min=0.0)
+                with torch.no_grad():
+                    unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                    self.running_mean.mul_(1 - MOMENTUM).add_(
+                        MOMENTUM * mean)
+                    self.running_var.mul_(1 - MOMENTUM).add_(
+                        MOMENTUM * unbiased)
+                    self.num_batches_tracked.add_(1)
+            y = (x.float() - mean) * torch.reciprocal(torch.sqrt(var + EPS))
+            return (y * self.weight + self.bias).to(x.dtype)
 
 
 def sync_process_group(module: nn.Module, group) -> nn.Module:

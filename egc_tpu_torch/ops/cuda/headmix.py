@@ -23,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from egc_tpu_torch.ops.cuda import _build
+from egc_tpu_torch.utils.profiling import span
 
 MAX_AGGRS = 8          # kMaxAggrs in csrc/headmix.cu
 
@@ -228,7 +229,8 @@ def head_mix_fused(w2d: torch.Tensor, ys: Sequence[torch.Tensor], *, H: int,
                    B: int, A: int, L: int, y_width: int = 0,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Head mix of ``w2d [n, H*B*A]`` with the A arrays ``ys [n, y_width]``
-    -> ``[n, H*L]``, bias folded in (``egc_tpu`` ``head_mix_fused``)."""
+    -> ``[n, H*L]``, bias folded in (``egc_tpu`` ``head_mix_fused``); the
+    span ``egc.headmix``."""
     ys = tuple(ys)
     y_width = y_width or B * L
     if y_width < B * L:
@@ -238,4 +240,5 @@ def head_mix_fused(w2d: torch.Tensor, ys: Sequence[torch.Tensor], *, H: int,
         raise ValueError("head_mix_fused: inconsistent shapes")
     if bias is not None and tuple(bias.shape) != (H * L,):
         raise ValueError("bias must be [H*L]")
-    return _HeadMix.apply(w2d, bias, (H, B, A, L, y_width), *ys)
+    with span("egc.headmix"):
+        return _HeadMix.apply(w2d, bias, (H, B, A, L, y_width), *ys)

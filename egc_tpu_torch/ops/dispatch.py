@@ -47,6 +47,7 @@ from egc_tpu_torch.ops.cuda.gather_reduce import (
 from egc_tpu_torch.ops.segment import (
     assemble_aggregators, canonical_aggr, multi_aggregate,
 )
+from egc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -257,34 +258,36 @@ def fused_multi_aggregate(
 
     A plan built with ``edge_weight`` carries its own pre-permuted symnorm
     weights, and they win over ``symnorm_edge_w`` (as in ``egc_tpu``);
-    ``conv_aggregate`` refuses a graph where the two could differ."""
-    aggrs = tuple(canonical_aggr(a) for a in aggrs)
-    if vals.shape[0] != plan.src_rows:
-        raise ValueError(f"vals has {vals.shape[0]} rows, the plan "
-                         f"{plan.src_rows}")
-    if plan.num_src is not None and (include_self or "symnorm" in aggrs):
-        raise ValueError("a bipartite plan takes no self term and no "
-                         "symnorm: use bipartite_multi_aggregate")
-    prims = _plan_prims(aggrs)
-    ew_f = ew_b = None
-    if "wsum" in prims:
-        if plan.fwd_w is not None:
-            ew_f, ew_b = plan.fwd_w, plan.bwd_w
-        elif symnorm_edge_w is None:
-            raise ValueError("symnorm requires symnorm_edge_w")
-        else:
-            w = symnorm_edge_w.detach().float()
-            ew_f = w[plan.fwd_perm].contiguous()
-            ew_b = w[plan.bwd_perm].contiguous()
-    masks = tuple(m for m in EXTREMA if m in prims) \
-        if vals.requires_grad and torch.is_grad_enabled() else ()
-    p = dict(zip(prims, _FusedPrimitives.apply(vals.contiguous(), plan,
-                                               prims, ew_f, ew_b, masks)))
+    ``conv_aggregate`` refuses a graph where the two could differ. The
+    span ``egc.aggregate``, as the CPU path's in ``conv_aggregate``."""
+    with span("egc.aggregate"):
+        aggrs = tuple(canonical_aggr(a) for a in aggrs)
+        if vals.shape[0] != plan.src_rows:
+            raise ValueError(f"vals has {vals.shape[0]} rows, the plan "
+                             f"{plan.src_rows}")
+        if plan.num_src is not None and (include_self or "symnorm" in aggrs):
+            raise ValueError("a bipartite plan takes no self term and no "
+                             "symnorm: use bipartite_multi_aggregate")
+        prims = _plan_prims(aggrs)
+        ew_f = ew_b = None
+        if "wsum" in prims:
+            if plan.fwd_w is not None:
+                ew_f, ew_b = plan.fwd_w, plan.bwd_w
+            elif symnorm_edge_w is None:
+                raise ValueError("symnorm requires symnorm_edge_w")
+            else:
+                w = symnorm_edge_w.detach().float()
+                ew_f = w[plan.fwd_perm].contiguous()
+                ew_b = w[plan.bwd_perm].contiguous()
+        masks = tuple(m for m in EXTREMA if m in prims) \
+            if vals.requires_grad and torch.is_grad_enabled() else ()
+        p = dict(zip(prims, _FusedPrimitives.apply(vals.contiguous(), plan,
+                                                   prims, ew_f, ew_b, masks)))
 
-    p["count"] = plan.deg
-    outs = assemble_aggregators(p, vals, aggrs, include_self=include_self,
-                                symnorm_self_w=symnorm_self_w)
-    return torch.stack(outs, dim=1) if stacked else tuple(outs)
+        p["count"] = plan.deg
+        outs = assemble_aggregators(p, vals, aggrs, include_self=include_self,
+                                    symnorm_self_w=symnorm_self_w)
+        return torch.stack(outs, dim=1) if stacked else tuple(outs)
 
 
 BIPARTITE_AGGRS = ("sum", "mean", "max", "min")
@@ -333,11 +336,12 @@ def conv_aggregate(g, x, aggrs, *, include_self: bool = False,
             "the graph's kernel plan carries its own edge weights; "
             "symnorm_edge_w must be the graph's edge_weight")
     if x.device.type == "cpu":
-        out = multi_aggregate(
-            x, g.senders, g.receivers, aggrs, edge_mask=g.edge_mask,
-            include_self=include_self, symnorm_edge_w=symnorm_edge_w,
-            symnorm_self_w=symnorm_self_w)
-        return out if stacked else tuple(out.unbind(dim=1))
+        with span("egc.aggregate"):
+            out = multi_aggregate(
+                x, g.senders, g.receivers, aggrs, edge_mask=g.edge_mask,
+                include_self=include_self, symnorm_edge_w=symnorm_edge_w,
+                symnorm_self_w=symnorm_self_w)
+            return out if stacked else tuple(out.unbind(dim=1))
     if plan is None:
         raise RuntimeError(
             "conv_aggregate on a CUDA tensor needs a graph with a kernel "

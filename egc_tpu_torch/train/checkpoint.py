@@ -6,7 +6,9 @@ A trial directory holds ``checkpoint.pt``, written with ``torch.save`` in
 the reference's trial payload shape: ``model`` (the reference-named state
 dict), ``opt`` (the optimizer's ``state_dict``) and ``step``. Beside it,
 ``checkpoint.json`` holds the JAX package's meta unchanged: ``hparams``,
-``plateau`` as a list and ``extra``.
+``plateau`` as a list and ``extra``. The ``torch.save`` is the span
+``egc.checkpoint.save`` (``utils.profiling.span``): on the card it holds
+the device-to-host copies of the state and the write to disk.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from egc_tpu_torch.train.optim import PlateauState, set_lr
 from egc_tpu_torch.train.state import optimizer_step
+from egc_tpu_torch.utils.profiling import span
 
 
 def save_checkpoint(ckpt_dir, *, model: torch.nn.Module,
@@ -34,8 +37,9 @@ def save_checkpoint(ckpt_dir, *, model: torch.nn.Module,
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / "checkpoint.pt"
     model_sd, opt_sd = states or (model.state_dict(), optimizer.state_dict())
-    torch.save({"model": model_sd, "opt": opt_sd,
-                "step": optimizer_step(optimizer)}, path)
+    with span("egc.checkpoint.save"):
+        torch.save({"model": model_sd, "opt": opt_sd,
+                    "step": optimizer_step(optimizer)}, path)
     meta = {
         "hparams": hparams or {},
         "plateau": list(plateau) if plateau is not None else None,

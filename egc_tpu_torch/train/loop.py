@@ -7,10 +7,14 @@ would hold the host at every step and serialise the loader's prefetch
 against the device. ``eval_epoch`` brings each batch's outputs to the
 host for the task metric.
 
-The consuming thread's two parts of a step are ``record_function`` ranges,
-``egc.batch`` (waiting for the next batch and its copy to the device) and
-``egc.step`` (forward, backward and optimizer step, enqueued), so a
-``torch.profiler`` trace splits the host's time between them.
+The consuming thread's two parts of a step are spans
+(``utils.profiling.span``), ``egc.batch`` (waiting for the next batch and
+its copy to the device) and ``egc.step`` (forward, backward and optimizer
+step, enqueued); ``train_step`` splits the step into ``egc.forward``,
+``egc.loss``, ``egc.backward`` and ``egc.optimizer``. A span is on only
+under a recording ``torch.profiler`` (a range on its clock, so a trace
+splits the host's time between them) or inside ``span_totals()`` (host
+seconds by name); otherwise it is a shared no-op.
 
 Dropout draws from an explicit ``torch.Generator``: ``fold_in`` derives an
 iteration's generator from the trial's, as the JAX loop folds the trial
@@ -26,7 +30,8 @@ from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from egc_tpu_torch.utils.profiling import span
 
 
 class StepClock:
@@ -80,10 +85,16 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     parameters' ``.grad`` hold this step's gradients afterwards. Dropout
     draws from ``generator``."""
     model.train()
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model(graph, generator=generator), y, graph)
-    loss.backward()
-    optimizer.step()
+    with span("egc.optimizer"):
+        optimizer.zero_grad(set_to_none=True)
+    with span("egc.forward"):
+        out = model(graph, generator=generator)
+    with span("egc.loss"):
+        loss = loss_fn(out, y, graph)
+    with span("egc.backward"):
+        loss.backward()
+    with span("egc.optimizer"):
+        optimizer.step()
     return loss.detach()
 
 
@@ -100,11 +111,11 @@ def train_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     losses = []
     it = iter(loader)
     while steps is None or len(losses) < steps:
-        with record_function("egc.batch"):
+        with span("egc.batch"):
             batch = next(it, None)
         if batch is None:
             break
-        with record_function("egc.step"):
+        with span("egc.step"):
             losses.append(train_step(model, optimizer, loss_fn, *batch,
                                      generator=generator))
         if clock is not None:

@@ -1,12 +1,11 @@
 """The port's utils (``egc_tpu_torch.utils``) against the checks of the JAX
-package's ``tests/test_utils.py``: the JSONL logger, the throughput meter,
-``check_finite`` over nested trees of tensors and arrays, seeding,
-determinism and the profiler's device op table."""
+package's ``tests/test_utils.py``: ``check_finite`` over nested trees of
+tensors and arrays, seeding, determinism and the profiler's device op
+table (the spans: ``test_torch_port_tracing.py``)."""
 
 import json
 import os
 import random
-import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,46 +16,6 @@ from egc_tpu import utils as jutils
 from egc_tpu_torch import utils as tutils
 
 torch.set_num_threads(2)
-
-
-def test_jsonl_logger_writes_the_jax_rows(tmp_path):
-    for mod, name in ((jutils, "j.jsonl"), (tutils, "t.jsonl")):
-        log = mod.JSONLLogger(tmp_path / "sub" / name)
-        log.log({"step": 1, "loss": 0.5})
-        log.log({"step": 2, "loss": np.float32(0.25)})
-        log.close()
-    rows = {name: [json.loads(line) for line in
-                   (tmp_path / "sub" / name).read_text().splitlines()]
-            for name in ("j.jsonl", "t.jsonl")}
-    for rj, rt in zip(rows["j.jsonl"], rows["t.jsonl"]):
-        assert list(rt) == list(rj) == ["ts", "step", "loss"]
-        assert {k: rt[k] for k in ("step", "loss")} == \
-            {k: rj[k] for k in ("step", "loss")}
-
-
-def test_logger_echo(tmp_path, capsys):
-    log = tutils.JSONLLogger(tmp_path / "e.jsonl", echo=True)
-    log.log({"step": 3, "acc": 0.5})
-    log.close()
-    assert capsys.readouterr().out.strip() == "step=3 acc=0.5"
-
-
-def test_throughput_meter():
-    m = tutils.ThroughputMeter(edges_per_step=1000, nodes_per_step=10,
-                               warmup=1)
-    assert m.summary() == {}
-    for _ in range(3):
-        m.step_start()
-        time.sleep(0.01)
-        m.step_end()
-    s = m.summary()
-    assert m.counted_steps == 2
-    assert 10_000 < s["edges_per_s"] < 120_000
-    assert s["nodes_per_s"] == pytest.approx(s["edges_per_s"] / 100)
-    assert s["step_time_s"] >= 0.01
-    assert set(s) == {"step_time_s", "edges_per_s", "nodes_per_s"}
-    j = jutils.ThroughputMeter(edges_per_step=1000, nodes_per_step=10)
-    assert (j.warmup, j.edges, j.nodes) == (m.warmup, m.edges, m.nodes)
 
 
 @pytest.mark.parametrize("bad", [
@@ -126,17 +85,15 @@ def test_enable_determinism(monkeypatch):
         torch.backends.cudnn.deterministic = before[2]
 
 
-def test_profile_trace_and_op_table(tmp_path, capsys):
+def test_profile_trace_and_op_table(tmp_path):
     """The trace context writes a Chrome trace; on the CPU the device op
-    table is empty (no CUDA activity) and prints a zero total; disabled,
-    it yields no profiler."""
+    table is empty (no CUDA activity); disabled, it yields no
+    profiler."""
     with tutils.profile_trace(tmp_path / "prof") as prof:
         torch.randn(64, 64) @ torch.randn(64, 64)
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
     assert tutils.device_op_table(prof) == []
-    assert tutils.print_op_table(prof) == 0.0
-    assert "total device self-time: 0.000 ms" in capsys.readouterr().out
     with tutils.profile_trace(tmp_path / "off", enabled=False) as off:
         assert off is None
     assert not (tmp_path / "off").exists()
