@@ -72,7 +72,19 @@ Phases, each of which raises (exit code 1) on any failed check:
    path and CLI run fails on a gather-reduce (F, primitives, masks; the
    forward without masks counted held with the masked one), head mix
    (H, B, A, L) or attention (H, C) that it launched and phase 3 did not
-   hold.
+   hold. The four masked-BatchNorm kernels (``ops/cuda/batch_norm``,
+   ``kernels_batch_norm``) at the arxiv shape (169,343 rows and a padded
+   one under the node mask, F = 136), and at N = 1, all rows masked, F =
+   34, 68 and 352, the scalar variant at 34 and at 68 on a misaligned
+   view: the sums of ``bn_stats`` and ``bn_grad_sums`` against their
+   float64 values within the worst-case f32 error of the kernels' order
+   of addition (``_bn_depth``), ``bn_apply`` (train and eval, the running
+   statistics too) and ``bn_apply_bwd`` bitwise against their plain
+   versions on the same statistics and sums, two launches of each
+   bitwise; timed at the arxiv shape beside their bounds, their plain
+   versions and ``torch.nn.functional.batch_norm`` with no mask (the
+   yardstick, never called by the port). The build's ``ptxas`` report of the eight
+   ``batch_norm`` instantiations must show no spills.
 4. the three paths, each through ``train_full_graph`` on the 169,343-node
    synthetic graph: "main" (arxiv EGC-M, h128 H4 B4 symnorm/max/mean),
    "gat" (arxiv GAT, h152 H8) and "gatv2" (arxiv GATv2, h112 H8, lr
@@ -90,15 +102,16 @@ Phases, each of which raises (exit code 1) on any failed check:
    step of the port on the CPU (loss and every gradient); then 2 warm-up
    and 10 timed dropout-0.2 steps with the launch counters reset just
    before and read just after: each kernel of the path launches 3 times
-   per step and every other kernel never; then a torch.profiler table of
+   per step (the BatchNorm kernels once a layer) and every other kernel
+   never; then a torch.profiler table of
    two more steps (device time by kernel). Then the two batched ogbg-code2
    paths through ``train_batched`` on ``synthetic_code(900)`` at the real
    vocabulary (5000) and attribute count (10,030), batch 128, with the
    loader's prefetch: "code_gat" (CodeNet GAT h304 H8, 4 layers, the last
    single-head) and "code_gatv2" (GATv2 h296 H8): one step on the card
    against the CPU step, then 15 steps (3 epochs) with the launch counters
-   (each kernel of the path 4 times per step, every other kernel never),
-   a val pass (sequence F1), and a profiler table of two steps with the
+   (each kernel of the path 4 times per step, the BatchNorm kernels once
+   a layer, every other kernel never), a val pass (sequence F1), and a profiler table of two steps with the
    window split into batch fetch, step enqueue, wait and device busy,
    beside the build time of the window's two batches on the prefetch
    threads. Every card-vs-CPU step gradient must agree to relative L2 1e-3;
@@ -114,7 +127,11 @@ Phases, each of which raises (exit code 1) on any failed check:
    would take the script past ``ZOO_BUDGET_S`` (a line says which). In
    the timed steps of EGC-M and of each zoo path, the (F, primitives,
    masks) that ``ops/dispatch`` launches the gather-reduce pair with must
-   be the one phase 3 held (``PATH_GATHER``). Then "mag": MagNet h352 H8
+   be the one phase 3 held (``PATH_GATHER``). In the timed steps of every
+   path each BatchNorm kernel launches once a ``MaskedBatchNorm`` layer a
+   step (``_per_step``; none on mag, sampled mag and rmag), and in an
+   eval forward (the trial's validation, ``--pretrained``) ``bn_apply``
+   alone once a layer. Then "mag": MagNet h352 H8
    B4 symnorm (2 layers, lr 0.01, wd 1e-5, dropout 0.3) through
    ``MagConfig``'s hooks on ``synthetic_full_graph`` of ogbn-mag's 736,389
    papers at average degree 15: one dropout-0 iteration against the CPU
@@ -198,7 +215,7 @@ Phases, each of which raises (exit code 1) on any failed check:
    and timed): 3 EGC-M h128 H4 B4 steps against the unpartitioned
    ``ArxivConfig`` steps on the card from the same seeded weights (loss
    rtol 1e-5, gradients relative L2 <= ``PART_GRAD_REL_L2``), rows 2-5
-   launched 3 times a step and nothing else; both steps' times (windows
+   and the BatchNorm kernels launched 3 times a step and nothing else; both steps' times (windows
    in turns) and the partitioned step's idle share; one GAT h152 H8 step
    each way (rows 6-7, 3 a step); one DP step at world 1 on a zinc
    EGC-M batch against one device; ``python -m egc_tpu_torch ...
@@ -425,18 +442,24 @@ TRIAL_ITERS = 12
 GATHER = ("gather_reduce_fwd", "gather_reduce_bwd")
 EGC_KERNELS = ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
                "headmix_bwd")
+GAT_KERNELS = ("gat_fwd", "gat_bwd_t", "gat_bwd_f")
+GATV2_KERNELS = ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f")
 GATV2W_KERNELS = ("gatv2w_fwd", "gatv2w_bwd_t", "gatv2w_bwd_f")
+# masked BatchNorm (ops/cuda/batch_norm): a training step launches each
+# once a MaskedBatchNorm layer, an eval forward bn_apply once a layer
+# (``_per_step``); MagNet and the rmag net hold none
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_sums", "bn_apply_bwd")
 PATH_KERNELS = {
-    "main": EGC_KERNELS,
-    "gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
-    "gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
-    "gat_wide": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
-    "gatv2_wide": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f")
-    + GATV2W_KERNELS,
-    "code_gat": ("gat_fwd", "gat_bwd_t", "gat_bwd_f"),
-    "code_gatv2": ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f"),
-    **{path: GATHER for path in ZOO_NETS},
-    "mag": EGC_KERNELS, **{path: EGC_KERNELS for path in BATCHED_NETS},
+    "main": EGC_KERNELS + BN_KERNELS,
+    "gat": GAT_KERNELS + BN_KERNELS,
+    "gatv2": GATV2_KERNELS + BN_KERNELS,
+    "gat_wide": GAT_KERNELS + BN_KERNELS,
+    "gatv2_wide": GATV2_KERNELS + GATV2W_KERNELS + BN_KERNELS,
+    "code_gat": GAT_KERNELS + BN_KERNELS,
+    "code_gatv2": GATV2_KERNELS + BN_KERNELS,
+    **{path: GATHER + BN_KERNELS for path in ZOO_NETS},
+    "mag": EGC_KERNELS,
+    **{path: EGC_KERNELS + BN_KERNELS for path in BATCHED_NETS},
     "rmag": EGC_KERNELS, **{path: EGC_KERNELS for path in SAMPLED_PATHS},
 }
 PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
@@ -446,8 +469,9 @@ PATH_LAYERS = {"main": 3, "gat": 3, "gatv2": 3, "code_gat": 4,
                "rmag": RMAG_LAUNCHES}
 #   launches of each path kernel per step (the wide paths: by kernel,
 #   ``_wide_launches``)
-CLI_KERNELS = {"gat": PATH_KERNELS["gat"], "gatv2": PATH_KERNELS["gatv2"],
-               "egc": PATH_KERNELS["main"]}   # the others: GATHER
+CLI_KERNELS = {"gat": GAT_KERNELS, "gatv2": GATV2_KERNELS,
+               "egc": EGC_KERNELS}   # the others: GATHER; BN_KERNELS too
+#   where the dataset's net has BatchNorm (not NO_NORM)
 # then ``--check --check-epochs 2`` of every SUPPORTED (dataset, kind) of
 # the batched datasets and mag, each at its width in
 # scripts/train_main_table.sh (EGC: its egc_m row), and one zinc EGC-M
@@ -477,6 +501,7 @@ CLI_DATASET_RUNS = [
     ("rmag", "egc", ["--hidden", "64", "--egc-num-heads", "4",
                      "--egc-num-bases", "4"])]
 CLI_DATASET_EPOCHS = 2
+NO_NORM = ("mag", "rmag")   # datasets whose nets hold no BatchNorm
 # the kernel instantiations that the CLI runs launch beyond the timed
 # paths', by dataset and kind: gather-reduce (F, primitives, masks) and
 # head mix (H, B, A, L), held in phase 3 on a batch of the dataset (arxiv:
@@ -643,6 +668,11 @@ def phase_build() -> dict:
                 check(len(wide) == 6 and all(
                     "0 bytes spill stores" in ln for ln in wide),
                     f"[build] the wide kernels: {wide}")
+            if name == "batch_norm":
+                bn = [ln for ln in lines if ln.startswith("bn_")]
+                check(len(bn) == 8 and all(
+                    "0 bytes spill stores" in ln for ln in bn),
+                    f"[build] the BatchNorm kernels: {bn}")
     log(f"[build] {_build.build_seconds:.3f} s")
     return {"build_seconds": _build.build_seconds}
 
@@ -1010,6 +1040,222 @@ def kernels_small(dev) -> None:
         "A=1, head mix (H, B, A, L, y_width, offset) = "
         f"{[sh[:6] for sh in HEADMIX_SMALL_SHAPES]}, vector and scalar "
         "variants of kernels 3 and 4)")
+
+
+# the masked BatchNorm kernels (ops/cuda/batch_norm) off the arxiv shape:
+# (rows, F, mask, float offset of x in its buffer); N = 1, all rows masked,
+# the readout MLP's h/4 = 34 (scalar variant) and h/2 = 68, 68 on a view
+# 4 bytes off 16-byte alignment (scalar), and 352 (MagNet's width)
+BN_SMALL = ((1, 136, "none", 0), (1, 34, "masked", 0),
+            (128, 34, "some", 0), (128, 68, "some", 0),
+            (128, 68, "masked", 0), (1000, 68, "some", 1),
+            (2000, 352, "none", 0), (57, 136, "some", 0))
+BN_F = 136     # arxiv EGC-M's width (the benchmark's egc_m_arxiv)
+
+
+def _bn_depth(n: int, f: int, vector: bool) -> int:
+    """The additions that a term of a BatchNorm kernel's column sum passes
+    through at most: a thread's rows, then its block's R threads, then the
+    blocks' partials (``batch_norm.grid``; ``csrc/batch_norm.cu``)."""
+    from egc_tpu_torch.ops.cuda import batch_norm as bn
+    blocks, rpb = bn.grid(n, f, vector, bn.SUM_BLOCKS)
+    rows = bn.THREADS // min(f // 4 if vector else f, bn.THREADS)
+    return -(-rpb // rows) + rows + blocks
+
+
+def _bn_sums_close(name, got, exact, abs_sums, depth: int) -> float:
+    """f32 column sums ``got`` against their float64 values ``exact``
+    within gamma_depth times ``abs_sums``, the sum of the terms'
+    magnitudes: the worst-case error when each term passes through at
+    most ``depth`` roundings (``_bn_depth``, plus those that form it)."""
+    import torch
+    gamma = depth * F32_U / (1 - depth * F32_U)
+    err = (got.double() - exact).abs()
+    over = err > gamma * abs_sums + torch.finfo(torch.float32).tiny
+    check(not bool(over.any()),
+          f"{name}: {int(over.sum())} sums beyond gamma_{depth} sum |terms| "
+          f"(max abs err {float(err.max())})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _bn_case(x, mask, gen, label: str, timed: bool = False) -> dict:
+    """The four BatchNorm kernels on ``x`` (and ``mask``) against their
+    plain versions: the sums against their float64 values within the
+    worst-case f32 error of the kernels' order of addition,
+    ``bn_apply`` and ``bn_apply_bwd`` to the bit on the kernels' own
+    statistics and sums, two launches of each bitwise; with ``timed``,
+    kernel, plain and library times."""
+    import torch
+    from egc_tpu_torch.ops.cuda import batch_norm as bn
+    dev = x.device
+    n, f = x.shape
+    m = torch.ones(n, device=dev) if mask is None else mask.float()
+    w = torch.randn(f, generator=gen, device=dev)
+    b = torch.randn(f, generator=gen, device=dev)
+    g = torch.randn(n, f, generator=gen, device=dev)
+    rm = torch.randn(f, generator=gen, device=dev)
+    rv = torch.rand(f, generator=gen, device=dev) + 0.5
+    nbt = torch.tensor(5, device=dev)
+    vec = bn.variant(f, [x.data_ptr()])
+    depth = _bn_depth(n, f, vec == "vector")
+    errs = {}
+    stats = bn._launch_stats(x, mask)
+    xd, md = x.double(), m.double()[:, None]
+    errs["bn_stats"] = max(
+        _bn_sums_close(f"bn_stats[{label}] s", stats[:f], (xd * md).sum(0),
+                       (xd.abs() * md).sum(0), depth),
+        _bn_sums_close(f"bn_stats[{label}] ssq", stats[f:2 * f],
+                       (xd * xd * md).sum(0), (xd * xd * md).sum(0),
+                       depth + 1))
+    valid = float(m.sum())
+    check(float(stats[2 * f]) == valid, f"bn_stats[{label}]: n "
+          f"{float(stats[2 * f])} against {valid}")
+    check(torch.equal(bn._launch_stats(x, mask), stats),
+          f"bn_stats[{label}]: two launches differ")
+
+    runs = []
+    for _ in range(2):
+        state = (rm.clone(), rv.clone(), nbt.clone())
+        runs.append((bn._launch_apply(x, stats, w, b, *state), state))
+    plain = (rm.clone(), rv.clone(), nbt.clone())
+    y_ref = bn.apply_plain(x, stats, w, b, *plain)
+    (y, state), (y2, state2) = runs
+    check(torch.equal(y, y_ref) and all(torch.equal(a, c) for a, c in
+                                        zip(state, plain)),
+          f"bn_apply[{label}]: not equal to the plain version (max err "
+          f"{float((y - y_ref).abs().max())})")
+    check(torch.equal(y, y2) and all(torch.equal(a, c) for a, c in
+                                     zip(state, state2)),
+          f"bn_apply[{label}]: two launches differ")
+    ye = bn._launch_apply(x, None, w, b, rm, rv, None)
+    check(torch.equal(ye, bn.apply_plain(x, None, w, b, rm, rv, None)),
+          f"bn_apply[{label}] eval: not equal to the plain version")
+    errs["bn_apply"] = 0.0
+
+    sums = bn._launch_grad_sums(g, x, stats, None, None, w)
+    sums_ref = bn.grad_sums_plain(g, x, stats, None, None, w)
+    mean, _, r, _, _ = bn._columns(stats, None, None, f)
+    gd, rd = g.double(), r.double()
+    terms = gd * (xd - mean.double())
+    del xd, md
+    errs["bn_grad_sums"] = max(
+        _bn_sums_close(f"bn_grad_sums[{label}] dbias", sums[1], gd.sum(0),
+                       gd.abs().sum(0), depth),
+        _bn_sums_close(f"bn_grad_sums[{label}] dweight", sums[0],
+                       rd * terms.sum(0), rd.abs() * terms.abs().sum(0),
+                       depth + 3))
+    del gd, terms
+    gap = rel_l2(sums[2], sums_ref[2])
+    check(gap <= 1e-3, f"bn_grad_sums[{label}]: (ds, dssq) at relative L2 "
+                       f"{gap}")
+    check(all(torch.equal(a, c) for a, c in zip(
+        sums, bn._launch_grad_sums(g, x, stats, None, None, w))),
+        f"bn_grad_sums[{label}]: two launches differ")
+    dx = bn._launch_apply_bwd(g, x, mask, stats, None, None, w, sums[2])
+    dx_ref = bn.apply_bwd_plain(g, x, mask, stats, None, None, w, sums[2])
+    check(torch.equal(dx, dx_ref),
+          f"bn_apply_bwd[{label}]: not equal to the plain version (max err "
+          f"{float((dx - dx_ref).abs().max())})")
+    check(torch.equal(dx, bn._launch_apply_bwd(g, x, mask, stats, None, None,
+                                               w, sums[2])),
+          f"bn_apply_bwd[{label}]: two launches differ")
+    es = bn._launch_grad_sums(g, x, None, rm, rv, w)
+    dxe = bn._launch_apply_bwd(g, x, mask, None, rm, rv, w, es[2])
+    check(torch.equal(dxe, bn.apply_bwd_plain(g, x, mask, None, rm, rv, w,
+                                              es[2])),
+          f"bn_apply_bwd[{label}] eval: not equal to the plain version")
+    errs["bn_apply_bwd"] = 0.0
+    out = {"label": label, "n": n, "f": f, "variant": vec,
+           "max_abs_err": errs, "ds_dssq_rel_l2": gap}
+    if not timed:
+        return out
+    import torch.nn.functional as F
+    arr = 4.0 * n * f
+    mbytes = 0 if mask is None else n
+    state = (rm.clone(), rv.clone(), nbt.clone())
+    kern = {
+        "bn_stats": (lambda: bn._launch_stats(x, mask),
+                     lambda: bn.stats_plain(x, mask), arr + mbytes),
+        "bn_apply": (lambda: bn._launch_apply(x, stats, w, b, *state),
+                     lambda: bn.apply_plain(x, stats, w, b, *state),
+                     2 * arr),
+        "bn_grad_sums": (
+            lambda: bn._launch_grad_sums(g, x, stats, None, None, w),
+            lambda: bn.grad_sums_plain(g, x, stats, None, None, w), 2 * arr),
+        "bn_apply_bwd": (
+            lambda: bn._launch_apply_bwd(g, x, mask, stats, None, None, w,
+                                         sums[2]),
+            lambda: bn.apply_bwd_plain(g, x, mask, stats, None, None, w,
+                                       sums[2]), 3 * arr + mbytes)}
+    # the library yardstick, never called by the port: unmasked BatchNorm
+    # forward (the pair stats + apply) and backward (grad_sums + apply_bwd)
+    xl = x.detach().clone().requires_grad_(True)
+    lib_rm, lib_rv = rm.clone(), rv.clone()
+
+    def lib_fwd():
+        return F.batch_norm(xl, lib_rm, lib_rv, w, b, training=True)
+
+    yl = lib_fwd()
+    library = {"forward": time_ms(lambda: lib_fwd().detach()),
+               "backward": time_ms(lambda: torch.autograd.grad(
+                   yl, xl, g, retain_graph=True))}
+    out["rows"] = {}
+    for name, (k_fn, p_fn, nbytes) in kern.items():
+        bound, by = bound_ms(nbytes, 4.0 * n * f)   # ~4 flops an element
+        out["rows"][name] = {"ms": time_ms(k_fn), "plain_ms": time_ms(p_fn),
+                             "bound_ms": bound, "bound_by": by}
+    out["library_ms"] = library
+    return out
+
+
+def kernels_batch_norm(data) -> tuple:
+    """The masked BatchNorm kernels against their plain versions at the
+    arxiv shape (the graph's padded rows under its node mask, F = 136),
+    timed, and at ``BN_SMALL``; returns the four kernel rows (their
+    ``library_ms``: ``F.batch_norm``'s whole forward, unmasked, beside
+    ``bn_stats`` and ``bn_apply``, its backward beside the other two) and
+    the library times and small cases."""
+    import torch
+    dev = data["device"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mask = data["graph"].node_mask
+    n = mask.shape[0]
+    x = torch.randn(n, BN_F, generator=gen, device=dev) * 2 + 0.5
+    main = _bn_case(x, mask, gen, "arxiv", timed=True)
+    del x
+    rows = []
+    for name, row in main["rows"].items():
+        rows.append({"name": name, "route": "CUDA",
+                     "source": "csrc/batch_norm.cu",
+                     "replaces": "none (XLA's fusion in the JAX package)",
+                     "variant": main["variant"],
+                     "max_abs_err": main["max_abs_err"][name],
+                     "floor_ms": row["bound_ms"],
+                     "library_ms": main["library_ms"][
+                         "forward" if name in ("bn_stats", "bn_apply")
+                         else "backward"], **row})
+        log(f"[bn] {name} arxiv ({n} x {BN_F}, {main['variant']}): "
+            f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f}, max abs "
+            f"err {main['max_abs_err'][name]:.3g}")
+    log(f"[bn] library F.batch_norm, no mask: forward "
+        f"{main['library_ms']['forward']:.4f} ms, backward "
+        f"{main['library_ms']['backward']:.4f} ms; (ds, dssq) rel L2 "
+        f"{main['ds_dssq_rel_l2']:.3g}")
+    small = []
+    for n_rows, f, kind, off in BN_SMALL:
+        base = torch.randn(n_rows * f + off, generator=gen, device=dev)
+        x = base[off:].view(n_rows, f)
+        mask = None if kind == "none" else (
+            torch.zeros(n_rows, dtype=torch.bool, device=dev)
+            if kind == "masked"
+            else torch.rand(n_rows, generator=gen, device=dev) < 0.7)
+        small.append(_bn_case(x, mask, gen, f"{n_rows}x{f} {kind}"
+                              f"{' offset' if off else ''}"))
+        log(f"[bn] {small[-1]['label']} ({small[-1]['variant']}): ok")
+    check({c["variant"] for c in small} == {"vector", "scalar"},
+          "[bn] the small cases miss a variant")
+    return rows, {"library_ms": main["library_ms"], "small": small}
 
 
 def check_segment_gather_reduce(data) -> dict:
@@ -2477,8 +2723,17 @@ def _wide_launches(path: str) -> dict:
     return out
 
 
-def _per_step(path: str, name: str) -> int:
-    """Launches of kernel ``name`` a step of ``path``."""
+def _norm_layers(model) -> int:
+    """The ``MaskedBatchNorm`` layers of ``model``."""
+    from egc_tpu_torch.nn.norm import MaskedBatchNorm
+    return sum(isinstance(m, MaskedBatchNorm) for m in model.modules())
+
+
+def _per_step(path: str, name: str, norms: int) -> int:
+    """Launches of kernel ``name`` a training step of ``path``, whose
+    model holds ``norms`` BatchNorm layers (``_norm_layers``)."""
+    if name in BN_KERNELS:
+        return norms if name in PATH_KERNELS[path] else 0
     if path in WIDE_NETS:
         return _wide_launches(path).get(name, 0)
     return PATH_LAYERS[path] if name in PATH_KERNELS[path] else 0
@@ -2548,7 +2803,8 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
     del cpu, gpu, pert
 
     # the timed path, counters reset just before and read just after: each
-    # kernel of the path launches 3 times per step, every other kernel never
+    # kernel of the path launches 3 times per step (the BatchNorm kernels
+    # once a MaskedBatchNorm layer), every other kernel never
     steps = STEPS_WARMUP + STEPS_TIMED
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2562,8 +2818,9 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
         check(seen["gather"] == {PATH_GATHER[path]},
               f"[{path}] gather-reduce launched as {sorted(seen['gather'])}, "
               f"the kernel rows hold {PATH_GATHER[path]}")
+    norms = _norm_layers(run.model)
     for name, c in counts.items():
-        want = _per_step(path, name) * steps
+        want = _per_step(path, name, norms) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
     check(all(math.isfinite(x) for x in run.losses), "non-finite loss")
@@ -2816,7 +3073,8 @@ def _batched_path(path: str, cfg, hp: dict, steps: int) -> dict:
     one dropout-0 step on the card against the CPU step that takes the
     card's branch at every kink (and, printed, the plain CPU step), then
     ``steps`` steps with the launch counters (each kernel of the path once
-    a layer a step, every other kernel never; an EGC path's gather-reduce
+    a layer a step, the BatchNorm kernels once a MaskedBatchNorm layer,
+    every other kernel never; an EGC path's gather-reduce
     and head-mix instantiations the ones phase 3 held), a val pass (the
     config's metric), and a profiler table of two steps split into the
     host's batch fetch, its step enqueue, its wait on the card, and the
@@ -2865,9 +3123,9 @@ def _batched_path(path: str, cfg, hp: dict, steps: int) -> dict:
     counts = launch_counts()
     data = run.data
     peak = torch.cuda.max_memory_allocated()
+    norms = _norm_layers(run.model)
     for name, c in counts.items():
-        want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
-            else 0
+        want = _per_step(path, name, norms) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
     _check_held(path, seen)
@@ -3656,8 +3914,11 @@ def phase_trial(raw, main_step_s: float) -> dict:
         for name, c in counts.items():
             want = {"gather_reduce_fwd": layers * (2 * its + 1),
                     "headmix_fwd": layers * (2 * its + 1),
+                    "bn_apply": layers * (2 * its + 1),
                     "gather_reduce_bwd": layers * its,
-                    "headmix_bwd": layers * its}.get(name, 0)
+                    "headmix_bwd": layers * its, "bn_stats": layers * its,
+                    "bn_grad_sums": layers * its,
+                    "bn_apply_bwd": layers * its}.get(name, 0)
             check(c == want, f"[trial] {name} launched {c} times in {its} "
                              f"iterations, expected {want}")
         hist = out["history"]
@@ -3751,7 +4012,7 @@ def phase_cli() -> dict:
             values = [printed["best_val"], *printed["test"].values()]
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
                   f"[cli] {model}: metrics {printed}")
-            kernels = CLI_KERNELS.get(model, GATHER)
+            kernels = CLI_KERNELS.get(model, GATHER) + BN_KERNELS
             for name, c in counts.items():
                 check(c > 0 if name in kernels else c == 0,
                       f"[cli] {model}: {name} launched {c} times")
@@ -3824,7 +4085,8 @@ def phase_cli_datasets() -> dict:
                 0.0 <= v <= 1.0 or not k.endswith(("_acc", "_metric")))
                 for k, v in values.items()),
                 f"[cli] {key}: metrics {printed}")
-            kernels = CLI_KERNELS.get(model, GATHER)
+            kernels = CLI_KERNELS.get(model, GATHER) + (
+                () if dataset in NO_NORM else BN_KERNELS)
             for name, c in counts.items():
                 check(c > 0 if name in kernels else c == 0,
                       f"[cli] {key}: {name} launched {c} times")
@@ -3888,9 +4150,11 @@ HARNESS_NET = ["--hidden", "136", "--egc-num-heads", "4", "--egc-num-bases",
 SEARCH_ITERS = 3              # epochs a search trial
 SEARCH_NET = CLI_DATASET_RUNS[0][2]                 # zinc EGC-M h124
 PATH_KERNELS.update({
-    "partitioned": EGC_KERNELS, "partitioned_gat": PATH_KERNELS["gat"],
-    "dp": EGC_KERNELS, "pretrained": ("gather_reduce_fwd", "headmix_fwd"),
-    "search_workers": EGC_KERNELS})
+    "partitioned": EGC_KERNELS + BN_KERNELS,
+    "partitioned_gat": PATH_KERNELS["gat"],
+    "dp": EGC_KERNELS + BN_KERNELS,
+    "pretrained": ("gather_reduce_fwd", "headmix_fwd", "bn_apply"),
+    "search_workers": EGC_KERNELS + BN_KERNELS})
 PATH_GATHER["partitioned"] = PATH_GATHER["main"]
 PATH_HEADMIX["partitioned"] = PATH_HEADMIX["main"]
 # the partitioned rmag path: REGCNet h64 H4 B4 (RMAG_NET) over a process
@@ -3978,8 +4242,8 @@ def phase_partitioned(raw, data) -> dict:
     seed of the unpartitioned ``ArxivConfig`` net (the state dicts
     equal); ``PART_STEPS`` steps of each at dropout 0: the loss at rtol
     ``STEP_LOSS_RTOL``, the gradients at relative L2 ``PART_GRAD_REL_L2``
-    each step; the counters over the partitioned steps: rows 2-5 three
-    times a step, nothing else, in the main path's instantiations. Both
+    each step; the counters over the partitioned steps: rows 2-5 and the
+    BatchNorm kernels three times a step, nothing else, in the main path's instantiations. Both
     steps' times (windows in turns) and the partitioned step's idle
     share; one GAT h152 H8 step each way with rows 6-7 counted; one DP
     step at world 1 on a zinc EGC-M batch against the one-device step;
@@ -4049,7 +4313,8 @@ def phase_partitioned(raw, data) -> dict:
         counts = launch_counts()
         _check_path_instantiation("partitioned", seen)
         for name, c in counts.items():
-            want = 3 * PART_STEPS if name in EGC_KERNELS else 0
+            want = 3 * PART_STEPS if name in PATH_KERNELS["partitioned"] \
+                else 0
             check(c == want, f"[partitioned] {name} launched {c} times in "
                              f"{PART_STEPS} steps, expected {want}")
         gaps = []
@@ -4153,7 +4418,8 @@ def phase_partitioned(raw, data) -> dict:
         dcounts = launch_counts()
         _check_held("dp", seen)
         for name, c in dcounts.items():
-            want = 4 if name in EGC_KERNELS else 0
+            want = _norm_layers(dm) if name in BN_KERNELS else \
+                4 if name in EGC_KERNELS else 0
             check(c == want, f"[dp] {name} launched {c} times, expected "
                              f"{want}")
         dgrads = _grads(dm)
@@ -5157,6 +5423,8 @@ def main(argv=None) -> int:
     _attach(rows, {"wide": wide_narrow})
     rows += _wide_kernel_rows(wide_kernels)
     kernels_small(data["device"])
+    bn_rows, results["batch_norm"] = kernels_batch_norm(data)
+    rows += bn_rows
     kernels_gat_small(data["device"])
     kernels_gatv2_small(data["device"])
     kernels_wide_small(data["device"])

@@ -16,10 +16,12 @@ load as they are.
 Sync-BN (``MaskedBatchNorm(axis_name=...)`` of the JAX package,
 ``egc_tpu/nn/norm.py:29, 60-63``): with a ``process_group`` set
 (``sync_process_group``), training mode sums ``(s, ssq, n)`` over the
-group's ranks with one differentiable all-reduce, so every rank
-normalises, and updates its running statistics, with the global batch's.
-The all-reduce's backward sums the cotangents over the ranks, as
-``psum``'s transpose does.
+group's ranks with one all-reduce, so every rank normalises, and updates
+its running statistics, with the global batch's. The backward sums the
+cotangents of ``(s, ssq)`` over the ranks, as ``psum``'s transpose does.
+
+The arithmetic is ``ops/cuda/batch_norm``'s autograd function: its plain
+PyTorch versions on a CPU tensor, its four CUDA kernels on a CUDA one.
 """
 
 from __future__ import annotations
@@ -29,11 +31,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from egc_tpu_torch.ops.cuda.batch_norm import masked_batch_norm
 from egc_tpu_torch.utils.profiling import span
-
-
-MOMENTUM = 0.1
-EPS = 1e-5
 
 
 class MaskedBatchNorm(nn.Module):
@@ -53,37 +52,13 @@ class MaskedBatchNorm(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [N, F]; mask: [N] bool (None: every row is valid). Training
         mode uses and updates batch statistics, eval mode the running
-        ones. The span ``egc.norm``."""
+        ones. The span ``egc.norm``; on a CUDA tensor the kernels of
+        ``ops/cuda/batch_norm``."""
         with span("egc.norm"):
-            if not self.training:
-                mean, var = self.running_mean, self.running_var
-            else:
-                xf = x.float()
-                if mask is None:
-                    s, ssq = xf.sum(0), (xf * xf).sum(0)
-                    n = torch.tensor(float(x.shape[0]), device=x.device)
-                else:
-                    m = mask.to(torch.float32)[:, None]
-                    s, ssq = (xf * m).sum(0), (xf * xf * m).sum(0)
-                    n = m.sum()
-                if self.process_group is not None:
-                    from egc_tpu_torch.parallel.mesh import all_reduce_sum
-                    f = s.shape[0]
-                    tot = all_reduce_sum(torch.cat([s, ssq, n.reshape(1)]),
-                                         self.process_group)
-                    s, ssq, n = tot[:f], tot[f:2 * f], tot[2 * f]
-                n = torch.clamp(n, min=1.0)
-                mean = s / n
-                var = torch.clamp(ssq / n - mean * mean, min=0.0)
-                with torch.no_grad():
-                    unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                    self.running_mean.mul_(1 - MOMENTUM).add_(
-                        MOMENTUM * mean)
-                    self.running_var.mul_(1 - MOMENTUM).add_(
-                        MOMENTUM * unbiased)
-                    self.num_batches_tracked.add_(1)
-            y = (x.float() - mean) * torch.reciprocal(torch.sqrt(var + EPS))
-            return (y * self.weight + self.bias).to(x.dtype)
+            return masked_batch_norm(
+                x, mask, self.weight, self.bias, self.running_mean,
+                self.running_var, self.num_batches_tracked,
+                training=self.training, group=self.process_group)
 
 
 def sync_process_group(module: nn.Module, group) -> nn.Module:

@@ -8,14 +8,18 @@ from typing import Dict
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches counted by every wrapper since the last reset."""
-    from egc_tpu_torch.ops.cuda import attention, gather_reduce, headmix
+    from egc_tpu_torch.ops.cuda import (
+        attention, batch_norm, gather_reduce, headmix,
+    )
     return {**gather_reduce.launches, **headmix.launches,
-            **attention.launches}
+            **attention.launches, **batch_norm.launches}
 
 
 def reset_launch_counts() -> None:
-    from egc_tpu_torch.ops.cuda import attention, gather_reduce, headmix
+    from egc_tpu_torch.ops.cuda import (
+        attention, batch_norm, gather_reduce, headmix,
+    )
     for counts in (gather_reduce.launches, headmix.launches,
-                   attention.launches):
+                   attention.launches, batch_norm.launches):
         for k in counts:
             counts[k] = 0

@@ -20,12 +20,10 @@ is never swapped behind the caller's back.
   ``jax.distributed.initialize()``. The rank's card is
   ``cuda:LOCAL_RANK``, and the card count is held against the host's
   ``LOCAL_WORLD_SIZE`` ranks, not the world's.
-- ``all_reduce_sum`` and ``all_to_all`` are the differentiable
-  collectives: the backward of a sum all-reduce is a sum all-reduce
-  (``psum``'s transpose), and an all-to-all of equal chunks is its own
-  transpose. ``all_to_all`` can be issued asynchronously: it returns at
-  once and the caller waits on the handle it appended before reading the
-  result.
+- ``all_to_all`` is the differentiable collective: an all-to-all of
+  equal chunks is its own transpose. It can be issued asynchronously: it
+  returns at once and the caller waits on the handle it appended before
+  reading the result.
 
 Asking for more CUDA ranks on a host than it has visible cards raises,
 as ``make_mesh`` does (``egc_tpu/parallel/mesh.py:29-33``).
@@ -236,27 +234,6 @@ def spawn(fn: Callable, world_size: int, *, device,
         raise RuntimeError("rank(s) failed:\n" + "\n".join(
             f"[rank {r}] {msg}" for r, msg in sorted(failed.items())))
     return [got[r] for r in range(world_size)]
-
-
-class _AllReduceSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of ``x`` over the group's ranks (``psum``), differentiable:
-    its backward all-reduces the cotangent."""
-    return _AllReduceSum.apply(x, group)
 
 
 class _AllToAll(torch.autograd.Function):

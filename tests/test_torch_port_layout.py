@@ -91,7 +91,8 @@ def test_cpu_run_launches_no_kernel():
                                     "gat_bwd_t", "gat_bwd_f", "gatv2_fwd",
                                     "gatv2_bwd_t", "gatv2_bwd_f",
                                     "gatv2w_fwd", "gatv2w_bwd_t",
-                                    "gatv2w_bwd_f"}
+                                    "gatv2w_bwd_f", "bn_stats", "bn_apply",
+                                    "bn_grad_sums", "bn_apply_bwd"}
     assert all(v == 0 for v in launch_counts().values())
 
 
