@@ -25,10 +25,10 @@ Phases, each of which raises (exit code 1) on any failed check:
    in-edges among them), senders and receivers with 1-3 edges, ties and
    signed zeros (the masks bitwise), F = 40, 37, 136 and 128 (and
    ``mask_words`` of the kernel against the wrapper's), the head mix's
-   float4 and scalar variants forward and backward (each kernel's pick held
+   float4 and tile variants forward and backward (each kernel's pick held
    against ``headmix.fwd_variant`` / ``bwd_variant``; A = 1 and 6, L = 34,
-   H8 L44, y_width > B*L, H = 12), GAT and GATv2 (H, C) = (8, 5),
-   (1, 37), (4, 37), (3, 37) and (32, 8) with receivers of G - 1 and
+   H8 L44, y_width > B*L, H = 12, L = 3 and 6), GAT and GATv2 (H, C) =
+   (8, 5), (1, 37), (4, 37), (3, 37) and (32, 8) with receivers of G - 1 and
    G + 1 in-edges (G edge groups per warp step), and the lane geometry of
    the GAT and of the GATv2 kernels against
    ``attention.gat_edge_geometry`` / ``edge_geometry`` at every shape they
@@ -241,7 +241,7 @@ Phases, each of which raises (exit code 1) on any failed check:
    kernels' ms). ``[harness]`` (last): ``--pretrained`` for arxiv EGC-M h136 H4
    B4 symadd/max/mean from a ``checkpoint.pt`` the phase writes (the
    printed accuracies against an in-process eval; rows 2 and 4, 3 each,
-   the head mix's scalar L 34 variant), then ``run_search_parallel`` on
+   the head mix's tile variant at L 34), then ``run_search_parallel`` on
    zinc EGC-M with 2 candidates of ``SEARCH_ITERS`` epochs on 2 spawned
    workers sharing the card from a cold kernel cache (the libraries
    deleted first, so the build lock has two processes to order), each
@@ -442,6 +442,32 @@ TRIAL_ITERS = 12
 GATHER = ("gather_reduce_fwd", "gather_reduce_bwd")
 EGC_KERNELS = ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
                "headmix_bwd")
+# the head mix's tile-variant counters beside its kernels' own
+# (``ops/cuda/headmix.launches``): each counts the launches of its kernel
+# that took the tile variant (L or y_width not a multiple of 4)
+HEADMIX_TILE = {"headmix_fwd_tile": "headmix_fwd",
+                "headmix_bwd_tile": "headmix_bwd"}
+
+
+def _headmix_tiles(counts: dict, label: str, tiled=None) -> dict:
+    """``counts`` less the tile-variant counters, each checked against its
+    kernel's launches: all of them where the run's head width takes the
+    tile variant (``tiled``), none where it does not; with ``tiled`` None
+    (a run whose width this script does not name), all or none."""
+    for tile, kernel in HEADMIX_TILE.items():
+        c, base = counts.get(tile, 0), counts.get(kernel, 0)
+        want = {base, 0} if tiled is None else {base if tiled else 0}
+        check(c in want, f"{label} {tile} launched {c} times beside "
+                         f"{base} of {kernel}, expected {sorted(want)}")
+    return {k: v for k, v in counts.items() if k not in HEADMIX_TILE}
+
+
+def _path_tiled(path: str) -> bool:
+    """Whether a timed path's head mix (``PATH_HEADMIX``) takes the tile
+    variant."""
+    shape = PATH_HEADMIX.get(path)
+    return shape is not None and shape[3] % 4 != 0
+
 GAT_KERNELS = ("gat_fwd", "gat_bwd_t", "gat_bwd_f")
 GATV2_KERNELS = ("gatv2_fwd", "gatv2_bwd_t", "gatv2_bwd_f")
 GATV2W_KERNELS = ("gatv2w_fwd", "gatv2w_bwd_t", "gatv2w_bwd_f")
@@ -919,24 +945,26 @@ def _check_headmix_autograd(w2d, ys, bias, dz, H, B, A, L, yw):
 
 # (H, B, A, L, y_width, ys offset in floats, the variant of kernels 3
 # and 4): A = 1 and 6, L = 34 (EGC-M h136 H4), H8 L44 (mag h352), y_width
-# > B*L in both variants, H = 12 (kernel 4's second pass of heads)
-HEADMIX_SMALL_SHAPES = ((4, 4, 1, 10, 40, 0, "scalar"),
-                        (2, 3, 2, 5, 24, 0, "scalar"),
+# > B*L in both variants, H = 12 (a second and third pass of heads), L 3
+HEADMIX_SMALL_SHAPES = ((4, 4, 1, 10, 40, 0, "tile"),
+                        (2, 3, 2, 5, 24, 0, "tile"),
                         (2, 3, 2, 8, 32, 0, "vector"),
-                        (4, 4, 3, 32, 128, 1, "scalar"),
+                        (4, 4, 3, 32, 128, 1, "tile"),
                         (4, 4, 6, 32, 128, 0, "vector"),
-                        (4, 4, 3, 34, 136, 0, "scalar"),
+                        (4, 4, 3, 34, 136, 0, "tile"),
                         (8, 4, 3, 44, 176, 0, "vector"),
                         (4, 4, 3, 32, 132, 0, "vector"),
                         (1, 1, 1, 4, 4, 0, "vector"),
-                        (12, 2, 2, 8, 20, 0, "vector"))
+                        (12, 2, 2, 8, 20, 0, "vector"),
+                        (1, 1, 1, 3, 5, 0, "tile"),
+                        (12, 2, 2, 6, 14, 0, "tile"))
 
 
 def kernels_small(dev) -> None:
     """Empty receivers, a hub receiver of 300 in-edges, ties (integer
     values, signed zeros) and the max / min masks bitwise, F = 40, 37, 136
     and 128, ``mask_words`` of the kernel and the wrapper; A = 1; the head
-    mix's vector and scalar variants."""
+    mix's vector and tile variants."""
     import numpy as np
     import torch
     from egc_tpu_torch.graph.transforms import coalesce_np, symnorm_weight
@@ -1002,7 +1030,7 @@ def kernels_small(dev) -> None:
             rr = rel_l2(x1.grad, x2.grad)
             check(rr <= GRAD_REL_L2, f"small fused grad rel L2 {rr}")
     # head mix: both variants of kernels 3 and 4 at the shapes above; ys
-    # at a 4-byte offset force the scalar ones
+    # at a 4-byte offset force the tile ones
     for H, B, A, L, yw, offset, variant in HEADMIX_SMALL_SHAPES:
         shape = (H, B, A, L, yw, offset)
         w2d = torch.randn(n, H * B * A, device=dev)
@@ -1038,7 +1066,7 @@ def kernels_small(dev) -> None:
     log("[kernels] small-size checks passed (empty rows, a 300-in-edge hub, "
         "ties, masks bitwise, F=40/37/136/128, "
         "A=1, head mix (H, B, A, L, y_width, offset) = "
-        f"{[sh[:6] for sh in HEADMIX_SMALL_SHAPES]}, vector and scalar "
+        f"{[sh[:6] for sh in HEADMIX_SMALL_SHAPES]}, vector and tile "
         "variants of kernels 3 and 4)")
 
 
@@ -2469,7 +2497,8 @@ def phase_gat_wide(raw, data) -> dict:
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in
                       [printed["best_val"], *printed["test"].values()]),
                   f"[gat_wide] cli {kind}: metrics {printed}")
-            for name, c in counts.items():
+            for name, c in _headmix_tiles(
+                    counts, f"[gat_wide] cli {kind}", False).items():
                 check(c > 0 if name in PATH_KERNELS[path] else c == 0,
                       f"[gat_wide] cli {kind}: {name} launched {c} times")
             res["cli"][kind] = {"printed": printed, "launches": counts,
@@ -2819,7 +2848,8 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
               f"[{path}] gather-reduce launched as {sorted(seen['gather'])}, "
               f"the kernel rows hold {PATH_GATHER[path]}")
     norms = _norm_layers(run.model)
-    for name, c in counts.items():
+    for name, c in _headmix_tiles(
+            counts, f"[{path}]", _path_tiled(path)).items():
         want = _per_step(path, name, norms) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
@@ -3124,7 +3154,8 @@ def _batched_path(path: str, cfg, hp: dict, steps: int) -> dict:
     data = run.data
     peak = torch.cuda.max_memory_allocated()
     norms = _norm_layers(run.model)
-    for name, c in counts.items():
+    for name, c in _headmix_tiles(
+            counts, f"[{path}]", _path_tiled(path)).items():
         want = _per_step(path, name, norms) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
@@ -3310,7 +3341,8 @@ def phase_mag(cfg, raw, data, secs: dict, main_cpu_s: float,
     peak = torch.cuda.max_memory_allocated()
     _check_held(path, seen)
     _check_path_instantiation(path, seen)
-    for name, c in counts.items():
+    for name, c in _headmix_tiles(
+            counts, f"[{path}]", _path_tiled(path)).items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
             else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
@@ -3400,7 +3432,8 @@ def _sampled_window(path: str, cfg, sdata) -> dict:
     peak = torch.cuda.max_memory_allocated()
     _check_held(path, seen)
     _check_path_instantiation(path, seen)
-    for name, c in counts.items():
+    for name, c in _headmix_tiles(
+            counts, f"[{path}]", _path_tiled(path)).items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
             else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
@@ -3631,7 +3664,8 @@ def phase_sampled_mag(cfg, raw, data) -> dict:
             values = [printed["best_val"], *printed["test"].values()]
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
                   f"[sampled_mag] cli {flag}: metrics {printed}")
-            for name, c in counts.items():
+            for name, c in _headmix_tiles(
+                    counts, f"[sampled_mag] cli {flag}", False).items():
                 check(c > 0 if name in EGC_KERNELS else c == 0,
                       f"[sampled_mag] cli {flag}: {name} launched {c} "
                       f"times")
@@ -3730,7 +3764,7 @@ def phase_rmag(cfg, raw, data, secs: dict) -> dict:
           and seen["headmix"] == set(RMAG_HEADMIX.values()),
           f"[{path}] launched gather-reduce {sorted(seen['gather'])} and "
           f"head mix {sorted(seen['headmix'])}")
-    for name, c in counts.items():
+    for name, c in _headmix_tiles(counts, f"[{path}]", False).items():
         want = RMAG_LAUNCHES * steps if name in PATH_KERNELS[path] else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
@@ -3911,7 +3945,8 @@ def phase_trial(raw, main_step_s: float) -> dict:
                         trial_dir=Path(tmp), verbose=False)
         trial_s = time.perf_counter() - t0
         counts = launch_counts()
-        for name, c in counts.items():
+        for name, c in _headmix_tiles(
+                counts, "[trial]", _path_tiled("main")).items():
             want = {"gather_reduce_fwd": layers * (2 * its + 1),
                     "headmix_fwd": layers * (2 * its + 1),
                     "bn_apply": layers * (2 * its + 1),
@@ -4013,7 +4048,9 @@ def phase_cli() -> dict:
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
                   f"[cli] {model}: metrics {printed}")
             kernels = CLI_KERNELS.get(model, GATHER) + BN_KERNELS
-            for name, c in counts.items():
+            tiled = CLI_HEADMIX["arxiv"].get(model, (0,) * 4)[3] % 4 != 0
+            for name, c in _headmix_tiles(counts, f"[cli] {model}",
+                                          tiled).items():
                 check(c > 0 if name in kernels else c == 0,
                       f"[cli] {model}: {name} launched {c} times")
             res[model] = {"printed": printed, "launches": counts,
@@ -4087,7 +4124,7 @@ def phase_cli_datasets() -> dict:
                 f"[cli] {key}: metrics {printed}")
             kernels = CLI_KERNELS.get(model, GATHER) + (
                 () if dataset in NO_NORM else BN_KERNELS)
-            for name, c in counts.items():
+            for name, c in _headmix_tiles(counts, f"[cli] {key}").items():
                 check(c > 0 if name in kernels else c == 0,
                       f"[cli] {key}: {name} launched {c} times")
             res[key] = {"printed": printed, "launches": counts,
@@ -4312,7 +4349,8 @@ def phase_partitioned(raw, data) -> dict:
                 pgrads.append(_grads(pm))
         counts = launch_counts()
         _check_path_instantiation("partitioned", seen)
-        for name, c in counts.items():
+        for name, c in _headmix_tiles(
+                counts, "[partitioned]", _path_tiled("partitioned")).items():
             want = 3 * PART_STEPS if name in PATH_KERNELS["partitioned"] \
                 else 0
             check(c == want, f"[partitioned] {name} launched {c} times in "
@@ -4377,7 +4415,8 @@ def phase_partitioned(raw, data) -> dict:
             gl = float(partitioned_train_step(gm, gopt, g, sidx, y, tmask))
         gcounts = launch_counts()
         _check_held("partitioned_gat", seen)
-        for name, c in gcounts.items():
+        for name, c in _headmix_tiles(
+                gcounts, "[partitioned_gat]", False).items():
             want = 3 if name in PATH_KERNELS["gat"] else 0
             check(c == want, f"[partitioned_gat] {name} launched {c} times "
                              f"in a step, expected {want}")
@@ -4417,7 +4456,7 @@ def phase_partitioned(raw, data) -> dict:
             dl = float(step(dopt, zb, zy))
         dcounts = launch_counts()
         _check_held("dp", seen)
-        for name, c in dcounts.items():
+        for name, c in _headmix_tiles(dcounts, "[dp]").items():
             want = _norm_layers(dm) if name in BN_KERNELS else \
                 4 if name in EGC_KERNELS else 0
             check(c == want, f"[dp] {name} launched {c} times, expected "
@@ -4746,7 +4785,7 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
                                for k, v in pstates[it].items()))
         del pstates
         ucounts = launch_counts()
-        for name, c in counts.items():
+        for name, c in _headmix_tiles(counts, f"[{path}]", False).items():
             want = RMAG_LAUNCHES * PART_STEPS if name in EGC_KERNELS else 0
             check(c == want == ucounts[name],
                   f"[{path}] {name} launched {c} times in {PART_STEPS} "
@@ -5105,7 +5144,8 @@ def _bf16_path(path: str, build, step, data) -> dict:
     _check_held(f"bf16_{path}", seen)
     _check_path_instantiation(path, seen)
     steps = 4 * BF16_TURN
-    for name, c in counts.items():
+    for name, c in _headmix_tiles(
+            counts, f"[bf16_dense] {path}", _path_tiled(path)).items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] else 0
         check(c == want, f"[bf16_dense] {path}: {name} launched {c} times in "
                          f"{steps} steps, expected {want}")
@@ -5238,7 +5278,7 @@ def phase_harness() -> dict:
     ``cli.main`` in process, the counters reset just before; the printed
     accuracies must equal an in-process eval of the same weights, and
     the launches be rows 2 and 4 only, 3 each (one eval forward, the head
-    mix at L 34: its scalar variant). Then ``run_search_parallel`` on
+    mix at L 34: its tile variant). Then ``run_search_parallel`` on
     zinc EGC-M h124 (``--num-samples 2``: 2 candidates, ``SEARCH_ITERS``
     epochs each) on 2 spawned workers, both on the card, each started
     against a cold kernel cache (the libraries deleted first: the build
@@ -5285,12 +5325,12 @@ def phase_harness() -> dict:
         check(printed.keys() == ref.keys() and all(
             abs(printed[k] - v) <= 2 / 800 + 1e-7 for k, v in ref.items()),
             f"[pretrained] printed {printed}, the in-process eval {ref}")
-        for name, c in counts.items():
+        for name, c in _headmix_tiles(counts, "[pretrained]", True).items():
             want = 3 if name in PATH_KERNELS["pretrained"] else 0
             check(c == want, f"[pretrained] {name} launched {c} times, "
                              f"expected {want}")
         variant = headmix.fwd_variant(34, 4 * 34, [0])
-        check(variant == "scalar", f"[pretrained] head mix L 34: {variant}")
+        check(variant == "tile", f"[pretrained] head mix L 34: {variant}")
         res["pretrained"] = {"printed": printed, "in_process": ref,
                              "equal": printed == ref, "launches": counts,
                              "seconds": sec, "headmix_variant": variant}
@@ -5516,7 +5556,10 @@ def main(argv=None) -> int:
             path: results[path]["launches"][row["name"]]
             for path in PATH_KERNELS if row["name"] in PATH_KERNELS[path]}
         row["launches"] = sum(row["launches_by_path"].values())
-    check({r["name"] for r in rows} == set(launch_counts()),
+    # every kernel has its row; the tile-variant counters count launches
+    # of the head-mix rows' kernels
+    kernels = set(launch_counts()) - set(HEADMIX_TILE)
+    check({r["name"] for r in rows} == kernels,
           f"kernel rows {[r['name'] for r in rows]} vs counters "
           f"{sorted(launch_counts())}")
     results["kernels"] = rows

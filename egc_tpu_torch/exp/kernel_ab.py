@@ -28,11 +28,16 @@ synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges) at F = 128.
   cotangents and max / min, then its kernel; the current one: its kernel).
   Every version's outputs, d_vals included, must equal the current
   version's bitwise.
-- The head mix at H4 B4 A3 L32, forward beside
+- The head mix at the shapes of ``HEADMIX_SHAPES`` (arxiv EGC-M h128's
+  H4 B4 A3 L32; h136's L34, the tile variant; mag's H8 B4 A1 L44 and
+  rmag's H4 B4 A1 L16, both at the graph's row count), forward beside
   ``torch.einsum("nhba,nabl->nhl")`` and backward beside the two einsum
   calls of its gradient (``"nhl,nabl->nhba"`` for dw, ``"nhba,nhl->nabl"``
-  for dy); ``gat_fwd``, ``gat_bwd_t`` and ``gat_bwd_f`` at (H8, C19) and
-  (H1, C152); ``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at
+  for dy); every version's outputs must equal the current version's
+  bitwise, except the backward's at L34, where the tile variant's dw sums
+  in another order than the scalar variant before it; ``gat_fwd``,
+  ``gat_bwd_t`` and ``gat_bwd_f`` at (H8, C19) and (H1, C152);
+  ``gatv2_bwd_t``, ``gatv2_fwd`` and ``gatv2_bwd_f`` at
   (H8, C14) and (H1, C112); and ``gatv2w_bwd_t``, ``gatv2w_bwd_f`` and
   ``gatv2w_fwd`` at (H1, C750), the head of GATv2 h750 H3's last layer
   (a build's d_att partial rows by its ``gatv2w_att_rows`` or, before
@@ -77,7 +82,9 @@ GATHER_PRIMS = {"sum,wsum,max": ("sum", "wsum", "max"),
 _COEFF_OF = {"sum": "c_sum", "wsum": "c_wsum", "sumsq": "c_sumsq2",
              "max": "c_max", "min": "c_min"}
 _OLD_SEGS = ("c_sum", "c_wsum", "c_sumsq2", "mx", "c_max", "mn", "c_min")
-HEADMIX_SHAPE = dict(H=4, B=4, A=3, L=32)
+# (H, B, A, L): arxiv EGC-M h128, h136 (L % 4 != 0: the tile variant),
+# mag's MagNet h352 H8, rmag's REGCNet h64 H4 root mix
+HEADMIX_SHAPES = ((4, 4, 3, 32), (4, 4, 3, 34), (8, 4, 1, 44), (4, 4, 1, 16))
 GAT_SHAPES = ((8, 19), (1, 152))
 GATV2_SHAPES = ((8, 14), (1, 112))
 GATV2_WIDE_SHAPES = ((1, 750),)
@@ -430,6 +437,33 @@ def _v2_cases(cases, plan, heads, c, kernels, randn, suffix="", hubs=()):
         at.gatv2_bwd_f_plain(*bwd_f), {0: hubs, 1: None}, None, False)
 
 
+def _headmix_cases(cases, H, B, A, L, n, randn):
+    """Kernels 3 and 4 at (H, B, A, L) on ``n`` rows, y_width B*L."""
+    shape = dict(H=H, B=B, A=A, L=L)
+    w2d = randn(n, H * B * A)
+    ys = [randn(n, B * L) for _ in range(A)]
+    bias = randn(H * L)
+    y_st = torch.stack(ys, 1).reshape(n, A, B, L)
+    w4 = w2d.reshape(n, H, B, A)
+    dz = randn(n, H * L)
+    dz4 = dz.reshape(n, H, L)
+    label = f"H{H} B{B} A{A} L{L}"
+    cases[f"headmix_fwd {label}"] = (
+        "headmix", lambda lib: (headmix_fwd(lib, w2d, ys, bias, H, B, A, L),),
+        (hm.headmix_fwd_plain(w2d, ys, bias, **shape),), {},
+        ("einsum", lambda: torch.einsum("nhba,nabl->nhl", w4, y_st)), True)
+    dw_ref, dys_ref = hm.headmix_bwd_plain(w2d, ys, dz, y_width=B * L,
+                                           **shape)
+
+    def einsum_pair():
+        torch.einsum("nhl,nabl->nhba", dz4, y_st)
+        torch.einsum("nhba,nhl->nabl", w4, dz4)
+
+    cases[f"headmix_bwd {label}"] = (
+        "headmix", lambda lib: headmix_bwd(lib, w2d, ys, dz, H, B, A, L),
+        (dw_ref, *dys_ref), {}, ("einsum pair", einsum_pair), L % 4 == 0)
+
+
 def _hub_plan(plan, dev):
     """``plan``'s graph with ``HUB_EDGES`` more in-edges into receiver 0
     and as many more out-edges from sender 1, each from or to distinct
@@ -465,29 +499,8 @@ def _cases(dev):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     cases = _gather_cases(plan, randn)
-    H, B, A, L = (HEADMIX_SHAPE[k] for k in "HBAL")
-    w2d = randn(n, H * B * A)
-    ys = [randn(n, B * L) for _ in range(A)]
-    bias = randn(H * L)
-    y_st = torch.stack(ys, 1).reshape(n, A, B, L)
-    w4 = w2d.reshape(n, H, B, A)
-    dz = randn(n, H * L)
-    dz4 = dz.reshape(n, H, L)
-    cases["headmix_fwd H4 B4 A3 L32"] = (
-        "headmix", lambda lib: (headmix_fwd(lib, w2d, ys, bias, H, B, A, L),),
-        (hm.headmix_fwd_plain(w2d, ys, bias, **HEADMIX_SHAPE),), (),
-        ("einsum", lambda: torch.einsum("nhba,nabl->nhl", w4, y_st)),
-        False)
-    dw_ref, dys_ref = hm.headmix_bwd_plain(w2d, ys, dz, y_width=B * L,
-                                           **HEADMIX_SHAPE)
-
-    def einsum_pair():
-        torch.einsum("nhl,nabl->nhba", dz4, y_st)
-        torch.einsum("nhba,nhl->nabl", w4, dz4)
-
-    cases["headmix_bwd H4 B4 A3 L32"] = (
-        "headmix", lambda lib: headmix_bwd(lib, w2d, ys, dz, H, B, A, L),
-        (dw_ref, *dys_ref), {}, ("einsum pair", einsum_pair), False)
+    for H, B, A, L in HEADMIX_SHAPES:
+        _headmix_cases(cases, H, B, A, L, n, randn)
     for heads, c in GAT_SHAPES:
         f = heads * c
         wh, a_src, a_dst = randn(n, f), randn(n, heads), randn(n, heads)
@@ -618,7 +631,7 @@ def main(argv=None) -> int:
                for c, vs in summary.items()}
     registers = {}
     for case, by_version in summary.items():
-        kernel = case.split()[0] + "_kernel"
+        kernel = case.split()[0] + "_"
         for label, ms in by_version.items():
             lines = [ln for ln in versions[label][cases[case][0]][1]
                      if ln.startswith(kernel)] if label in versions else []

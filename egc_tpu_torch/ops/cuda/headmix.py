@@ -10,9 +10,12 @@ used (``y_width >= B*L``; dy's tail columns are 0). ``head_mix_fused``
 is an autograd function: on a CPU tensor it runs the plain versions, on a
 CUDA tensor kernel 3 forward and kernel 4 backward, or raises. dbias is
 ``dz.sum(0)`` in torch, as in the JAX package. ``launches`` counts kernel
-launches. Kernels 3 and 4 each have a float4 and a scalar variant;
-``fwd_variant`` and ``bwd_variant`` are the rules by which ``headmix_fwd``
-and ``headmix_bwd`` in ``csrc/headmix.cu`` pick one.
+launches: ``headmix_fwd`` and ``headmix_bwd`` every launch,
+``headmix_fwd_tile`` and ``headmix_bwd_tile`` those of the tile variant.
+Kernels 3 and 4 each have a float4 and a tile variant; ``fwd_variant`` and
+``bwd_variant`` are the rules by which ``headmix_fwd`` and ``headmix_bwd``
+in ``csrc/headmix.cu`` pick one, and ``tile_plan`` how the tile variant
+cuts the nodes into blocks.
 """
 
 from __future__ import annotations
@@ -26,8 +29,13 @@ from egc_tpu_torch.ops.cuda import _build
 from egc_tpu_torch.utils.profiling import span
 
 MAX_AGGRS = 8          # kMaxAggrs in csrc/headmix.cu
+# the tile variant's constants in csrc/headmix.cu
+TILE_BYTES = 48 * 1024         # kTileBytes
+MAX_TILE_NODES = 32            # kMaxTileNodes
+MAX_TILE_SMEM = 232448         # kMaxTileSmem
 
-launches: Dict[str, int] = {"headmix_fwd": 0, "headmix_bwd": 0}
+launches: Dict[str, int] = {"headmix_fwd": 0, "headmix_bwd": 0,
+                            "headmix_fwd_tile": 0, "headmix_bwd_tile": 0}
 
 
 def _split(w2d, ys, H, B, A, L):
@@ -98,11 +106,11 @@ def _ptr_array(tensors):
 
 def _vector_ok(L: int, y_width: int, ptrs: Sequence[int]) -> str:
     ok = L % 4 == 0 and y_width % 4 == 0 and all(p % 16 == 0 for p in ptrs)
-    return "vector" if ok else "scalar"
+    return "vector" if ok else "tile"
 
 
 def fwd_variant(L: int, y_width: int, ptrs: Sequence[int]) -> str:
-    """``"vector"`` or ``"scalar"``: the kernel 3 variant for L, y_width and
+    """``"vector"`` or ``"tile"``: the kernel 3 variant for L, y_width and
     the data pointers of ys and the bias (0 for none). The float4 variant
     needs L and y_width multiples of 4 and 16-byte aligned pointers
     (``fwd_vector_ok`` in ``csrc/headmix.cu``)."""
@@ -114,6 +122,28 @@ def bwd_variant(L: int, y_width: int, ptrs: Sequence[int]) -> str:
     and dz, by the same rule (``bwd_vector_ok`` in ``csrc/headmix.cu``);
     w2d and dw, read and written a float at a time, do not count."""
     return _vector_ok(L, y_width, ptrs)
+
+
+def _slab_region(count: int) -> int:
+    return (count + 6) & ~3
+
+
+def tile_plan(bwd: bool, H: int, B: int, A: int, L: int, y_width: int
+              ) -> Tuple[int, int]:
+    """``(nodes, smem)``: the nodes of a tile of the tile variant of kernel
+    4 (``bwd``) or kernel 3, as many as fit ``TILE_BYTES`` of staged slabs
+    (at most ``MAX_TILE_NODES``, at least 1), and a block's shared-memory
+    bytes: each slab's region holds its floats and up to 3 more, in whole
+    16-byte words; 0 where they pass ``MAX_TILE_SMEM``, and the kernel
+    works on device memory directly (``tile_plan`` in
+    ``csrc/headmix.cu``)."""
+    HBA, HL = H * B * A, H * L
+    slabs = [HBA, HL] + [y_width] * A          # forward: w2d, z, ys
+    if bwd:
+        slabs += [HBA] + [y_width] * A         # backward: + dw, dys
+    nodes = max(1, min(MAX_TILE_NODES, TILE_BYTES // (4 * sum(slabs))))
+    smem = 4 * sum(_slab_region(nodes * w) for w in slabs)
+    return nodes, (smem if smem <= MAX_TILE_SMEM else 0)
 
 
 def _variant_fn(name, argtypes):
@@ -131,7 +161,7 @@ def kernel_fwd_variant(ys, bias, L: int, y_width: int) -> str:
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
     vec = fn(_ptr_array(ys), len(ys),
              None if bias is None else bias.data_ptr(), L, y_width)
-    return "vector" if vec else "scalar"
+    return "vector" if vec else "tile"
 
 
 def kernel_bwd_variant(ys, dys, dz, L: int, y_width: int) -> str:
@@ -143,7 +173,18 @@ def kernel_bwd_variant(ys, dys, dz, L: int, y_width: int) -> str:
                      + [ctypes.c_int] * 3)
     vec = fn(_ptr_array(ys), _ptr_array(dys), dz.data_ptr(), len(ys), L,
              y_width)
-    return "vector" if vec else "scalar"
+    return "vector" if vec else "tile"
+
+
+def kernel_tile_plan(bwd: bool, H: int, B: int, A: int, L: int,
+                     y_width: int) -> Tuple[int, int]:
+    """``(nodes, smem)`` as the compiled library plans the tile variant, to
+    hold against ``tile_plan``."""
+    fn = _variant_fn("headmix_tile_plan", [ctypes.c_int] * 6
+                     + [ctypes.POINTER(ctypes.c_int)])
+    nodes = ctypes.c_int(0)
+    smem = fn(int(bwd), H, B, A, L, y_width, ctypes.byref(nodes))
+    return nodes.value, smem
 
 
 def _launch_fwd(w2d, ys, bias, H, B, A, L, y_width):
@@ -163,6 +204,10 @@ def _launch_fwd(w2d, ys, bias, H, B, A, L, y_width):
                  n, H, B, L, y_width, z.data_ptr(), stream)
     _build.check_launch(err, "headmix_fwd", lib)
     launches["headmix_fwd"] += 1
+    ptrs = [y.data_ptr() for y in ys] + [0 if bias is None
+                                         else bias.data_ptr()]
+    if fwd_variant(L, y_width, ptrs) == "tile":
+        launches["headmix_fwd_tile"] += 1
     return z
 
 
@@ -185,6 +230,9 @@ def _launch_bwd(w2d, ys, dz, H, B, A, L, y_width):
                  L, y_width, dw.data_ptr(), _ptr_array(dys), stream)
     _build.check_launch(err, "headmix_bwd", lib)
     launches["headmix_bwd"] += 1
+    ptrs = [t.data_ptr() for t in (*ys, *dys, dz)]
+    if bwd_variant(L, y_width, ptrs) == "tile":
+        launches["headmix_bwd_tile"] += 1
     return dw, tuple(dys)
 
 

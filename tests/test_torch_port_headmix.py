@@ -94,10 +94,10 @@ def test_plain_bwd_is_the_autograd_of_plain_fwd():
 @pytest.mark.parametrize("L,yw,offsets,with_bias,want", [
     (32, 128, (0, 0, 0), True, "vector"),     # arxiv EGC-M h128
     (8, 32, (0, 0), True, "vector"),          # y_width > B*L
-    (10, 40, (0,), True, "scalar"),           # L % 4 != 0
-    (5, 24, (0, 0), False, "scalar"),
-    (8, 30, (0,), False, "scalar"),           # y_width % 4 != 0
-    (32, 128, (0, 1, 0), True, "scalar"),     # one ys 4 bytes off
+    (10, 40, (0,), True, "tile"),             # L % 4 != 0
+    (5, 24, (0, 0), False, "tile"),
+    (8, 30, (0,), False, "tile"),             # y_width % 4 != 0
+    (32, 128, (0, 1, 0), True, "tile"),       # one ys 4 bytes off
     (32, 128, (0, 0, 0), False, "vector"),
 ])
 def test_fwd_variant_rule(L, yw, offsets, with_bias, want):
@@ -111,15 +111,15 @@ def test_fwd_variant_rule(L, yw, offsets, with_bias, want):
     ptrs = [y.data_ptr() for y in ys] + ([bias.data_ptr()] if with_bias
                                          else [0])
     assert thm.fwd_variant(L, yw, ptrs) == want
-    # the bias alone misaligned also forces the scalar variant
+    # the bias alone misaligned also forces the tile variant
     if with_bias:
         off_bias = torch.zeros(4 * L + 1)[1:]
         assert thm.fwd_variant(L, yw, ptrs[:-1] + [off_bias.data_ptr()]) \
-            == "scalar"
+            == "tile"
 
 
 def test_offset_views_match_jax():
-    """ys handed over as contiguous views at a 4-byte offset (the scalar
+    """ys handed over as contiguous views at a 4-byte offset (the tile
     variant on the card) give the JAX head mix on the CPU."""
     H, B, A, L, n = 4, 4, 3, 32, 40
     rng = np.random.default_rng(5)
@@ -133,7 +133,7 @@ def test_offset_views_match_jax():
         buf[1:] = torch.as_tensor(y).reshape(-1)
         views.append(buf[1:].view(n, B * L))
     assert thm.fwd_variant(L, B * L, [v.data_ptr() for v in views]) \
-        == "scalar"
+        == "tile"
     got = thm.head_mix_fused(torch.as_tensor(w2d), views, H=H, B=B, A=A, L=L)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
@@ -144,12 +144,12 @@ def test_offset_views_match_jax():
     (32, 128, (0, 0, 0), False, "vector"),
     (8, 32, (0, 0, 0), False, "vector"),      # y_width > B*L
     (44, 176, (0, 0, 0), True, "vector"),     # mag h352 H8
-    (34, 136, (0, 0, 0), True, "scalar"),     # L % 4 != 0: EGC-M h136 H4
-    (10, 40, (0, 0, 0), False, "scalar"),
-    (8, 30, (0, 0, 0), False, "scalar"),      # y_width % 4 != 0
-    (32, 128, (1, 0, 0), True, "scalar"),     # a ys 4 bytes off
-    (32, 128, (0, 2, 0), False, "scalar"),    # a dy 8 bytes off
-    (32, 128, (0, 0, 3), True, "scalar"),     # dz 12 bytes off
+    (34, 136, (0, 0, 0), True, "tile"),       # L % 4 != 0: EGC-M h136 H4
+    (10, 40, (0, 0, 0), False, "tile"),
+    (8, 30, (0, 0, 0), False, "tile"),        # y_width % 4 != 0
+    (32, 128, (1, 0, 0), True, "tile"),       # a ys 4 bytes off
+    (32, 128, (0, 2, 0), False, "tile"),      # a dy 8 bytes off
+    (32, 128, (0, 0, 3), True, "tile"),       # dz 12 bytes off
 ])
 def test_bwd_variant_rule(L, yw, offsets, with_bias, want):
     """Kernel 4's variant from L, y_width and the alignment of the ys, dy
@@ -176,11 +176,11 @@ def test_bwd_variant_rule(L, yw, offsets, with_bias, want):
         assert thm.fwd_variant(L, yw, fwd_ptrs) == want
 
 
-def headmix_bwd_emulated(w2d, ys, dz, H, B, A, L, y_width, V):
-    """A torch emulation of kernel 4's order: each base b of a node gets T
-    threads (its chunks of V columns rounded up to a power of two, at most
-    32), thread j taking the nc chunks l = V (j + T i); a thread's dw
-    partial of (h, b, a) is its sum over its columns in order, the T
+def headmix_bwd_emulated(w2d, ys, dz, H, B, A, L, y_width, V=4):
+    """A torch emulation of kernel 4's float4 variant: each base b of a node
+    gets T threads (its chunks of V columns rounded up to a power of two,
+    at most 32), thread j taking the nc chunks l = V (j + T i); a thread's
+    dw partial of (h, b, a) is its sum over its columns in order, the T
     partials meet by xor partner at offsets 1, 2, ..., T/2 (every thread
     then holds the same sum), and thread (h' A + a) % T writes entry
     (h, b, a), h' the head's place in its pass of HP = 4 (H <= 4) or 8
@@ -227,37 +227,102 @@ def headmix_bwd_emulated(w2d, ys, dz, H, B, A, L, y_width, V):
     return dw, dys, T, owner
 
 
+def headmix_bwd_tile_emulated(w2d, ys, dz, H, B, A, L, y_width):
+    """A torch emulation of kernel 4's tile variant: the nodes in tiles of
+    ``tile_plan(True, ...)`` nodes; in a tile of m, items 0 .. m*H*B - 1
+    are (r, h, b) = (i // (H*B), i % (H*B) // B, i % B), each forming the
+    A entries dw[r, h, b, :] as the sum over l = 0 .. L-1 in order; then
+    m*L items (r, l) = divmod(j, L), each forming dy[a][r, b*L + l] for
+    every (b, a) as the sum over h in order and zeroing the tail columns
+    B*L + l, + L, ... of y_width. Returns ``(dw, dys, tile, writes)``,
+    writes counting the writers of every dw and dy element."""
+    n = w2d.shape[0]
+    tile, _ = thm.tile_plan(True, H, B, A, L, y_width)
+    HB, HBA, BL = H * B, H * B * A, B * L
+    w = w2d.reshape(n, H, B, A)
+    dz3 = dz.reshape(n, H, L)
+    dw = torch.full((n, HBA), float("nan"))
+    dys = [torch.full((n, y_width), float("nan")) for _ in range(A)]
+    writes = [torch.zeros(n, HBA)] + [torch.zeros(n, y_width)
+                                      for _ in range(A)]
+
+    def put(k, out, rows, cols, vals):
+        out[rows, cols] = vals
+        writes[k].index_put_((rows, cols), torch.ones(len(rows)),
+                             accumulate=True)
+
+    for node0 in range(0, n, tile):
+        m = min(tile, n - node0)
+        i = torch.arange(m * HB)
+        rows, h, b = node0 + i // HB, i % HB // B, i % B
+        part = torch.zeros(m * HB, A)
+        for l in range(L):
+            dv = dz3[rows, h, l]
+            for a in range(A):
+                part[:, a] = part[:, a] + dv * ys[a][rows, b * L + l]
+        for a in range(A):
+            put(0, dw, rows, h * B * A + b * A + a, part[:, a])
+        j = torch.arange(m * L)
+        rows, l = node0 + j // L, j % L
+        for bb in range(B):
+            for a in range(A):
+                acc = torch.zeros(m * L)
+                for hh in range(H):
+                    acc = acc + w[rows, hh, bb, a] * dz3[rows, hh, l]
+                put(1 + a, dys[a], rows, bb * L + l, acc)
+        for c0 in range(BL, y_width, L):
+            keep = c0 + l < y_width
+            for a in range(A):
+                put(1 + a, dys[a], rows[keep], (c0 + l)[keep],
+                    torch.zeros(int(keep.sum())))
+    return dw, dys, tile, writes
+
+
 @pytest.mark.parametrize("H,B,A,L", [
     (4, 4, 3, 32),      # arxiv EGC-M h128: float4, 8 threads per base
-    (4, 4, 3, 34),      # EGC-M h136 H4: scalar, 32 threads, 2 chunks
+    (4, 4, 3, 34),      # EGC-M h136 H4: tile variant, tiles of 11 nodes
     (8, 4, 3, 44),      # mag h352 H8: float4, 16 threads, 5 idle
     (4, 4, 6, 32),      # six aggregators
     (1, 1, 1, 4),       # one thread per node
     (12, 2, 2, 8),      # a second pass of heads
+    (4, 4, 3, 37),      # tile variant: tiles of 10 nodes, the last of 4
+    (4, 2, 2, 6),       # L 6
+    (2, 3, 2, 1),       # L 1
+    (12, 2, 2, 6),      # H 12 in the tile variant: dy in three passes
 ])
 def test_headmix_bwd_reduction_matches_plain_and_jax(H, B, A, L):
-    """Kernel 4's reduction order and dw ownership, emulated in torch,
-    against ``headmix_bwd_plain`` and the gradient of the JAX
-    ``head_mix_fused`` (Pallas kernels in interpret mode) at rtol = atol =
-    1e-5; every dw entry has one writer."""
+    """Kernel 4's order of addition and its writers, emulated in torch for
+    the variant it takes (float4 where L % 4 == 0, else tile), against
+    ``headmix_bwd_plain`` and the gradient of the JAX ``head_mix_fused``
+    (Pallas kernels in interpret mode) at rtol = atol = 1e-5; every dw and
+    dy element has one writer."""
     n, yw = 24, B * L
     rng = np.random.default_rng(H * 100 + L)
     w2d = rng.normal(size=(n, H * B * A)).astype(np.float32)
     ys = [rng.normal(size=(n, yw)).astype(np.float32) for _ in range(A)]
     dz = rng.normal(size=(n, H * L)).astype(np.float32)
-    V = 4 if thm.bwd_variant(L, yw, []) == "vector" else 1
-    assert V == (1 if L % 4 else 4)
+    variant = thm.bwd_variant(L, yw, [])
+    assert variant == ("tile" if L % 4 else "vector")
 
     tw, tys, tdz = (torch.as_tensor(w2d), [torch.as_tensor(y) for y in ys],
                     torch.as_tensor(dz))
-    dw, dys, T, owner = headmix_bwd_emulated(tw, tys, tdz, H, B, A, L, yw,
-                                             V)
-    # the kernel's store condition, thread by thread, writes each entry
-    # of a b once
-    HP = 4 if H <= 4 else 8
-    writes = [(h, a) for j in range(T) for h in range(H) for a in range(A)
-              if ((h % HP) * A + a) % T == j == int(owner[h, a])]
-    assert sorted(writes) == [(h, a) for h in range(H) for a in range(A)]
+    if variant == "vector":
+        dw, dys, T, owner = headmix_bwd_emulated(tw, tys, tdz, H, B, A, L,
+                                                 yw)
+        # the kernel's store condition, thread by thread, writes each
+        # entry of a b once
+        HP = 4 if H <= 4 else 8
+        writes = [(h, a) for j in range(T) for h in range(H)
+                  for a in range(A)
+                  if ((h % HP) * A + a) % T == j == int(owner[h, a])]
+        assert sorted(writes) == [(h, a) for h in range(H)
+                                  for a in range(A)]
+    else:
+        dw, dys, tile, writes = headmix_bwd_tile_emulated(
+            tw, tys, tdz, H, B, A, L, yw)
+        assert all(bool((c == 1).all()) for c in writes)
+        if L in (34, 37):    # the last tile holds fewer nodes than a tile
+            assert n > tile and n % tile
     dw_p, dys_p = thm.headmix_bwd_plain(tw, tys, tdz, H=H, B=B, A=A, L=L,
                                         y_width=yw)
     torch.testing.assert_close(dw, dw_p, rtol=1e-5, atol=1e-5)
@@ -274,3 +339,62 @@ def test_headmix_bwd_reduction_matches_plain_and_jax(H, B, A, L):
     for a in range(A):
         np.testing.assert_allclose(dys[a].numpy(), np.asarray(dys_j[a]),
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_tile_emulation_zeroes_the_tail_columns():
+    """y_width past B*L in the tile variant: every tail column of every dy
+    has one writer and holds 0; the rest is the plain gradient."""
+    H, B, A, L, yw, n = 4, 4, 3, 34, 150, 30
+    rng = np.random.default_rng(7)
+    tw = torch.as_tensor(rng.normal(size=(n, H * B * A)).astype(np.float32))
+    tys = [torch.as_tensor(rng.normal(size=(n, yw)).astype(np.float32))
+           for _ in range(A)]
+    tdz = torch.as_tensor(rng.normal(size=(n, H * L)).astype(np.float32))
+    dw, dys, tile, writes = headmix_bwd_tile_emulated(tw, tys, tdz, H, B, A,
+                                                      L, yw)
+    assert all(bool((c == 1).all()) for c in writes)
+    dw_p, dys_p = thm.headmix_bwd_plain(tw, tys, tdz, H=H, B=B, A=A, L=L,
+                                        y_width=yw)
+    torch.testing.assert_close(dw, dw_p, rtol=1e-5, atol=1e-5)
+    for d, p in zip(dys, dys_p):
+        assert bool((d[:, B * L:] == 0).all())
+        torch.testing.assert_close(d, p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_tile_plan(bwd):
+    """The tile variant's plan (``tile_plan``, the library's rule, held
+    against it on the card): as many nodes as fit ``TILE_BYTES`` of slabs,
+    1 to ``MAX_TILE_NODES``; shared memory every slab's floats plus up to
+    3 of offset, in 16-byte words; 0 (device memory) past
+    ``MAX_TILE_SMEM``."""
+    for H, B, A, L, yw in [(4, 4, 3, 34, 136), (4, 4, 3, 75, 300),
+                           (4, 4, 3, 31, 124), (1, 1, 1, 3, 5),
+                           (12, 2, 2, 6, 14), (8, 4, 6, 37, 148)]:
+        nodes, smem = thm.tile_plan(bwd, H, B, A, L, yw)
+        slabs = [H * B * A, H * L] + [yw] * A
+        if bwd:
+            slabs += [H * B * A] + [yw] * A
+        per_node = 4 * sum(slabs)
+        assert 1 <= nodes <= thm.MAX_TILE_NODES
+        assert nodes == thm.MAX_TILE_NODES or nodes == 1 \
+            or nodes * per_node <= thm.TILE_BYTES < (nodes + 1) * per_node
+        assert nodes * per_node < smem <= nodes * per_node + 28 * len(slabs)
+        assert smem % 16 == 0 and smem <= thm.MAX_TILE_SMEM
+    # arxiv EGC-M h136: 11 nodes a block in the backward, 20 in the forward
+    assert thm.tile_plan(bwd, 4, 4, 3, 34, 136)[0] == (11 if bwd else 20)
+    # a node past a block's shared memory: the kernel reads device memory
+    assert thm.tile_plan(bwd, 1, 1, 8, 8_000, 8_000) == (1, 0)
+
+
+def test_launch_counters_name_the_tile_variant():
+    """``launch_counts()`` carries the head mix's launches and, beside
+    them, those of its tile variant; a reset zeroes all four."""
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    names = {"headmix_fwd", "headmix_bwd", "headmix_fwd_tile",
+             "headmix_bwd_tile"}
+    assert set(thm.launches) == names
+    thm.launches["headmix_bwd_tile"] += 2
+    assert launch_counts()["headmix_bwd_tile"] >= 2
+    reset_launch_counts()
+    assert all(launch_counts()[k] == 0 for k in names)

@@ -87,7 +87,9 @@ def test_cpu_run_launches_no_kernel():
                                heads=4, device="cpu")
         assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
     assert set(launch_counts()) == {"gather_reduce_fwd", "gather_reduce_bwd",
-                                    "headmix_fwd", "headmix_bwd", "gat_fwd",
+                                    "headmix_fwd", "headmix_bwd",
+                                    "headmix_fwd_tile", "headmix_bwd_tile",
+                                    "gat_fwd",
                                     "gat_bwd_t", "gat_bwd_f", "gatv2_fwd",
                                     "gatv2_bwd_t", "gatv2_bwd_f",
                                     "gatv2w_fwd", "gatv2w_bwd_t",
