@@ -4655,13 +4655,14 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
     import tempfile
     import torch
     import torch.distributed as dist
-    from egc_tpu_torch.exp import hetero
+    from egc_tpu_torch.exp import fullgraph, hetero
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from egc_tpu_torch.parallel import hetero_partition
     from egc_tpu_torch.parallel.hetero_halo import (
         gathered_embedding_grads, partitioned_rmag_train_step,
     )
     from egc_tpu_torch.parallel.mesh import free_port, init_mesh
+    from egc_tpu_torch.train.loop import train_step
     path = "partitioned_rmag"
 
     class AtSize(hetero.PartitionedRMagConfig):
@@ -4879,7 +4880,9 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
         pm.dropout = um.dropout = PART_RMAG_DROPOUT
         tgen = torch.Generator(device="cuda").manual_seed(1)
         steps = {
-            "unpartitioned": lambda: hetero.train_step(um, uopt, udata, tgen),
+            "unpartitioned": lambda: train_step(
+                um, uopt, fullgraph.masked_loss(udata["masks"]["train"]),
+                udata["hetero"], udata["y"], tgen),
             "partitioned": lambda: partitioned_rmag_train_step(
                 pm, popt, hg, pdata["send_idx"], pdata["y"],
                 pdata["masks"]["train"], tgen)}

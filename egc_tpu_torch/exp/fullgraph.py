@@ -1,7 +1,8 @@
 """Full-graph (transductive) training of the arxiv nets (counterpart of
 ``egc_tpu.exp.fullgraph``): the data build, ``FullGraphConfig`` and
 ``ArxivConfig`` (the experiment surface the runner and the CLI drive),
-and ``train_full_graph``, a bare step loop over any of the nine kinds:
+and ``train_full_graph``, which drives ``ArxivConfig``'s hooks for a
+number of steps with any of the nine kinds:
 EGC-M (``kind="egc"``, the default: h128 H4 B4 symnorm/max/mean), GAT
 (``kind="gat"``: h152 H8, the last layer single-head, is the reference's
 tuned arxiv width), GATv2 (``kind="gatv2"``, ``gat_version=2``: h112
@@ -13,10 +14,9 @@ and h76, ``egc_tpu/exp/pretrained.py:59-70``).
 One step is the ``ArxivConfig`` epoch: a full-graph forward in training
 mode, the NLL averaged over the train split, backward, and one
 ``torch.optim.Adam(lr, weight_decay=wd)`` step (L2 added to the gradient,
-as the reference and ``egc_tpu.train.optim`` do). The ``train`` hook is
-the span ``egc.step`` (``float(loss)``'s read included), and
-``train_step`` splits it into ``egc.forward``, ``egc.loss``,
-``egc.backward`` and ``egc.optimizer`` (``utils.profiling.span``).
+as the reference and ``egc_tpu.train.optim`` do): ``train.loop.train_step``
+with ``masked_loss``, in the ``train`` hook's span ``egc.step``
+(``float(loss)``'s read included).
 
 ``ArxivConfig`` follows the JAX one: the synthetic graph of 4,000 nodes
 at degree 12 and 40 classes (or ``load_ogbn_arxiv`` with ``synthetic =
@@ -73,6 +73,7 @@ from egc_tpu_torch.parallel.halo import (
     partitioned_train_step,
 )
 from egc_tpu_torch.parallel.partition import partition_graph
+from egc_tpu_torch.train import loop
 from egc_tpu_torch.train.loop import fold_in
 from egc_tpu_torch.train.losses import gather_label_scores
 from egc_tpu_torch.train.metrics import split_accuracies
@@ -142,68 +143,20 @@ def masked_nll(out: torch.Tensor, y: torch.Tensor,
     return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+def masked_loss(mask: torch.Tensor):
+    """``loss_fn(out, y, graph)``: ``masked_nll`` over ``mask``, looked up
+    when called (``gnnbench/faults.py`` replaces it)."""
+    return lambda out, y, graph: masked_nll(out, y, mask)
+
+
 def train_step(model: ArxivNet, optimizer: torch.optim.Optimizer,
                data: Dict[str, Any],
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One full-graph training step; returns the loss (a device scalar).
-    The parameters' ``.grad`` hold this step's gradients afterwards."""
-    model.train()
-    with span("egc.optimizer"):
-        optimizer.zero_grad(set_to_none=True)
-    with span("egc.forward"):
-        out = model(data["graph"], generator=generator)
-    with span("egc.loss"):
-        loss = masked_nll(out, data["y"], data["masks"]["train"])
-    with span("egc.backward"):
-        loss.backward()
-    with span("egc.optimizer"):
-        optimizer.step()
-    return loss.detach()
-
-
-@dataclasses.dataclass
-class TrainRun:
-    losses: List[float]
-    step_seconds: List[float]
-    model: ArxivNet
-    optimizer: torch.optim.Optimizer
-    data: Dict[str, Any]
-
-
-def train_full_graph(raw: Dict[str, Any], *, steps: int, kind: str = "egc",
-                     hidden: int = 128, heads: int = 4, bases: int = 4,
-                     aggrs: Sequence[str] = ("symnorm", "max", "mean"),
-                     lr: float = 0.01, wd: float = 5e-4,
-                     dropout: float = 0.2, seed: int = 0,
-                     device: DeviceLike = None,
-                     data: Optional[Dict[str, Any]] = None) -> TrainRun:
-    """Train the arxiv net with ``kind`` convs for ``steps`` full-graph
-    steps.
-
-    ``data``: a ``full_graph_to_device_dict`` result to reuse (``raw`` is
-    then not read again). Each step's time is taken on the host clock
-    around work that ends in a device synchronise."""
-    dev = resolve_device(device)
-    if data is None:
-        data = full_graph_to_device_dict(raw, dev)
-    elif data["device"] != dev:
-        raise ValueError(f"data lives on {data['device']}, not {dev}")
-    spec = ConvSpec(kind=kind, heads=heads, bases=bases, aggrs=tuple(aggrs),
-                    avg_log_deg=data["avg_log_deg"])
-    model = arxiv_net(spec, hidden, dropout=dropout,
-                      num_features=data["graph"].nodes.shape[1],
-                      num_classes=data["num_classes"], seed=seed, device=dev)
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr, weight_decay=wd)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    losses, seconds = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss = train_step(model, optimizer, data, gen)
-        losses.append(float(loss))        # synchronises with the device
-        seconds.append(time.perf_counter() - t0)
-    if not np.all(np.isfinite(losses)):
-        raise FloatingPointError(f"non-finite training loss: {losses}")
-    return TrainRun(losses, seconds, model, optimizer, data)
+    """One full-graph step over the train split; returns the loss (a
+    device scalar)."""
+    return loop.train_step(model, optimizer,
+                           masked_loss(data["masks"]["train"]),
+                           data["graph"], data["y"], generator)
 
 
 class FullGraphConfig(ExperimentConfig):
@@ -227,6 +180,7 @@ class FullGraphConfig(ExperimentConfig):
         self.device = resolve_device(device)
         self._avg_log_deg = 1.0
         self._num_features = 128
+        self._num_classes = 40         # ogbn-arxiv's, as the JAX config's
 
     def load_full_graph(self) -> Dict[str, Any]:
         raise NotImplementedError
@@ -235,12 +189,14 @@ class FullGraphConfig(ExperimentConfig):
         return self.full_data(self.load_full_graph())
 
     def full_data(self, raw: Dict[str, Any]) -> Dict[str, Any]:
-        """``full_graph_to_device_dict`` of ``raw`` on the config's device;
-        records the statistics the model is built from."""
-        d = full_graph_to_device_dict(raw, self.device)
-        self._avg_log_deg = d["avg_log_deg"]
-        self._num_features = d["graph"].nodes.shape[1]
-        return d
+        """``record`` of ``raw``'s ``full_graph_to_device_dict``."""
+        return self.record(full_graph_to_device_dict(raw, self.device))
+
+    def record(self, data: Dict[str, Any]) -> Dict[str, Any]:
+        """Records the statistics of ``data`` the model is built from."""
+        self._avg_log_deg = data["avg_log_deg"]
+        self._num_features = data["graph"].nodes.shape[1]
+        return data
 
     def conv_spec(self) -> ConvSpec:
         kind = self.model_kind
@@ -309,8 +265,50 @@ class ArxivConfig(FullGraphConfig):
         return arxiv_net(self.conv_spec(), self.hidden,
                          num_layers=self.num_layers,
                          dropout=float(hparams.get("dropout", 0.2)),
-                         num_features=self._num_features, seed=seed,
+                         num_features=self._num_features,
+                         num_classes=self._num_classes, seed=seed,
                          device=self.device)
+
+
+@dataclasses.dataclass
+class TrainRun:
+    losses: List[float]
+    step_seconds: List[float]
+    model: ArxivNet
+    optimizer: torch.optim.Optimizer
+    data: Dict[str, Any]
+
+
+def train_full_graph(raw: Dict[str, Any], *, steps: int, kind: str = "egc",
+                     hidden: int = 128, heads: int = 4, bases: int = 4,
+                     aggrs: Sequence[str] = ("symnorm", "max", "mean"),
+                     lr: float = 0.01, wd: float = 5e-4,
+                     dropout: float = 0.2, seed: int = 0,
+                     device: DeviceLike = None,
+                     data: Optional[Dict[str, Any]] = None) -> TrainRun:
+    """``steps`` calls of the ``train`` hook of an ``ArxivConfig`` of
+    ``kind`` convs, each timed on the host clock (it reads the loss, so
+    synchronises); the net has the data's classes. ``data``: a
+    ``full_graph_to_device_dict`` result to reuse (``raw`` is then not
+    read)."""
+    cfg = ArxivConfig(kind, hidden, heads=heads, bases=bases, aggrs=aggrs,
+                      gat_version=2 if kind == "gatv2" else 1, device=device)
+    if data is not None and data["device"] != cfg.device:
+        raise ValueError(f"data lives on {data['device']}, not {cfg.device}")
+    data = cfg.full_data(raw) if data is None else cfg.record(data)
+    cfg._num_classes = data["num_classes"]
+    model = cfg.model({"dropout": dropout}, seed=seed)
+    optimizer = cfg.init_state(model, {"lr": lr, "wd": wd}, data, seed)
+    rng = cfg.rng(seed)
+    losses, seconds = [], []
+    for it in range(steps):
+        t0 = time.perf_counter()
+        _, m = cfg.train(model, optimizer, data, rng, it)
+        losses.append(m["train_loss"])
+        seconds.append(time.perf_counter() - t0)
+    if not np.all(np.isfinite(losses)):
+        raise FloatingPointError(f"non-finite training loss: {losses}")
+    return TrainRun(losses, seconds, model, optimizer, data)
 
 
 class MagConfig(FullGraphConfig):
@@ -401,7 +399,6 @@ class PartitionedArxivConfig(ArxivConfig):
         super().__init__(*args, **kwargs)
         self.mesh = mesh
         self.partitions = mesh.world_size
-        self._num_classes = 40
         self._e_interior = None
 
     def data(self, hparams):
@@ -536,12 +533,8 @@ class SampledMagConfig(MagConfig):
         if nodes.is_cuda:
             g = g.replace(kernel_plan=build_kernel_plan_device(
                 g.senders, g.receivers, g.num_nodes, edge_mask=g.edge_mask))
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = masked_nll(model(g, generator=generator), y.long(), seed_mask)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return loop.train_step(model, optimizer, masked_loss(seed_mask), g,
+                               y.long(), generator)
 
     def batches(self, data, rng: torch.Generator, iteration: int):
         """The epoch's batches on the device, each ``(generator, graph, y,

@@ -5,14 +5,9 @@ Full-graph node classification of the paper nodes with ``REGCNet`` (2
 layers: a REGConv with {mean, max} per relation, then an RGCNConv to the
 classes), fixed hyperparameters (an empty grid over a ``Choice`` space),
 plateau patience 10, stopper (50, 200). One iteration is one full-graph
-step: the forward in training mode, the NLL averaged over the train
-split (``exp.fullgraph.masked_nll``), backward, one
-``torch.optim.Adam(lr, weight_decay=wd)`` step. The parameters the loss
-does not reach get a zero gradient first, so the L2 decay moves them as
-the JAX optimizer does (torch's Adam would skip them). The ``train`` hook
-is the span ``egc.step`` and ``train_step`` splits it as
-``exp.fullgraph.train_step`` does: ``egc.forward``, ``egc.loss``,
-``egc.backward`` and ``egc.optimizer`` (the zero fill included).
+step, ``train.loop.train_step`` with the NLL over the train split
+(``exp.fullgraph.masked_loss``) and ``torch.optim.Adam(lr,
+weight_decay=wd)``, in the span ``egc.step``.
 
 ``data`` pads the graph (``graph.hetero.hetero_from_numpy``) and, on the
 card, attaches one bipartite kernel plan a relation, built on the host;
@@ -51,7 +46,7 @@ from egc_tpu_torch.parallel.hetero_halo import (
 )
 from egc_tpu_torch.parallel.hetero_partition import partition_hetero
 from egc_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from egc_tpu_torch.train.loop import fold_in
+from egc_tpu_torch.train.loop import fold_in, train_step
 from egc_tpu_torch.train.metrics import split_accuracies
 from egc_tpu_torch.train.optim import plateau_init
 from egc_tpu_torch.utils.profiling import span
@@ -83,27 +78,6 @@ def hetero_to_device_dict(raw: Dict[str, Any],
             "in_features": raw["nodes"]["paper"].shape[-1],
             "num_edges": sum(len(s) for s, _ in raw["edges"].values()),
             "device": dev}
-
-
-def train_step(model: REGCNet, optimizer: torch.optim.Optimizer,
-               data: Dict[str, Any],
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One full-graph step; returns the loss (a device scalar)."""
-    model.train()
-    with span("egc.optimizer"):
-        optimizer.zero_grad(set_to_none=True)
-    with span("egc.forward"):
-        out = model(data["hetero"], generator=generator)
-    with span("egc.loss"):
-        loss = fullgraph.masked_nll(out, data["y"], data["masks"]["train"])
-    with span("egc.backward"):
-        loss.backward()
-    with span("egc.optimizer"):
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        optimizer.step()
-    return loss.detach()
 
 
 class RMagConfig(ExperimentConfig):
@@ -177,7 +151,9 @@ class RMagConfig(ExperimentConfig):
 
     def train(self, model, state, data, rng, iteration: int):
         with span("egc.step"):
-            loss = train_step(model, state, data, rng)
+            loss = train_step(model, state,
+                              fullgraph.masked_loss(data["masks"]["train"]),
+                              data["hetero"], data["y"], rng)
             return state, {"train_loss": float(loss)}
 
     @torch.no_grad()

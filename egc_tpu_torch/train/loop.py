@@ -1,5 +1,6 @@
-"""Batched training and evaluation epochs (counterpart of
-``egc_tpu.train.loop``).
+"""The step body every single-device configuration shares
+(``train_step``) and the batched training and evaluation epochs
+(counterpart of ``egc_tpu.train.loop``).
 
 ``train_epoch`` keeps each step's loss on the device until the epoch ends
 and reads them all at once, as the JAX loop does: a per-step ``float()``
@@ -81,9 +82,11 @@ def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                loss_fn: Callable, graph, y: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """One step on one batch; returns the loss (a device scalar). The
-    parameters' ``.grad`` hold this step's gradients afterwards. Dropout
-    draws from ``generator``."""
+    """One step on one batch or graph; returns the loss (a device scalar).
+    The optimizer's parameters' ``.grad`` hold this step's gradients
+    afterwards, a zero one where the loss does not reach, so that the L2
+    decay moves such a parameter as JAX's does (torch's Adam would skip
+    it). Dropout draws from ``generator``."""
     model.train()
     with span("egc.optimizer"):
         optimizer.zero_grad(set_to_none=True)
@@ -94,6 +97,10 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     with span("egc.backward"):
         loss.backward()
     with span("egc.optimizer"):
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         optimizer.step()
     return loss.detach()
 

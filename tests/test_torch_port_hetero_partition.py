@@ -30,10 +30,12 @@ import pytest
 import torch
 
 from egc_tpu_torch.data import synthetic as tsyn
+from egc_tpu_torch.exp import fullgraph
 from egc_tpu_torch.exp import hetero as thet
 from egc_tpu_torch.graph import hetero as thg
 from egc_tpu_torch.parallel import hetero_partition as tpart
 from egc_tpu_torch.parallel import mesh as tmesh
+from egc_tpu_torch.train import loop
 
 torch.set_num_threads(2)
 TIMEOUT = 120
@@ -577,7 +579,9 @@ def test_partitioned_step_equals_jax_and_one_device(groups, setup):
 
     cfg, model, data = single_device(raw, sd)
     opt = cfg.init_state(model, HP, data, 0)
-    loss = thet.train_step(model, opt, data)
+    loss = loop.train_step(model, opt,
+                           fullgraph.masked_loss(data["masks"]["train"]),
+                           data["hetero"], data["y"])
     assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
     _gate(grads, {n: p.grad.numpy() for n, p in model.named_parameters()},
           "one-device grads")

@@ -3,15 +3,17 @@
 marks ``egc.step`` and its phases, the modules and the dense products,
 nested as the benchmark's span readers take them; the spans change no
 number; the loss is ``exp.fullgraph.masked_nll``, read through the module
-so that a replacement there reaches the step, and bitwise the loss the
-step took before. No JAX here, so that the test marked ``card`` runs on
-the chip: ``python -m pytest tests/test_torch_port_hetero_spans.py
+so that a replacement there reaches the step (rmag's, and the arxiv and
+sampled steps, which share ``train.loop.train_step``), and bitwise the
+loss the step took before. No JAX here, so that the test marked ``card``
+runs on the chip: ``python -m pytest tests/test_torch_port_hetero_spans.py
 --noconftest -m card``."""
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from egc_tpu_torch.data import synthetic
 from egc_tpu_torch.exp import fullgraph
 from egc_tpu_torch.exp import hetero as thet
 from egc_tpu_torch.train.losses import gather_label_scores
@@ -75,17 +77,18 @@ def _step(spans_on: bool):
     cfg, data, model, state = _setup()
     if spans_on:
         with span_totals(), profile(activities=[ProfilerActivity.CPU]):
-            loss = thet.train_step(model, state, data, cfg.rng(3))
+            _, m = cfg.train(model, state, data, cfg.rng(3), 0)
     else:
-        loss = thet.train_step(model, state, data, cfg.rng(3))
-    return loss, {n: p.grad.clone() for n, p in model.named_parameters()}, \
+        _, m = cfg.train(model, state, data, cfg.rng(3), 0)
+    return m["train_loss"], \
+        {n: p.grad.clone() for n, p in model.named_parameters()}, \
         {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
 def test_the_spans_change_no_number():
     loss_off, grads_off, params_off = _step(False)
     loss_on, grads_on, params_on = _step(True)
-    assert torch.equal(loss_off, loss_on)
+    assert loss_off == loss_on
     assert grads_off.keys() == grads_on.keys()
     for n in grads_off:
         assert torch.equal(grads_off[n], grads_on[n]), n
@@ -117,13 +120,39 @@ def test_the_loss_is_the_shared_one_bitwise():
     assert all(torch.equal(ga[n], gb[n]) for n in ga)
 
 
-def test_a_replaced_shared_loss_reaches_the_step(monkeypatch):
-    base = _step(False)[0]
+def _full_graph_loss(cfg_class) -> float:
+    """The loss of one step of ``cfg_class`` (the arxiv config's
+    ``train``, the sampled config's ``sampled_step`` on its first batch)
+    on a 300-node graph."""
+    cfg = cfg_class("egc", 16, heads=2, bases=2, aggrs=("symnorm", "max"),
+                    device="cpu")
+    raw = synthetic.synthetic_full_graph(num_nodes=300, avg_degree=6,
+                                         num_classes=40, num_features=32)
+    cfg.load_full_graph = lambda: raw
+    data = cfg.data(HP)
+    model = cfg.model(HP, seed=0)
+    state = cfg.init_state(model, HP, data, 0)
+    if cfg_class is fullgraph.ArxivConfig:
+        return cfg.train(model, state, data, cfg.rng(3), 0)[1]["train_loss"]
+    gen, *batch = next(cfg.batches(data, cfg.rng(3), 0))
+    return float(cfg.sampled_step(model, state, data["x_full"], *batch,
+                                  generator=gen))
+
+
+STEPS = {"arxiv": lambda: _full_graph_loss(fullgraph.ArxivConfig),
+         "rmag": lambda: _step(False)[0],
+         "sampled": lambda: _full_graph_loss(fullgraph.SampledMagConfig)}
+
+
+@pytest.mark.parametrize("path", list(STEPS))
+def test_a_replaced_shared_loss_reaches_the_step(monkeypatch, path):
+    """``gnnbench/faults.py`` plants its faults by replacing
+    ``fullgraph.masked_nll``: every step must read it when it runs."""
+    base = STEPS[path]()
     nll = fullgraph.masked_nll
     monkeypatch.setattr(fullgraph, "masked_nll",
                         lambda out, y, mask: nll(out, y, mask) * 2.0)
-    assert float(_step(False)[0]) == pytest.approx(2.0 * float(base),
-                                                  rel=1e-6)
+    assert STEPS[path]() == pytest.approx(2.0 * base, rel=1e-6)
 
 
 @pytest.fixture

@@ -1,9 +1,10 @@
 """The port's spans (``egc_tpu_torch.utils.profiling.span``) and the
 benchmark's attribution of time to them (``gnnbench/spans.py``), on the
 CPU: the shared no-op while nothing reads the spans, every span of a
-full-graph step under a profiler and nested as the step runs them, the
-host time of every operation charged to a module span (backward nodes
-through their forward link), bit-identical training with spans on and
+full-graph step (and of a sampled step, which has no ``egc.step``) under
+a profiler and nested as the step runs them, the host time of every
+operation charged to a module span (backward nodes through their forward
+link), bit-identical training with spans on and
 off, a trial's phases counted by ``span_totals``, the attribution of
 device time and idle gaps on a hand-made trace with a backward thread,
 and the per-layer numbers read from hand-made records."""
@@ -37,7 +38,7 @@ PARENT = {
     "egc.conv.dense": "egc.conv", "egc.aggregate": "egc.conv",
     "egc.headmix": "egc.conv",
 }
-LAYERS = {"arxiv": 3, "mag": 2}
+LAYERS = {"arxiv": 3, "mag": 2, "sampled": 2}
 # Calls of each span in one step: ArxivNet has the input Linear and a
 # BatchNorm a layer, MagNet neither, and its pointwise runs between layers.
 ONCE = ("egc.step", "egc.forward", "egc.loss", "egc.backward", "egc.head")
@@ -53,18 +54,32 @@ def expected_counts(kind: str) -> Counter:
         want.update({"egc.embed": 1, "egc.norm": n, "egc.pointwise": n})
     else:
         want["egc.pointwise"] = n - 1
+    if kind == "sampled":                      # the loop marks no step
+        del want["egc.step"]
     return want
+
+
+def parent(name: str, kind: str):
+    """The span ``name`` runs inside in a step of ``kind``."""
+    if kind == "sampled" and PARENT[name] == "egc.step":
+        return None
+    return PARENT[name]
 
 
 def small_config(kind: str):
     """The CLI's configuration of ``kind`` on a 300-node graph on the
-    CPU (arxiv: EGC-M H4 B4 symnorm / max / mean)."""
+    CPU (arxiv: EGC-M H4 B4 symnorm / max / mean; sampled: batches of
+    64)."""
     if kind == "arxiv":
         cfg = fg.ArxivConfig("egc", 16, heads=4, bases=4,
                              aggrs=("symnorm", "max", "mean"), device="cpu")
         classes = 40
-    else:
+    elif kind == "mag":
         cfg = fg.MagConfig("egc", 16, heads=2, bases=2, device="cpu")
+        classes = 349
+    else:
+        cfg = fg.SampledMagConfig("egc", 16, heads=2, bases=2,
+                                  batch_size=64, device="cpu")
         classes = 349
     raw = synthetic.synthetic_full_graph(num_nodes=300, avg_degree=6,
                                          num_classes=classes,
@@ -82,11 +97,19 @@ def start(kind: str):
 
 
 def profiled_step(kind: str):
-    """A step, then a second one under a CPU profiler."""
+    """A step, then a second one under a CPU profiler (sampled: the
+    first batch of two epochs, each drawn before its step)."""
     cfg, model, state, data, rng = start(kind)
-    cfg.train(model, state, data, rng, 0)
+    if kind != "sampled":
+        cfg.train(model, state, data, rng, 0)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            cfg.train(model, state, data, rng, 1)
+        return prof
+    gen, *batch = next(cfg.batches(data, rng, 0))
+    cfg.sampled_step(model, state, data["x_full"], *batch, generator=gen)
+    gen, *batch = next(cfg.batches(data, rng, 1))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        cfg.train(model, state, data, rng, 1)
+        cfg.sampled_step(model, state, data["x_full"], *batch, generator=gen)
     return prof
 
 
@@ -130,16 +153,17 @@ def test_span_totals_nest_and_restore_the_outer_collector():
     assert profiling._totals is None
 
 
-@pytest.mark.parametrize("kind", ["arxiv", "mag"])
+@pytest.mark.parametrize("kind", ["arxiv", "mag", "sampled"])
 def test_a_step_under_the_profiler_shows_every_span_nested(kind):
     prof = profiled_step(kind)
     evts = [e for e in prof.events() if e.name.startswith(spans.PREFIX)]
     assert Counter(e.name for e in evts) == expected_counts(kind)
     for e in evts:
-        assert nearest_span(e) == PARENT[e.name], e.name
-        if PARENT[e.name] is not None:
+        want = parent(e.name, kind)
+        assert nearest_span(e) == want, e.name
+        if want is not None:
             outer = e.cpu_parent
-            while outer.name != PARENT[e.name]:
+            while outer.name != want:
                 outer = outer.cpu_parent
             assert outer.time_range.start <= e.time_range.start
             assert e.time_range.end <= outer.time_range.end

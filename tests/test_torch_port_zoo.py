@@ -215,14 +215,18 @@ def raw():
     return jsyn.synthetic_full_graph(num_nodes=300, avg_degree=8, seed=1)
 
 
-@pytest.mark.parametrize("kind", ZOO)
+@pytest.mark.parametrize("kind", ZOO + ("egc", "gat", "gatv2"))
 def test_train_full_graph_runs_each_kind(raw, kind):
-    """Two CPU steps of ``train_full_graph`` (PNA with the graph's
-    avg_log_deg), finite and falling."""
+    """Three CPU steps of ``train_full_graph`` (PNA with the graph's
+    avg_log_deg), finite and falling, every layer of ``kind``'s conv
+    class."""
     run = tfg.train_full_graph(raw, steps=3, kind=kind, hidden=16,
                                dropout=0.0, device="cpu")
     assert np.all(np.isfinite(run.losses))
     assert run.losses[-1] < run.losses[0]
+    want = {**CLS, "egc": "EGConv", "gat": "GATConv",
+            "gatv2": "GATv2Conv"}[kind]
+    assert [type(c).__name__ for c in run.model.convs] == [want] * 3
     if kind == "pna":
         assert run.model.convs[0].avg_log_deg == run.data["avg_log_deg"]
     if kind == "gin":
