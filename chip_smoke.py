@@ -131,7 +131,9 @@ Phases, each of which raises (exit code 1) on any failed check:
    path each BatchNorm kernel launches once a ``MaskedBatchNorm`` layer a
    step (``_per_step``; none on mag, sampled mag and rmag), and in an
    eval forward (the trial's validation, ``--pretrained``) ``bn_apply``
-   alone once a layer. Then "mag": MagNet h352 H8
+   alone once a layer; each gather-reduce launch of a path whose widths
+   share one lane geometry counts under that geometry's counter too
+   (``_variant_counts``). Then "mag": MagNet h352 H8
    B4 symnorm (2 layers, lr 0.01, wd 1e-5, dropout 0.3) through
    ``MagConfig``'s hooks on ``synthetic_full_graph`` of ogbn-mag's 736,389
    papers at average degree 15: one dropout-0 iteration against the CPU
@@ -447,19 +449,43 @@ EGC_KERNELS = ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
 # that took the tile variant (L or y_width not a multiple of 4)
 HEADMIX_TILE = {"headmix_fwd_tile": "headmix_fwd",
                 "headmix_bwd_tile": "headmix_bwd"}
+# the gather-reduce geometry counters beside its kernels' own
+# (``ops/cuda/gather_reduce.launches``): each counts the calls of its
+# kernel in that lane geometry (``lane_geometry``: split at F <= 64, a
+# split tail past the full chunks at F 132 to 192, ...)
+GATHER_GEOMETRY = {f"{k}_{g}": k for k in GATHER for g in ("split",
+                                                           "split_tail")}
 
 
-def _headmix_tiles(counts: dict, label: str, tiled=None) -> dict:
-    """``counts`` less the tile-variant counters, each checked against its
-    kernel's launches: all of them where the run's head width takes the
-    tile variant (``tiled``), none where it does not; with ``tiled`` None
-    (a run whose width this script does not name), all or none."""
+def _variant_counts(counts: dict, label: str, tiled=None,
+                    seen=None) -> dict:
+    """``counts`` less the variant counters, each checked against its
+    kernel's launches. The head mix's tile counters: all of them where the
+    run's head width takes the tile variant (``tiled``), none where it does
+    not; with ``tiled`` None (a run whose width this script does not name),
+    all or none. The gather-reduce geometry counters: where the gather
+    widths of ``seen`` (``_instantiations``) share one geometry, all of
+    that geometry's and none of another's; else no more than the kernel's
+    launches."""
+    from egc_tpu_torch.ops.cuda.gather_reduce import lane_geometry
     for tile, kernel in HEADMIX_TILE.items():
         c, base = counts.get(tile, 0), counts.get(kernel, 0)
         want = {base, 0} if tiled is None else {base if tiled else 0}
         check(c in want, f"{label} {tile} launched {c} times beside "
                          f"{base} of {kernel}, expected {sorted(want)}")
-    return {k: v for k, v in counts.items() if k not in HEADMIX_TILE}
+    geometries = {lane_geometry(f) for f, *_ in seen["gather"]} \
+        if seen else set()
+    for counter, kernel in GATHER_GEOMETRY.items():
+        c, base = counts.get(counter, 0), counts.get(kernel, 0)
+        if len(geometries) == 1:
+            want = base if counter == f"{kernel}_{min(geometries)}" else 0
+            check(c == want, f"{label} {counter} launched {c} times beside "
+                             f"{base} of {kernel}, expected {want}")
+        else:
+            check(c <= base, f"{label} {counter} launched {c} times beside "
+                             f"{base} of {kernel}")
+    return {k: v for k, v in counts.items()
+            if k not in HEADMIX_TILE and k not in GATHER_GEOMETRY}
 
 
 def _path_tiled(path: str) -> bool:
@@ -2497,7 +2523,7 @@ def phase_gat_wide(raw, data) -> dict:
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in
                       [printed["best_val"], *printed["test"].values()]),
                   f"[gat_wide] cli {kind}: metrics {printed}")
-            for name, c in _headmix_tiles(
+            for name, c in _variant_counts(
                     counts, f"[gat_wide] cli {kind}", False).items():
                 check(c > 0 if name in PATH_KERNELS[path] else c == 0,
                       f"[gat_wide] cli {kind}: {name} launched {c} times")
@@ -2848,8 +2874,8 @@ def phase_path(path: str, raw, data, d_cpu, net: dict,
               f"[{path}] gather-reduce launched as {sorted(seen['gather'])}, "
               f"the kernel rows hold {PATH_GATHER[path]}")
     norms = _norm_layers(run.model)
-    for name, c in _headmix_tiles(
-            counts, f"[{path}]", _path_tiled(path)).items():
+    for name, c in _variant_counts(
+            counts, f"[{path}]", _path_tiled(path), seen=seen).items():
         want = _per_step(path, name, norms) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
@@ -3154,8 +3180,8 @@ def _batched_path(path: str, cfg, hp: dict, steps: int) -> dict:
     data = run.data
     peak = torch.cuda.max_memory_allocated()
     norms = _norm_layers(run.model)
-    for name, c in _headmix_tiles(
-            counts, f"[{path}]", _path_tiled(path)).items():
+    for name, c in _variant_counts(
+            counts, f"[{path}]", _path_tiled(path), seen=seen).items():
         want = _per_step(path, name, norms) * steps
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
@@ -3341,8 +3367,8 @@ def phase_mag(cfg, raw, data, secs: dict, main_cpu_s: float,
     peak = torch.cuda.max_memory_allocated()
     _check_held(path, seen)
     _check_path_instantiation(path, seen)
-    for name, c in _headmix_tiles(
-            counts, f"[{path}]", _path_tiled(path)).items():
+    for name, c in _variant_counts(
+            counts, f"[{path}]", _path_tiled(path), seen=seen).items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
             else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
@@ -3432,8 +3458,8 @@ def _sampled_window(path: str, cfg, sdata) -> dict:
     peak = torch.cuda.max_memory_allocated()
     _check_held(path, seen)
     _check_path_instantiation(path, seen)
-    for name, c in _headmix_tiles(
-            counts, f"[{path}]", _path_tiled(path)).items():
+    for name, c in _variant_counts(
+            counts, f"[{path}]", _path_tiled(path), seen=seen).items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] \
             else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
@@ -3664,7 +3690,7 @@ def phase_sampled_mag(cfg, raw, data) -> dict:
             values = [printed["best_val"], *printed["test"].values()]
             check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
                   f"[sampled_mag] cli {flag}: metrics {printed}")
-            for name, c in _headmix_tiles(
+            for name, c in _variant_counts(
                     counts, f"[sampled_mag] cli {flag}", False).items():
                 check(c > 0 if name in EGC_KERNELS else c == 0,
                       f"[sampled_mag] cli {flag}: {name} launched {c} "
@@ -3764,7 +3790,8 @@ def phase_rmag(cfg, raw, data, secs: dict) -> dict:
           and seen["headmix"] == set(RMAG_HEADMIX.values()),
           f"[{path}] launched gather-reduce {sorted(seen['gather'])} and "
           f"head mix {sorted(seen['headmix'])}")
-    for name, c in _headmix_tiles(counts, f"[{path}]", False).items():
+    for name, c in _variant_counts(counts, f"[{path}]", False,
+                                   seen=seen).items():
         want = RMAG_LAUNCHES * steps if name in PATH_KERNELS[path] else 0
         check(c == want, f"[{path}] {name} launched {c} times in {steps} "
                          f"steps, expected {want}")
@@ -3945,7 +3972,7 @@ def phase_trial(raw, main_step_s: float) -> dict:
                         trial_dir=Path(tmp), verbose=False)
         trial_s = time.perf_counter() - t0
         counts = launch_counts()
-        for name, c in _headmix_tiles(
+        for name, c in _variant_counts(
                 counts, "[trial]", _path_tiled("main")).items():
             want = {"gather_reduce_fwd": layers * (2 * its + 1),
                     "headmix_fwd": layers * (2 * its + 1),
@@ -4049,7 +4076,7 @@ def phase_cli() -> dict:
                   f"[cli] {model}: metrics {printed}")
             kernels = CLI_KERNELS.get(model, GATHER) + BN_KERNELS
             tiled = CLI_HEADMIX["arxiv"].get(model, (0,) * 4)[3] % 4 != 0
-            for name, c in _headmix_tiles(counts, f"[cli] {model}",
+            for name, c in _variant_counts(counts, f"[cli] {model}",
                                           tiled).items():
                 check(c > 0 if name in kernels else c == 0,
                       f"[cli] {model}: {name} launched {c} times")
@@ -4124,7 +4151,7 @@ def phase_cli_datasets() -> dict:
                 f"[cli] {key}: metrics {printed}")
             kernels = CLI_KERNELS.get(model, GATHER) + (
                 () if dataset in NO_NORM else BN_KERNELS)
-            for name, c in _headmix_tiles(counts, f"[cli] {key}").items():
+            for name, c in _variant_counts(counts, f"[cli] {key}").items():
                 check(c > 0 if name in kernels else c == 0,
                       f"[cli] {key}: {name} launched {c} times")
             res[key] = {"printed": printed, "launches": counts,
@@ -4349,8 +4376,9 @@ def phase_partitioned(raw, data) -> dict:
                 pgrads.append(_grads(pm))
         counts = launch_counts()
         _check_path_instantiation("partitioned", seen)
-        for name, c in _headmix_tiles(
-                counts, "[partitioned]", _path_tiled("partitioned")).items():
+        for name, c in _variant_counts(
+                counts, "[partitioned]", _path_tiled("partitioned"),
+                seen=seen).items():
             want = 3 * PART_STEPS if name in PATH_KERNELS["partitioned"] \
                 else 0
             check(c == want, f"[partitioned] {name} launched {c} times in "
@@ -4415,8 +4443,8 @@ def phase_partitioned(raw, data) -> dict:
             gl = float(partitioned_train_step(gm, gopt, g, sidx, y, tmask))
         gcounts = launch_counts()
         _check_held("partitioned_gat", seen)
-        for name, c in _headmix_tiles(
-                gcounts, "[partitioned_gat]", False).items():
+        for name, c in _variant_counts(
+                gcounts, "[partitioned_gat]", False, seen=seen).items():
             want = 3 if name in PATH_KERNELS["gat"] else 0
             check(c == want, f"[partitioned_gat] {name} launched {c} times "
                              f"in a step, expected {want}")
@@ -4456,7 +4484,7 @@ def phase_partitioned(raw, data) -> dict:
             dl = float(step(dopt, zb, zy))
         dcounts = launch_counts()
         _check_held("dp", seen)
-        for name, c in _headmix_tiles(dcounts, "[dp]").items():
+        for name, c in _variant_counts(dcounts, "[dp]", seen=seen).items():
             want = _norm_layers(dm) if name in BN_KERNELS else \
                 4 if name in EGC_KERNELS else 0
             check(c == want, f"[dp] {name} launched {c} times, expected "
@@ -4786,7 +4814,8 @@ def phase_partitioned_rmag(ucfg, raw, udata) -> tuple:
                                for k, v in pstates[it].items()))
         del pstates
         ucounts = launch_counts()
-        for name, c in _headmix_tiles(counts, f"[{path}]", False).items():
+        for name, c in _variant_counts(counts, f"[{path}]", False,
+                                       seen=seen).items():
             want = RMAG_LAUNCHES * PART_STEPS if name in EGC_KERNELS else 0
             check(c == want == ucounts[name],
                   f"[{path}] {name} launched {c} times in {PART_STEPS} "
@@ -5147,8 +5176,9 @@ def _bf16_path(path: str, build, step, data) -> dict:
     _check_held(f"bf16_{path}", seen)
     _check_path_instantiation(path, seen)
     steps = 4 * BF16_TURN
-    for name, c in _headmix_tiles(
-            counts, f"[bf16_dense] {path}", _path_tiled(path)).items():
+    for name, c in _variant_counts(
+            counts, f"[bf16_dense] {path}", _path_tiled(path),
+            seen=seen).items():
         want = PATH_LAYERS[path] * steps if name in PATH_KERNELS[path] else 0
         check(c == want, f"[bf16_dense] {path}: {name} launched {c} times in "
                          f"{steps} steps, expected {want}")
@@ -5328,7 +5358,7 @@ def phase_harness() -> dict:
         check(printed.keys() == ref.keys() and all(
             abs(printed[k] - v) <= 2 / 800 + 1e-7 for k, v in ref.items()),
             f"[pretrained] printed {printed}, the in-process eval {ref}")
-        for name, c in _headmix_tiles(counts, "[pretrained]", True).items():
+        for name, c in _variant_counts(counts, "[pretrained]", True).items():
             want = 3 if name in PATH_KERNELS["pretrained"] else 0
             check(c == want, f"[pretrained] {name} launched {c} times, "
                              f"expected {want}")
@@ -5559,9 +5589,9 @@ def main(argv=None) -> int:
             path: results[path]["launches"][row["name"]]
             for path in PATH_KERNELS if row["name"] in PATH_KERNELS[path]}
         row["launches"] = sum(row["launches_by_path"].values())
-    # every kernel has its row; the tile-variant counters count launches
-    # of the head-mix rows' kernels
-    kernels = set(launch_counts()) - set(HEADMIX_TILE)
+    # every kernel has its row; the tile-variant and geometry counters
+    # count launches of the head-mix and gather-reduce rows' kernels
+    kernels = set(launch_counts()) - set(HEADMIX_TILE) - set(GATHER_GEOMETRY)
     check({r["name"] for r in rows} == kernels,
           f"kernel rows {[r['name'] for r in rows]} vs counters "
           f"{sorted(launch_counts())}")

@@ -14,7 +14,8 @@ case runs only the source it names), for example an earlier commit's
 ``ptxas`` register report kept, its output held against the plain PyTorch
 version, and timed in turns (current, the others, the others again,
 current: ``--rounds`` such passes) with CUDA events on the same inputs: the
-synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges) at F = 128.
+synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges) at F = 128,
+and the gather-reduce pair at each lane geometry of ``GATHER_SHAPES`` too.
 
 - The gather-reduce pair, for the main path's primitives (sum, wsum, max)
   and for the six aggregators sum / mean / max / min / var / std (sum,
@@ -27,7 +28,15 @@ synthetic arxiv-shaped graph (169,343 nodes, 2,368,458 edges) at F = 128.
   ``_FusedPrimitives.backward`` (an older build: the ``torch.cat`` of the
   cotangents and max / min, then its kernel; the current one: its kernel).
   Every version's outputs, d_vals included, must equal the current
-  version's bitwise.
+  version's bitwise. The same pair, the masked forward and the backward
+  kernel alone, at the shapes of ``GATHER_SHAPES``: F 136 on the arxiv
+  graph (arxiv EGC-M h136's primitives), F 176 on a graph at ogbn-mag's
+  papers (MagNet's wsum), and F 64 on rmag's largest relation, paper
+  has_topic field_of_study (7,505,078 uniform random edges from 736,389
+  papers into 59,965 fields), and on its reverse (REGConv's mean and max,
+  and the RGCN head's mean), their sums (rows of up to ~130 edges) held
+  by relative L2. Beside each gather case's median, its rate per gathered
+  byte: edges x F x 4 bytes over the time.
 - The head mix at the shapes of ``HEADMIX_SHAPES`` (arxiv EGC-M h128's
   H4 B4 A3 L32; h136's L34, the tile variant; mag's H8 B4 A1 L44 and
   rmag's H4 B4 A1 L16, both at the graph's row count), forward beside
@@ -79,6 +88,16 @@ KERNEL_SOURCES = ("gather_reduce", "headmix", "gat_attention",
                   "gatv2_attention", "gatv2_attention_wide")
 GATHER_PRIMS = {"sum,wsum,max": ("sum", "wsum", "max"),
                 "6 aggregators": ("sum", "sumsq", "max", "min")}
+# gather-reduce shapes past F 128: name -> (F, graph of ``_gather_plan``,
+# primitive sets by label)
+GATHER_SHAPES = {
+    "F136": (136, "arxiv", {"sum,wsum,max": ("sum", "wsum", "max")}),
+    "F176": (176, "mag", {"wsum": ("wsum",)}),
+    "F64 has_topic": (64, "has_topic", {"sum,max": ("sum", "max"),
+                                        "sum": ("sum",)}),
+    "F64 topic_of": (64, "topic_of", {"sum,max": ("sum", "max")}),
+}
+RMAG_HAS_TOPIC = (736_389, 59_965, 7_505_078)   # papers, fields, edges
 _COEFF_OF = {"sum": "c_sum", "wsum": "c_wsum", "sumsq": "c_sumsq2",
              "max": "c_max", "min": "c_min"}
 _OLD_SEGS = ("c_sum", "c_wsum", "c_sumsq2", "mx", "c_max", "mn", "c_min")
@@ -92,25 +111,29 @@ HUB_EDGES = 10_000   # the hub cases' extra edges into / out of one node
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def build_version(label: str, csrc: Path, sources=KERNEL_SOURCES) -> dict:
-    """nvcc each of ``sources`` in ``csrc`` into ``_build/ab_<label>/``;
-    returns ``{source: (CDLL, ptxas lines)}``."""
-    out_dir = _build.BUILD_DIR / f"ab_{label}"
-    out_dir.mkdir(parents=True, exist_ok=True)
+def build_versions(dirs: dict, sources=KERNEL_SOURCES) -> dict:
+    """nvcc each of ``sources`` in each ``{label: csrc}`` of ``dirs`` into
+    ``_build/ab_<label>/``, all at once; returns ``{label: {source: (CDLL,
+    ptxas lines)}}``."""
     procs = {}
-    for name in sources:
-        lib = out_dir / f"lib{name}.so"
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-             str(lib), str(csrc / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    built = {}
-    for name, (proc, lib) in procs.items():
+    for label, csrc in dirs.items():
+        out_dir = _build.BUILD_DIR / f"ab_{label}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for name in sources:
+            lib = out_dir / f"lib{name}.so"
+            procs[label, name] = (subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                 str(lib), str(csrc / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), lib)
+    built = {label: {} for label in dirs}
+    for (label, name), (proc, lib) in procs.items():
         report = proc.communicate()[0]
         lib.with_suffix(".log").write_text(report)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}/{name}:\n{report}")
-        built[name] = (ctypes.CDLL(str(lib)), _build.ptxas_summary(report))
+        built[label][name] = (ctypes.CDLL(str(lib)),
+                              _build.ptxas_summary(report))
     return built
 
 
@@ -128,7 +151,7 @@ def gr_fwd(lib, vals, plan, prims, with_masks=True):
     """A build's forward as the main path calls it: the outputs of
     ``prims``, then (a build with masks, unless ``with_masks`` is False)
     the max / min masks."""
-    n, f = vals.shape
+    n, f = plan.num_nodes, vals.shape[1]
     outs = {p: torch.empty(n, f, device=vals.device) for p in prims}
     bits = sum(gr._PRIM_BIT[p] for p in prims)
     w = plan.fwd_w if "wsum" in prims else None
@@ -173,7 +196,7 @@ def gr_bwd(lib, plan, coeffs, vals, words, packed=None):
     """A build's backward: this interface from ``coeffs`` and the masks
     ``words``; the one before from the packed row ``packed`` (an
     ``old_packed`` result)."""
-    n, f = vals.shape
+    n, f = plan.src_rows, vals.shape[1]
     d_vals = torch.empty(n, f, device=vals.device)
     w = plan.bwd_w if "c_wsum" in coeffs else None
     fn = lib.gather_reduce_bwd
@@ -201,7 +224,7 @@ _OWN_MASKS = {}
 def own_masks(lib, vals, plan, prims) -> dict:
     """The max / min masks of ``lib``'s own forward (made once), which its
     backward reads; none for a build before the masks."""
-    key = (id(lib), prims)
+    key = (id(lib), id(vals), id(plan), prims)
     if key not in _OWN_MASKS:
         res = gr_fwd(lib, vals, plan, prims)
         _OWN_MASKS[key] = dict(zip([m for m in gr.EXTREMA if m in prims],
@@ -219,48 +242,89 @@ def gr_backward_level(lib, plan, cts, vals, ext, words):
     return gr_bwd(lib, plan, coeffs, vals, words, packed)
 
 
-def _gather_cases(plan, randn):
-    """The gather-reduce cases at F = 128 (see the module's docstring)."""
-    cases = {}
-    n = plan.num_nodes
-    vals = randn(n, 128)
-    for label, prims in GATHER_PRIMS.items():
+def _gather_cases(cases, plan, f, prim_sets, randn, shape="",
+                  gathered=None):
+    """The gather-reduce cases of ``prim_sets`` (label -> primitives) at
+    width ``f`` on ``plan`` (see the module's docstring), named
+    ``<kernel> <shape> <label>``: the masked forward and the backward
+    kernel, and at F 128 (no ``shape``) also the forward without the masks
+    and the backward at the level of ``_FusedPrimitives.backward``.
+    ``gathered`` takes each case's gathered bytes."""
+    vals = randn(plan.src_rows, f)
+    name = f"{shape} " if shape else ""
+    for label, prims in prim_sets.items():
         masks = tuple(m for m in gr.EXTREMA if m in prims)
-        mkw = dict(masks=masks, fwd_to_bwd=plan.fwd_to_bwd)
+        w = plan.fwd_w if "wsum" in prims else None
         ref_fwd = gr.gather_reduce_fwd_plain(
-            vals, plan.rowptr, plan.fwd_senders, plan.fwd_w, prims, **mkw)
+            vals, plan.rowptr, plan.fwd_senders, w, prims, masks=masks,
+            fwd_to_bwd=plan.fwd_to_bwd)
         ext = dict(zip(prims, ref_fwd))
         words = dict(zip(masks, ref_fwd[len(prims):]))
-        cts = {p: randn(n, 128) for p in prims}
+        cts = {p: randn(plan.num_nodes, f) for p in prims}
         coeffs = {_COEFF_OF[p]: c for p, c in cts.items()}
         packed = old_packed(coeffs, ext)
-        bkw = dict(coeffs, edge_w=plan.bwd_w, vals=vals,
+        bkw = dict(coeffs, edge_w=plan.bwd_w if "c_wsum" in coeffs else None,
+                   vals=vals if "c_sumsq2" in coeffs else None,
                    max_mask=words.get("max"), min_mask=words.get("min"))
         ref_bwd = (gr.gather_reduce_bwd_plain(
             plan.colptr, plan.bwd_receivers, **bkw),)
+        fwd, bwd = (f"gather_reduce_{k} {name}{label}" for k in ("fwd",
+                                                                 "bwd"))
+        # a shape's sums over rows of up to ~130 edges: by relative L2
+        sums = {i: None for i, prim in enumerate(prims)
+                if shape and prim not in gr.EXTREMA}
+        cases[fwd] = (
+            "gather_reduce",
+            lambda lib, p=prims: gr_fwd(lib, vals, plan, p), ref_fwd, sums,
+            None, True)
+        cases[bwd] = (
+            "gather_reduce",
+            lambda lib, c=coeffs, p=prims, pk=packed: gr_bwd(
+                lib, plan, c, vals, own_masks(lib, vals, plan, p), pk),
+            ref_bwd, {0: None} if shape else {}, None, True)
+        if gathered is not None:
+            gathered[fwd] = gathered[bwd] = int(plan.rowptr[-1]) * f * 4
+        if shape:
+            continue
         level_kw = dict(bkw, c_sumsq2=2.0 * cts["sumsq"]) \
             if "sumsq" in cts else bkw
         ref_level = (gr.gather_reduce_bwd_plain(
             plan.colptr, plan.bwd_receivers, **level_kw),)
-        cases[f"gather_reduce_fwd {label}"] = (
-            "gather_reduce",
-            lambda lib, p=prims: gr_fwd(lib, vals, plan, p), ref_fwd, {},
-            None, True)
-        cases[f"gather_reduce_fwd {label}, no mask"] = (
+        cases[f"{fwd}, no mask"] = (
             "gather_reduce",
             lambda lib, p=prims: gr_fwd(lib, vals, plan, p, False),
             ref_fwd[:len(prims)], {}, None, True)
-        cases[f"gather_reduce_bwd {label}"] = (
-            "gather_reduce",
-            lambda lib, c=coeffs, p=prims, pk=packed: gr_bwd(
-                lib, plan, c, vals, own_masks(lib, vals, plan, p), pk),
-            ref_bwd, {}, None, True)
-        cases[f"gather_reduce_bwd {label}, _FusedPrimitives.backward"] = (
+        cases[f"{bwd}, _FusedPrimitives.backward"] = (
             "gather_reduce",
             lambda lib, c=cts, x=ext, p=prims: gr_backward_level(
                 lib, plan, c, vals, x, own_masks(lib, vals, plan, p)),
             ref_level, {}, None, True)
-    return cases
+
+
+def _gather_plan(graph, arxiv_plan, dev):
+    """The plan of a ``GATHER_SHAPES`` graph: "arxiv" the arxiv graph's;
+    "mag" a synthetic graph at ogbn-mag's papers and degree 15; "has_topic"
+    rmag's paper -> field_of_study relation (``RMAG_HAS_TOPIC``, uniform
+    random distinct pairs) and "topic_of" its reverse."""
+    import numpy as np
+    from egc_tpu_torch.data.synthetic import synthetic_full_graph
+    from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
+    from egc_tpu_torch.ops.dispatch import build_bipartite_kernel_plan
+    if graph == "arxiv":
+        return arxiv_plan
+    if graph == "mag":
+        raw = synthetic_full_graph(num_nodes=736_389, avg_degree=15,
+                                   num_features=128, num_classes=349, seed=0)
+        return full_graph_to_device_dict(raw, dev)["graph"].kernel_plan
+    papers, fields, count = RMAG_HAS_TOPIC
+    rng = np.random.default_rng(0)
+    keys = np.unique(rng.integers(0, papers * fields, count + count // 100,
+                                  dtype=np.int64))
+    keys = rng.permutation(keys)[:count]
+    s, r = keys // fields, keys % fields
+    if graph == "has_topic":
+        return build_bipartite_kernel_plan(s, r, papers, fields, device=dev)
+    return build_bipartite_kernel_plan(r, s, fields, papers, device=dev)
 
 
 def headmix_fwd(lib, w2d, ys, bias, H, B, A, L):
@@ -482,11 +546,13 @@ def _hub_plan(plan, dev):
     return build_kernel_plan(s, r, n, device=dev)
 
 
-def _cases(dev):
+def _cases(dev, may_want, gathered):
     """case -> (kernel source, run(lib) -> outputs, the plain version's
     outputs, the indices of the outputs held by relative L2, (name, the
     library call) or None, whether every version's outputs must equal the
-    current version's bitwise)."""
+    current version's bitwise). A family of cases is built only where
+    ``may_want`` keeps its names' stem; ``gathered`` takes the gather
+    cases' gathered bytes."""
     from egc_tpu_torch.data.synthetic import synthetic_full_graph
     from egc_tpu_torch.exp.fullgraph import full_graph_to_device_dict
     raw = synthetic_full_graph(num_nodes=169_343, avg_degree=14,
@@ -498,10 +564,19 @@ def _cases(dev):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    cases = _gather_cases(plan, randn)
-    for H, B, A, L in HEADMIX_SHAPES:
+    cases = {}
+    if any(may_want(f"gather_reduce_{k} {label}") for k in ("fwd", "bwd")
+           for label in GATHER_PRIMS):
+        _gather_cases(cases, plan, 128, GATHER_PRIMS, randn,
+                      gathered=gathered)
+    for shape, (f, graph, prim_sets) in GATHER_SHAPES.items():
+        if any(may_want(f"gather_reduce_{k} {shape}") for k in ("fwd",
+                                                                "bwd")):
+            _gather_cases(cases, _gather_plan(graph, plan, dev), f,
+                          prim_sets, randn, shape, gathered)
+    for H, B, A, L in HEADMIX_SHAPES if may_want("headmix_") else ():
         _headmix_cases(cases, H, B, A, L, n, randn)
-    for heads, c in GAT_SHAPES:
+    for heads, c in GAT_SHAPES if may_want("gat_") else ():
         f = heads * c
         wh, a_src, a_dst = randn(n, f), randn(n, heads), randn(n, heads)
         g_o, g_d = randn(n, f, scale=1 / math.sqrt(c)), randn(n, heads)
@@ -523,8 +598,10 @@ def _cases(dev):
             (at.gat_bwd_f_plain(*bwd_f),), {}, None, False)
     narrow = ("gatv2_attention", gatv2_fwd, gatv2_bwd_t, gatv2_bwd_f)
     wide = ("gatv2_attention_wide", gatv2w_fwd, gatv2w_bwd_t, gatv2w_bwd_f)
-    for heads, c in GATV2_SHAPES:
+    for heads, c in GATV2_SHAPES if may_want("gatv2_") else ():
         _v2_cases(cases, plan, heads, c, narrow, randn)
+    if not may_want("gatv2w_"):
+        return cases
     hub = _hub_plan(plan, dev)
     for heads, c in GATV2_WIDE_SHAPES:
         _v2_cases(cases, plan, heads, c, wide, randn)
@@ -581,13 +658,17 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    cases = {c: v for c, v in _cases(dev).items() if args.cases is None
-             or any(c.startswith(p) for p in args.cases)}
+    def may_want(stem):   # a case whose name starts with ``stem``
+        return args.cases is None or any(
+            p.startswith(stem) or stem.startswith(p) for p in args.cases)
+
+    gathered = {}
+    cases = {c: v for c, v in _cases(dev, may_want, gathered).items()
+             if args.cases is None or any(c.startswith(p)
+                                          for p in args.cases)}
     sources = sorted({v[0] for v in cases.values()})
-    versions = {"current": build_version("current", _build.CSRC, sources)}
-    for d in args.versions:
-        versions[Path(d).name] = build_version(Path(d).name, Path(d),
-                                               sources)
+    versions = build_versions({"current": _build.CSRC, **{
+        Path(d).name: Path(d) for d in args.versions}}, sources)
     for label, built in versions.items():
         for name, (_, report) in built.items():
             for line in report:
@@ -629,20 +710,26 @@ def main(argv=None) -> int:
                 r["version"], []).append(r["ms"])
     summary = {c: {v: statistics.median(t) for v, t in vs.items()}
                for c, vs in summary.items()}
-    registers = {}
+    registers, rates = {}, {}
     for case, by_version in summary.items():
         kernel = case.split()[0] + "_"
         for label, ms in by_version.items():
             lines = [ln for ln in versions[label][cases[case][0]][1]
                      if ln.startswith(kernel)] if label in versions else []
             registers.setdefault(case, {})[label] = lines
-            print(f"[median] {case} | {label}: {ms:.4f} ms | "
+            rate = ""
+            if case in gathered:
+                rates.setdefault(case, {})[label] = gathered[case] / ms / 1e6
+                rate = f" ({rates[case][label]:.1f} GB/s gathered)"
+            print(f"[median] {case} | {label}: {ms:.4f} ms{rate} | "
                   f"{'; '.join(lines) or '-'}", flush=True)
-    print(json.dumps({"summary_median_ms": summary, "card": smi}))
+    print(json.dumps({"summary_median_ms": summary,
+                      "gathered_gb_per_s": rates, "card": smi}))
     print(smi)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"results": results, "summary": summary, "card": smi,
+            json.dump({"results": results, "summary": summary,
+                       "gathered_gb_per_s": rates, "card": smi,
                        "registers": registers,
                        "ptxas": {f"{lb}/{n}": rep for lb, b in versions.items()
                                  for n, (_, rep) in b.items()}}, fh, indent=1)

@@ -20,10 +20,14 @@
 The mask layout is that of the kernel's lanes (``csrc/gather_reduce.cu``):
 a lane holds ``lane_vec(F)`` consecutive columns, and for each chunk of
 ``32 * vec`` columns an edge has ``vec`` words, bit l of word i being
-column ``chunk * 32 * vec + l * vec + i``.
+column ``chunk * 32 * vec + l * vec + i``. Which lanes hold which rows and
+columns is ``lane_geometry(F)``; it leaves the layout, the outputs and
+their order of addition as they are.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel in
-``csrc/gather_reduce.cu`` or raises. ``launches`` counts kernel launches.
+``csrc/gather_reduce.cu`` or raises. ``launches`` counts kernel launches:
+``gather_reduce_fwd`` and ``gather_reduce_bwd`` every call, the ``_split``
+and ``_split_tail`` counters those of that geometry.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ EXTREMA = ("max", "min")
 COEFFS = ("c_sum", "c_wsum", "c_sumsq2", "c_max", "c_min")
 _PRIM_BIT = {p: 1 << i for i, p in enumerate(PRIMS)}
 
-launches: Dict[str, int] = {"gather_reduce_fwd": 0, "gather_reduce_bwd": 0}
+GEOMETRIES = ("chunks", "split", "split_tail")   # by the kernels' number
+launches: Dict[str, int] = {
+    "gather_reduce_fwd": 0, "gather_reduce_bwd": 0,
+    "gather_reduce_fwd_split": 0, "gather_reduce_bwd_split": 0,
+    "gather_reduce_fwd_split_tail": 0, "gather_reduce_bwd_split_tail": 0}
 
 
 def _row_ids(ptr: torch.Tensor) -> torch.Tensor:
@@ -51,7 +59,8 @@ def _row_ids(ptr: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the mask layout (``lane_vec`` and ``mask_words`` in csrc/gather_reduce.cu)
+# the lane layout (``lane_vec``, ``mask_words`` and ``lane_geometry`` in
+# csrc/gather_reduce.cu)
 # ---------------------------------------------------------------------------
 
 def lane_vec(f: int) -> int:
@@ -64,6 +73,20 @@ def mask_words(f: int) -> int:
     chunk of ``32 * lane_vec(f)`` columns."""
     vec = lane_vec(f)
     return -(-f // (32 * vec)) * vec
+
+
+def lane_geometry(f: int) -> str:
+    """The kernels' lane geometry at width ``f``, of ``GEOMETRIES``. At
+    ``lane_vec(f) == 4`` a tail of 1 to 16 float4 slots past the last full
+    chunk of 128 columns walks in split groups (several rows a warp):
+    "split" where the tail is the whole row (F <= 64), "split_tail" after
+    a pass of one warp a row over the full chunks (F 132 to 192, 260 to
+    320, ...); else "chunks", one warp a row walking once a chunk of
+    ``32 * lane_vec(f)`` columns."""
+    tail = f // 4 % 32 if lane_vec(f) == 4 else 0
+    if tail == 0 or tail > 16:
+        return "chunks"
+    return "split" if f <= 64 else "split_tail"
 
 
 def pack_mask(bits: torch.Tensor) -> torch.Tensor:
@@ -227,10 +250,13 @@ def _entry(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
-def _launched(err: int, kernel: str) -> None:
+def _launched(err: int, kernel: str, f: int) -> None:
     if err:
         _build.check_launch(err, kernel, _build.library("gather_reduce"))
     launches[kernel] += 1
+    geometry = lane_geometry(f)
+    if geometry != "chunks":
+        launches[f"{kernel}_{geometry}"] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -283,7 +309,7 @@ def _launch_fwd(vals, rowptr, senders, edge_w, prims, masks, fwd_to_bwd):
                  *[_ptr(outs.get(p)) for p in PRIMS],
                  *[_ptr(words.get(m)) for m in EXTREMA],
                  torch.cuda.current_stream(dev).cuda_stream)
-    _launched(err, "gather_reduce_fwd")
+    _launched(err, "gather_reduce_fwd", f)
     return tuple(outs[p] for p in prims) + tuple(words[m] for m in masks)
 
 
@@ -315,13 +341,18 @@ def _launch_bwd(colptr, receivers, *, c_sum=None, c_wsum=None, edge_w=None,
         err = fn(*[_ptr(t) for t in ins], colptr.data_ptr(),
                  receivers.data_ptr(), _ptr(edge_w), n, f, d_vals.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
-    _launched(err, "gather_reduce_bwd")
+    _launched(err, "gather_reduce_bwd", f)
     return d_vals
 
 
 def kernel_mask_words(f: int) -> int:
     """``mask_words(f)`` as the compiled kernels reckon it."""
     return _entry("gather_reduce_mask_words", [_I])(f)
+
+
+def kernel_lane_geometry(f: int) -> str:
+    """``lane_geometry(f)`` as the compiled kernels reckon it."""
+    return GEOMETRIES[_entry("gather_reduce_geometry", [_I])(f)]
 
 
 # ---------------------------------------------------------------------------

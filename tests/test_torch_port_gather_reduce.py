@@ -352,6 +352,47 @@ def test_mask_words_layout():
     assert [tgr.lane_vec(f) for f in (128, 136, 40, 37)] == [4, 4, 4, 1]
 
 
+# widths of the card tests (tests/test_torch_port_gather_reduce_card.py)
+# and their lane geometries
+GEOMETRY_WIDTHS = {16: "split", 32: "split", 37: "chunks", 40: "split",
+                   64: "split", 128: "chunks", 136: "split_tail",
+                   176: "split_tail", 256: "chunks", 260: "split_tail"}
+
+
+def test_lane_geometry():
+    """F alone picks the geometry: a tail of 1 to 16 float4 slots past
+    the full chunks of 128 columns walks in split groups, the whole row up
+    to F 64 ("split"), after the chunks' pass above ("split_tail"); a tail
+    of 17 to 31 slots, none, or F % 4 != 0 walks in chunks alone. The mask
+    layout stays ``lane_vec``'s."""
+    assert {f: tgr.lane_geometry(f) for f in GEOMETRY_WIDTHS} \
+        == GEOMETRY_WIDTHS
+    assert [tgr.lane_geometry(f) for f in (4, 68, 124, 132, 192, 196, 257,
+                                           320, 324)] \
+        == ["split", "chunks", "chunks", "split_tail", "split_tail",
+            "chunks", "chunks", "split_tail", "chunks"]
+    assert set(map(tgr.lane_geometry, range(1, 600))) == set(tgr.GEOMETRIES)
+
+
+@pytest.mark.parametrize("f", list(GEOMETRY_WIDTHS))
+def test_launch_counters_follow_the_geometry(f):
+    """Every call counts under its kernel, and a split or split-tail
+    launch under that geometry's counter too."""
+    from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    tgr._launched(0, "gather_reduce_fwd", f)
+    tgr._launched(0, "gather_reduce_bwd", f)
+    tgr._launched(0, "gather_reduce_bwd", f)
+    want = dict.fromkeys(tgr.launches, 0)
+    want.update(gather_reduce_fwd=1, gather_reduce_bwd=2)
+    if GEOMETRY_WIDTHS[f] != "chunks":
+        want[f"gather_reduce_fwd_{GEOMETRY_WIDTHS[f]}"] = 1
+        want[f"gather_reduce_bwd_{GEOMETRY_WIDTHS[f]}"] = 2
+    assert {k: launch_counts()[k] for k in tgr.launches} == want
+    reset_launch_counts()
+    assert all(v == 0 for v in tgr.launches.values())
+
+
 def emulate_kernel_record(vals, plan, op):
     """The forward kernel's record, in torch: one pass over each row's
     in-edges in CSR order keeping, per feature, the first edge at the

@@ -165,7 +165,8 @@ def card():
 @pytest.mark.card
 def test_a_step_launches_each_egc_kernel_nine_times(card):
     """6 relations in the REGConv and 3 in the RGCN head: 9 gather-reduce
-    pairs; 3 root and 6 relation head mixes; no BatchNorm."""
+    pairs, each in the split geometry at this net's F 8; 3 root and 6
+    relation head mixes; no BatchNorm."""
     from egc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     cfg, data, model, state = _setup(card)
     rng = cfg.rng(0)
@@ -174,8 +175,9 @@ def test_a_step_launches_each_egc_kernel_nine_times(card):
     steps = 3
     for it in range(1, steps + 1):
         cfg.train(model, state, data, rng, it)
-    egc = ("gather_reduce_fwd", "gather_reduce_bwd", "headmix_fwd",
-           "headmix_bwd")
+    egc = ("gather_reduce_fwd", "gather_reduce_bwd",
+           "gather_reduce_fwd_split", "gather_reduce_bwd_split",
+           "headmix_fwd", "headmix_bwd")
     counts = launch_counts()
     assert {k: counts[k] for k in egc} == {k: 9 * steps for k in egc}
     assert all(v == 0 for k, v in counts.items() if k not in egc), counts

@@ -87,6 +87,10 @@ def test_cpu_run_launches_no_kernel():
                                heads=4, device="cpu")
         assert len(run.losses) == 2 and np.all(np.isfinite(run.losses))
     assert set(launch_counts()) == {"gather_reduce_fwd", "gather_reduce_bwd",
+                                    "gather_reduce_fwd_split",
+                                    "gather_reduce_bwd_split",
+                                    "gather_reduce_fwd_split_tail",
+                                    "gather_reduce_bwd_split_tail",
                                     "headmix_fwd", "headmix_bwd",
                                     "headmix_fwd_tile", "headmix_bwd_tile",
                                     "gat_fwd",
